@@ -1,0 +1,436 @@
+#!/usr/bin/env python3
+"""Chip smoke run of the PyTorch/CUDA port (flnerf_tpu_torch) on one NVIDIA
+H100.  Run from the repository root:
+
+    python3 chip_smoke.py
+
+Phases (any failure raises, and the script exits non-zero):
+  1. the card's name and power limit; build every CUDA kernel of the port
+     (one nvcc per source, all at once) and report the build seconds;
+  2. the fused cuvol kernels K1 (forward) and K2 (backward) against their
+     plain version, models/voxel_sh.voxel_render_rays with autograd, at the
+     shapes the main path gives them: a 256^3 grid (a filled sphere, ~10% of
+     cells pruned), 1792 steps (3.5 * 256 / 0.5), and the main path's own
+     first training batch (5000 rays from the quadtree budgeter over the
+     synthetic scene's 48x48 train views, grid radius 1.2, in the trainer's
+     ray order on the card, built as cli/opt.py builds them); K1 also on one
+     48x48 test view (2304 rays, the eval render's one chunk);
+  3. the main path: cli/opt.py main on the synthetic scene at 256^3 for 3
+     epochs on the card (syn.json's first-stage width: SH degree 3, batch
+     5000, 1792 steps), with the launch counters set to 0 just before and
+     read just after; train PSNR must rise and the test PSNR be finite;
+     3b. a profiled rerun (2 epochs, no checkpoints): where the device time
+     goes;
+     3c. train rays/s over epochs 2-10 of a 10-epoch run (no checkpoints);
+  4. K1, K2's kernel body (its gradients zero-filled outside the timed
+     loop; the zero-fill timed apart) and the plain version, by CUDA events
+     on phase 2's training batch, beside the least time the card could take
+     for the same work; then K1/K2 on batches in the budgeter's shuffled
+     order against the trainer's coherence order (morton, 64-ray blocks) at
+     48x48 and 800x800 train views, and on one eval chunk of a test view in
+     raster against morton order.
+
+The last lines are one JSON object describing the kernels, the card's name
+and power limit as nvidia-smi gives them, and
+{"ok": true, "device": {...}}.  With no CUDA device, or with the port
+missing, it exits non-zero and prints no result.
+"""
+
+import json
+import math
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, f32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+RESO = 256
+STEP = 0.5
+MAX_STEPS = int(3.5 * RESO / STEP)
+BATCH = 5000               # cli/opt.py --batch_size: the rays of one train step
+SCENE_RADIUS = 1.2         # cli/opt.py's grid radius for the synthetic scene
+# floating-point operations per marched sample, counted from the kernels'
+# source: sample position (6), trilinear weights (19), 28 channels x 8
+# corners multiply-adds (448), 3 SH dot products (54), compositing (15);
+# the backward recomputes that and adds a multiply-add per channel and
+# corner (448) and the transmittance gradient (30)
+FWD_FLOPS_PER_SAMPLE = 542
+BWD_FLOPS_PER_SAMPLE = 542 + 448 + 30
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def smi_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters):
+    import torch
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def sphere_grid(device):
+    """The bench's filled sphere at 256^3 (density U(0,2), SH N(0,0.3^2)
+    inside r < 0.55), with ~10% of all cells pruned, from a seed."""
+    import torch
+    from flnerf_tpu_torch.models.voxel_sh import VoxelGrid
+    gen = torch.Generator(device=device).manual_seed(0)
+    idx = (torch.arange(RESO, device=device, dtype=torch.float32) - (RESO - 1) / 2) / (RESO / 2)
+    x, y, z = torch.meshgrid(idx, idx, idx, indexing="ij")
+    inside = torch.sqrt(x * x + y * y + z * z) < 0.55
+    shape = (RESO,) * 3
+    density = torch.where(inside, 2.0 * torch.rand(shape, generator=gen, device=device), 0.0)
+    sh = torch.where(inside[..., None],
+                     0.3 * torch.randn(shape + (27,), generator=gen, device=device), 0.0)
+    alive = torch.rand(shape, generator=gen, device=device) > 0.1
+    return VoxelGrid(density, sh, alive)
+
+
+def scene():
+    """The synthetic scene as cli/opt.py loads it: 8 train and 2 test views
+    at 48x48, their poses and intrinsics."""
+    from flnerf_tpu_torch.data.synthetic import load_synthetic_data
+    from flnerf_tpu_torch.rays.camera import intrinsics_matrix
+    images, poses, _, hwf, (i_train, _, i_test) = load_synthetic_data(
+        n_train=8, n_test=2, H=48, W=48)
+    H, W, focal = int(hwf[0]), int(hwf[1]), hwf[2]
+    return images, poses, H, W, focal, intrinsics_matrix(H, W, focal), i_train, i_test
+
+
+def first_epoch(images, poses, H, W, K, i_train):
+    """The quadtree budgeter's first epoch, as cli/opt.py and the trainer
+    draw it (init_level 2, seed 0): rays in the budgeter's shuffled order."""
+    from flnerf_tpu_torch.rays.camera import get_rays_np
+    from flnerf_tpu_torch.rays.quadtree import RayBudgeter
+    rays = [get_rays_np(H, W, K, p[:3, :4]) for p in poses[i_train]]
+    budgeter = RayBudgeter(images[i_train], np.stack([r[0] for r in rays]),
+                           np.stack([r[1] for r in rays]), init_level=2, seed=0)
+    return budgeter.gen_rays()
+
+
+def wide_batches(poses, i_train, size, device):
+    """One training batch from the train views rendered at size x size (the
+    lego views' 800x800): BATCH pixels drawn uniformly over all views (what
+    the budgeter's shuffle gives at a full-pixel budget), and the first BATCH
+    pixels of the trainer's coherence order of every pixel."""
+    import torch
+    from flnerf_tpu_torch.rays.camera import get_rays_np, intrinsics_matrix
+    from flnerf_tpu_torch.train.plenoxels_trainer import coherence_order
+    K = intrinsics_matrix(size, size, 0.9 * size)
+    rays = [get_rays_np(size, size, K, p[:3, :4]) for p in poses[i_train]]
+    o_all = np.stack([r[0] for r in rays]).reshape(-1, 3)
+    d_all = np.stack([r[1] for r in rays]).reshape(-1, 3)
+    n_all = o_all.shape[0]
+    shuffled = np.random.default_rng(0).choice(n_all, BATCH, replace=False)
+    flat = np.arange(n_all)
+    img, pix = flat // (size * size), flat % (size * size)
+    ordered = coherence_order(pix // size, pix % size, img, np.random.default_rng(0))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+    return {"shuffled": (t(o_all[shuffled]), t(d_all[shuffled])),
+            "coherent": (t(o_all[ordered[:BATCH]]), t(d_all[ordered[:BATCH]]))}
+
+
+def eval_chunks(pose, size, chunk, device):
+    """The eval chunk (``--eval_chunk`` rays) of a size x size test view that
+    holds its center pixel, in raster and in morton order."""
+    import torch
+    from flnerf_tpu_torch.ops.voxel_kernel import morton_order
+    from flnerf_tpu_torch.rays.camera import get_rays_np, intrinsics_matrix
+    ro, rd = get_rays_np(size, size, intrinsics_matrix(size, size, 0.9 * size), pose[:3, :4])
+    ro, rd = ro.reshape(-1, 3), rd.reshape(-1, 3)
+    yy, xx = np.meshgrid(np.arange(size), np.arange(size), indexing="ij")
+    center = (size // 2) * size + size // 2
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+    out = {}
+    for name, order in (("raster", np.arange(size * size)),
+                        ("morton", morton_order(xx.reshape(-1), yy.reshape(-1),
+                                                np.zeros(size * size, np.int64)))):
+        k = int(np.nonzero(order == center)[0][0]) // chunk * chunk
+        out[name] = (t(ro[order[k:k + chunk]]), t(rd[order[k:k + chunk]]))
+    return out
+
+
+def work_counts(grid, cfg, o, d):
+    """What this run's data needs: the marched samples (t <= tmax) and the
+    distinct cells their corners touch (all, and alive)."""
+    import torch
+    from flnerf_tpu_torch.models.voxel_sh import grid_ray_setup
+    origins, dirs, tmin, tmax, _, _ = grid_ray_setup(cfg, o, d)
+    steps = torch.arange(cfg.max_steps, device=o.device)
+    hi = torch.tensor([r - 1.0 for r in cfg.reso], device=o.device)
+    cells, n_samples = [], 0
+    for i in range(0, o.shape[0], 128):
+        ts = tmin[i:i + 128, None] + cfg.step_size * steps[None, :]
+        valid = ts <= tmax[i:i + 128, None]
+        pos = origins[i:i + 128, None, :] + ts[..., None] * dirs[i:i + 128, None, :]
+        pos = pos[valid]
+        n_samples += pos.shape[0]
+        pos = torch.minimum(torch.clamp(pos, min=0.0), hi)
+        l = torch.minimum(torch.floor(pos), hi - 1.0).long()
+        for c in range(8):
+            ix, iy, iz = l[:, 0] + (c >> 2), l[:, 1] + ((c >> 1) & 1), l[:, 2] + (c & 1)
+            cells.append(((ix * cfg.reso[1] + iy) * cfg.reso[2] + iz).unique())
+    cells = torch.cat(cells).unique()
+    n_alive = int(grid.alive.reshape(-1)[cells].sum())
+    return n_samples, int(cells.numel()), n_alive
+
+
+def upstream_grad(out, gt):
+    """d/d(out) of mean((rgb - gt)^2) + 0.1 * sum(log_T): phase 2's loss."""
+    import torch
+    g = torch.zeros_like(out)
+    g[:, :3] = 2.0 * (out[:, :3] - gt) / gt.numel()
+    g[:, 4] = 0.1
+    return g
+
+
+def kernel_ms(grid, cfg, o, d, gt, iters=20):
+    """K1 and K2's kernel body on one batch, by CUDA events.  K2 adds into
+    gradient buffers zero-filled once, outside the timed loop."""
+    import torch
+    from flnerf_tpu_torch.ops import voxel_kernel as vk
+    ray_in = vk.ray_inputs(cfg, o, d)
+    out = vk.cuvol_forward(*grid, *ray_in, cfg)
+    grad_out = upstream_grad(out, gt)
+    grads = (torch.zeros_like(grid.density), torch.zeros_like(grid.sh))
+    k1 = cuda_ms(lambda: vk.cuvol_forward(*grid, *ray_in, cfg), iters)
+    k2 = cuda_ms(lambda: vk.cuvol_backward(*grid, *ray_in, out, grad_out, cfg,
+                                           grads=grads), iters)
+    return k1, k2
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    from flnerf_tpu_torch.cli import opt
+    from flnerf_tpu_torch.models.voxel_sh import VoxelGrid, VoxelGridConfig, voxel_render_rays
+    from flnerf_tpu_torch.ops import _build, voxel_kernel as vk
+    from flnerf_tpu_torch.rays.camera import get_rays
+    from flnerf_tpu_torch.train.plenoxels_trainer import coherence_order
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    smi = smi_line()
+    print(f"[phase 1] card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}",
+          flush=True)
+    t0 = time.time()
+    _build.build_all()
+    build_s = time.time() - t0
+    for name in _build.sources():
+        regs = [ln.strip() for ln in _build.build_log(name).splitlines()
+                if "registers" in ln or "spill" in ln]
+        print(f"[phase 1] {name}.cu ptxas: " + " | ".join(regs))
+    print(f"[phase 1] built {_build.sources()} in {build_s:.1f} s", flush=True)
+
+    # ---- phase 2: K1 and K2 against the plain version, main-path shapes ----
+    cfg = VoxelGridConfig(reso=(RESO,) * 3, radius=(SCENE_RADIUS,) * 3,
+                          max_steps=MAX_STEPS, step_size=STEP)
+    grid = sphere_grid(dev)
+    images, poses, H, W, focal, K, i_train, i_test = scene()
+    epoch = first_epoch(images, poses, H, W, K, i_train)
+    # the trainer's first batch on the card: its order rng is seeded with 0
+    first = coherence_order(epoch.px, epoch.py, epoch.img, np.random.default_rng(0))[:BATCH]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    o, d, gt = t(epoch.origins[first]), t(epoch.dirs[first]), t(epoch.rgb[first])
+    eo, ed = (r.reshape(-1, 3).contiguous() for r in get_rays(H, W, K, poses[i_test[0]][:3, :4], dev))
+
+    def render_and_grad(fn):
+        dens = grid.density.clone().requires_grad_(True)
+        sh = grid.sh.clone().requires_grad_(True)
+        out = fn(VoxelGrid(dens, sh, grid.alive))
+        # loss with an upstream gradient on log-T as well as on rgb
+        loss = torch.mean((out[:, :3] - gt) ** 2) + 0.1 * torch.sum(out[:, 4])
+        gd, gs = torch.autograd.grad(loss, [dens, sh])
+        return out.detach(), gd, gs
+
+    def channel_errs(a, b):
+        err = (a - b).abs().amax(0).tolist()
+        return {"rgb": max(err[0:3]), "depth": err[3], "log_t": err[4], "acc": err[5]}
+
+    def check_fwd(errs, what):
+        for k, tol in (("rgb", 1e-4), ("acc", 1e-4), ("log_t", 1e-4), ("depth", 1e-2)):
+            check(errs[k] <= tol, f"K1 {k} differs from the plain version by "
+                                  f"{errs[k]} > {tol} ({what})")
+
+    out_k, gd_k, gs_k = render_and_grad(lambda gr: vk.render_rays_fused(gr, o, d, cfg))
+    out_p, gd_p, gs_p = render_and_grad(lambda gr: vk.render_rays_plain(gr, o, d, cfg))
+    torch.cuda.synchronize()
+    errs = channel_errs(out_k, out_p)
+    g_err = {"grad_density": float((gd_k - gd_p).abs().max()),
+             "grad_sh": float((gs_k - gs_p).abs().max())}
+    g_scale = {"grad_density": float(gd_p.abs().max()), "grad_sh": float(gs_p.abs().max())}
+    print(f"[phase 2] {BATCH}-ray training batch: K1 max_err per channel {errs}; "
+          f"K2 max_err {g_err} (scale {g_scale})", flush=True)
+    check_fwd(errs, "training batch")
+    for k in g_err:
+        check(g_scale[k] > 0 and g_err[k] <= 1e-4 * g_scale[k],
+              f"K2 {k} differs from the plain version by {g_err[k]} > 1e-4 * {g_scale[k]}")
+    check(bool(torch.isfinite(out_k).all()), "K1 output not finite")
+    check(float(out_k[:, 5].max()) > 0.1, "the training batch's rays miss the sphere")
+    with torch.no_grad():
+        eval_errs = channel_errs(vk.render_rays_fused(grid, eo, ed, cfg),
+                                 vk.render_rays_plain(grid, eo, ed, cfg))
+    print(f"[phase 2] {eo.shape[0]}-ray test view: K1 max_err per channel {eval_errs}",
+          flush=True)
+    check_fwd(eval_errs, "test view")
+    k1_err = max(float((out_k - out_p).abs().max()), max(eval_errs.values()))
+    k2_err = max(g_err.values())
+    del out_k, out_p, gd_k, gs_k, gd_p, gs_p
+
+    # ---- phase 3: the main path, through the CLI on the card ----
+    reso_arg = f"[[{RESO},{RESO},{RESO}]]"
+    vk.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        res = opt.main(["synthetic", "-t", tmp, "--reso", reso_arg, "--n_epochs", "3"])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        fwd_launches, bwd_launches = vk.FWD_LAUNCHES, vk.BWD_LAUNCHES
+        ckpts = sorted(f for f in os.listdir(tmp) if f.endswith(".npz"))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hist = res["history"]
+    psnrs = [h["train_psnr"] for h in hist]
+    steps = hist[-1]["steps"]
+    print(f"[phase 3] launches K1 {fwd_launches} K2 {bwd_launches}; steps {steps}; "
+          f"train PSNR {psnrs}; test PSNR {res['psnr']:.3f} SSIM {res['ssim']:.4f}; "
+          f"rays per epoch {[h['rays'] for h in hist]}, epoch s "
+          f"{[round(h['epoch_s'], 4) for h in hist]}; fit with checkpoints "
+          f"{res['mins'] * 60:.1f} s, main {wall:.1f} s; peak memory {peak_gb:.2f} GB; "
+          f"checkpoints {ckpts}", flush=True)
+    check(fwd_launches > 0 and bwd_launches > 0, "the main path launched no kernel")
+    check(bwd_launches == steps, f"K2 launches {bwd_launches} != steps {steps}")
+    check(all(math.isfinite(p) for p in psnrs), f"train PSNR not finite: {psnrs}")
+    check(psnrs[-1] > psnrs[0], f"train PSNR did not rise: {psnrs}")
+    check(math.isfinite(res["psnr"]), f"test PSNR not finite: {res['psnr']}")
+    check(len(ckpts) == 3, f"expected 3 checkpoints, got {ckpts}")
+
+    # ---- phase 3b: where the main path's device time goes (a profiled
+    # rerun of 2 epochs without checkpoints; its launches are not counted) ----
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with tempfile.TemporaryDirectory() as tmp, profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        opt.main(["synthetic", "-t", tmp, "--reso", reso_arg, "--n_epochs", "2",
+                  "--tune_nosave"])
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.time() - t0) * 1e3
+    dev_events = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                        key=lambda e: -e.self_device_time_total)
+    dev_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
+    print(f"[phase 3b] profiled main path: device busy {dev_ms:.1f} ms of "
+          f"{prof_wall_ms:.1f} ms wall; top kernels by device time:")
+    for e in dev_events[:10] + [e for e in dev_events[10:] if "cuvol" in e.key]:
+        print(f"[phase 3b]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
+              f"{e.key[:90]}")
+
+    # ---- phase 3c: train rays/s over a longer window (epochs 2-10) ----
+    with tempfile.TemporaryDirectory() as tmp:
+        hist = opt.main(["synthetic", "-t", tmp, "--reso", reso_arg, "--n_epochs", "10",
+                         "--tune_nosave"])["history"]
+    window = hist[1:]
+    rates = [h["rays"] / h["epoch_s"] for h in window]
+    win_rays = sum(h["rays"] for h in window)
+    win_s = sum(h["epoch_s"] for h in window)
+    print(f"[phase 3c] train rays/s over epochs 2-{len(hist)}: {win_rays / win_s:.1f} "
+          f"({win_rays} rays, {hist[-1]['steps'] - hist[0]['steps']} steps in {win_s:.4f} s "
+          f"of epochs); per epoch min {min(rates):.1f} max {max(rates):.1f}; "
+          f"train PSNR {hist[0]['train_psnr']:.2f} -> {hist[-1]['train_psnr']:.2f}", flush=True)
+
+    # ---- phase 4: times on phase 2's training batch ----
+    k1_ms, k2_ms = kernel_ms(grid, cfg, o, d, gt)
+    zero_ms = cuda_ms(lambda: (torch.zeros_like(grid.density), torch.zeros_like(grid.sh)), 10)
+    with torch.no_grad():
+        plain_fwd_ms = cuda_ms(lambda: voxel_render_rays(grid, o, d, cfg), 5)
+    dens = grid.density.clone().requires_grad_(True)
+    sh = grid.sh.clone().requires_grad_(True)
+    out_g = vk.render_rays_plain(VoxelGrid(dens, sh, grid.alive), o, d, cfg)
+    grad_out = upstream_grad(out_g.detach(), gt)
+    plain_bwd_ms = cuda_ms(lambda: torch.autograd.grad(out_g, [dens, sh], grad_out,
+                                                       retain_graph=True), 5)
+    del out_g, dens, sh
+
+    n_samples, n_cells, n_alive = work_counts(grid, cfg, o, d)
+    ray_bytes = BATCH * (3 + 3 + 1 + 1 + 1 + 9) * 4
+    # unique bytes: each touched alive cell's density + 27 SH (f32) read,
+    # each touched cell's alive byte, the per-ray inputs, the [N,8] output;
+    # K2 also reads K1's output and the upstream gradient and writes each
+    # touched alive cell's 28 gradients once (the zero-fill of the rest of
+    # the dense gradients is timed apart)
+    k1_bytes = n_alive * 4 * 28 + n_cells + ray_bytes + BATCH * 32
+    k2_bytes = k1_bytes + BATCH * 32 + n_alive * 4 * 28
+    bounds = {}
+    for name, nbytes, flops in (("K1", k1_bytes, n_samples * FWD_FLOPS_PER_SAMPLE),
+                                ("K2", k2_bytes, n_samples * BWD_FLOPS_PER_SAMPLE)):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+        bounds[name] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+    zero_bound = grid.density.numel() * 4 * 28 / HBM_BYTES_PER_S * 1e3
+    print(f"[phase 4] training batch: {n_samples} marched samples, {n_cells} distinct corner "
+          f"cells ({n_alive} alive); K1 {k1_ms:.4f} ms (plain {plain_fwd_ms:.3f} ms, bound "
+          f"{bounds['K1'][0]:.4f} ms); K2 body {k2_ms:.4f} ms (plain backward "
+          f"{plain_bwd_ms:.3f} ms, bound {bounds['K2'][0]:.4f} ms); K2's zero-fill of the "
+          f"dense gradients {zero_ms:.4f} ms (bound {zero_bound:.4f} ms); K1 launches per "
+          f"train step {fwd_launches / steps:.3f} ({fwd_launches - bwd_launches} of "
+          f"{fwd_launches} are the test renders)", flush=True)
+
+    # ray order: the budgeter's shuffle against the trainer's coherence
+    # order (train batches), raster against morton order (eval chunks)
+    batches = {"train 48x48 shuffled": (t(epoch.origins[:BATCH]), t(epoch.dirs[:BATCH])),
+               "train 48x48 coherent": (o, d)}
+    for k, v in wide_batches(poses, i_train, 800, dev).items():
+        batches[f"train 800x800 {k}"] = v
+    for size in (48, 800):
+        for k, v in eval_chunks(poses[i_test[0]], size, 4096, dev).items():
+            batches[f"eval {size}x{size} {k}"] = v
+    for name, (bo, bd) in batches.items():
+        ms1, ms2 = kernel_ms(grid, cfg, bo, bd, torch.full_like(bo, 0.5))
+        ns, nc, _ = work_counts(grid, cfg, bo, bd)
+        print(f"[phase 4] order {name}: K1 {ms1:.4f} ms, K2 body {ms2:.4f} ms "
+              f"({ns} samples, {nc} distinct cells)", flush=True)
+
+    src = "flnerf_tpu_torch/ops/csrc/voxel_cuvol.cu"
+    kernels = [
+        {"name": "cuvol_forward (K1)", "route": "cuda", "source": src,
+         "replaces": "flnerf_tpu/ops/voxel_pallas.py:430", "launches": fwd_launches,
+         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": plain_fwd_ms,
+         "bound_ms": bounds["K1"][0], "bound_by": bounds["K1"][1], "library_ms": None},
+        {"name": "cuvol_backward (K2)", "route": "cuda", "source": src,
+         "replaces": "flnerf_tpu/ops/voxel_pallas.py:511", "launches": bwd_launches,
+         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": plain_bwd_ms,
+         "bound_ms": bounds["K2"][0], "bound_by": bounds["K2"][1], "library_ms": None},
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

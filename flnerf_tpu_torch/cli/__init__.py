@@ -1,0 +1,1 @@
+"""cli subpackage of flnerf_tpu_torch (mirrors flnerf_tpu/cli)."""

@@ -1,0 +1,1 @@
+"""core subpackage of flnerf_tpu_torch (mirrors flnerf_tpu/core)."""

@@ -1,0 +1,1 @@
+"""data subpackage of flnerf_tpu_torch (mirrors flnerf_tpu/data)."""

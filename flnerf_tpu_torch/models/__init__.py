@@ -1,0 +1,1 @@
+"""models subpackage of flnerf_tpu_torch (mirrors flnerf_tpu/models)."""

@@ -1,0 +1,1 @@
+"""ops subpackage of flnerf_tpu_torch (mirrors flnerf_tpu/ops)."""

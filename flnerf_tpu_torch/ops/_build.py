@@ -1,0 +1,97 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface, ``build/kernels/<name>-<hash>.so`` at the
+repository root, and loaded with ctypes (pointers as ``c_void_p``).  The
+hash covers the source and the flags, so an edited source is rebuilt.  The
+first use in a process builds what is missing; ``build_all`` starts one
+``nvcc`` per source, all at once.  A failed build raises: there is no
+fallback to the plain versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from typing import Dict, Iterable, Optional
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "build", "kernels")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def sources() -> list:
+    """Names of the kernel sources (``csrc/<name>.cu``)."""
+    return sorted(f[:-3] for f in os.listdir(CSRC) if f.endswith(".cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
+                           "/usr/local/cuda/bin): the CUDA kernels cannot "
+                           "be built")
+    return path
+
+
+def library_path(name: str) -> str:
+    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
+
+
+def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
+    """Compile every named source (default: all) that has no library yet,
+    one ``nvcc`` per source started together.  Returns name -> library
+    path.  The compiler's output (``-Xptxas=-v``: registers, spills) is
+    kept beside each library as ``.log``."""
+    names = list(sources() if names is None else names)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    paths = {n: library_path(n) for n in names}
+    todo = [n for n in names if not os.path.exists(paths[n])]
+    if not todo:
+        return paths
+    nvcc = _nvcc()
+    procs = {}
+    for n in todo:
+        tmp = f"{paths[n]}.{os.getpid()}.tmp"
+        procs[n] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{n}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for n, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        with open(paths[n][:-3] + ".log", "w") as f:
+            f.write(log)
+        if proc.returncode != 0:
+            failed.append(f"{n}.cu (nvcc exit {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, paths[n])
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return paths
+
+
+def build_log(name: str) -> str:
+    """The compiler's output from the build of ``name``'s library."""
+    with open(library_path(name)[:-3] + ".log") as f:
+        return f.read()
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    if name not in _LIBS:
+        _LIBS[name] = ctypes.CDLL(build_all([name])[name])
+    return _LIBS[name]

@@ -1,0 +1,1 @@
+"""train subpackage of flnerf_tpu_torch (mirrors flnerf_tpu/train)."""
