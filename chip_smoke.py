@@ -28,7 +28,28 @@ Phases (any failure raises, and the script exits non-zero):
      for the same work; then K1/K2 on batches in the budgeter's shuffled
      order against the trainer's coherence order (morton, 64-ray blocks) at
      48x48 and 800x800 train views, and on one eval chunk of a test view in
-     raster against morton order.
+     raster against morton order;
+  5. the hash-encoding kernels K3 (forward) and K4 (table gradient) against
+     their plain version, ops/hash_kernel.hash_encode_plain with autograd,
+     at the NGP main path's shapes and on a trained table: the trainer
+     cli/main_nerf builds for `synthetic -O` (16 levels x 2^15, bf16 MLPs)
+     trains 256 steps, then the kept points of its next batch (NGPSampler
+     on the 64x64 synthetic views, 4096 rays x 96 kept samples, rendered
+     through the trainer's field and occupancy grid with the train loss's
+     real upstream gradient, and with a dense random one) and the first
+     65,536-point chunk of a full occupancy refresh go through both;
+  6. the NGP main path: cli/main_nerf main `synthetic -O --iters 512` on the
+     card (32 chunks: 16 full and 16 partial refreshes), with the launch
+     counters set to 0 just before and read just after: K4 once per step,
+     K3 once per step, refresh chunk and eval chunk; the last chunk's mean
+     train loss below the first's; a finite test PSNR; then train rays/s over
+     steps 257-512 (phase 5's trainer, a second fit of 256 steps between
+     two synchronizes);
+     6b. a profiled fit of 64 more steps: device busy share, top kernels;
+  7. K3, K4's body (its gradient zero-filled outside the timed loop; the
+     zero-fill timed apart; on the train loss's gradient, and on the dense
+     one) and the plain version by CUDA events on phase 5's batch, beside
+     the least time the card could take.
 
 The last lines are one JSON object describing the kernels, the card's name
 and power limit as nvidia-smi gives them, and
@@ -36,6 +57,7 @@ and power limit as nvidia-smi gives them, and
 missing, it exits non-zero and prints no result.
 """
 
+import copy
 import json
 import math
 import os
@@ -61,6 +83,17 @@ SCENE_RADIUS = 1.2         # cli/opt.py's grid radius for the synthetic scene
 # corner (448) and the transmittance gradient (30)
 FWD_FLOPS_PER_SAMPLE = 542
 BWD_FLOPS_PER_SAMPLE = 542 + 448 + 30
+
+NGP_ITERS = 512            # 32 chunks of 16 steps: 16 full, 16 partial refreshes
+NGP_WINDOW = 256           # steps per fit of the rays/s window
+NGP_PROFILE_STEPS = 64
+REFRESH_CHUNK = 1 << 16    # render/ngp.update_occupancy's chunk
+# f32 operations per (point, level), counted from csrc/hash_encode.cu:
+# position (6), frac and 1 - frac (6), 8 corner weights (16), 8 corners x 2
+# features multiply-add (32); K4 recomputes the geometry (28) and forms
+# the 16 products w * g (16)
+K3_FLOPS = 60
+K4_FLOPS = 44
 
 
 def check(cond, msg):
@@ -218,6 +251,35 @@ def kernel_ms(grid, cfg, o, d, gt, iters=20):
     k2 = cuda_ms(lambda: vk.cuvol_backward(*grid, *ray_in, out, grad_out, cfg,
                                            grads=grads), iters)
     return k1, k2
+
+
+def ngp_setup(workspace):
+    """The NGP trainer and sampler as cli/main_nerf builds them for
+    `synthetic -O --iters 512`, the test views' indices and [H, W, focal]."""
+    from flnerf_tpu_torch.cli import main_nerf
+    from flnerf_tpu_torch.train.ngp_trainer import NGPSampler
+    args = main_nerf.parse_args(["synthetic", "-O", "--iters", str(NGP_ITERS),
+                                 "--workspace", workspace])
+    trainer, _, _, tcfg = main_nerf.build(args)
+    images, poses, hwf, K, (i_train, _, i_test) = main_nerf.load_ngp_dataset(args)
+    sampler = NGPSampler(images[i_train], poses[i_train], K, tcfg, seed=args.seed)
+    return trainer, sampler, i_test, hwf
+
+
+def expected_hash_launches(trainer, n_test, hwf):
+    """K3 launches of one main_nerf run: one per train step, per refresh
+    chunk (full sweeps for the first full_refreshes chunks, then one parity
+    class) and per eval chunk.  Returns (total, refresh chunks, eval chunks)."""
+    tcfg, rcfg = trainer.cfg, trainer.rcfg
+    n_chunks = -(-tcfg.max_steps // tcfg.steps_per_chunk)
+    g, s = rcfg.grid_size, max(rcfg.partial_stride, 2)
+    full = -(-g ** 3 // REFRESH_CHUNK)
+    part = -(-(g // s) ** 3 // REFRESH_CHUNK) if g % s == 0 else full
+    refresh = sum(part if ci >= tcfg.full_refreshes else full for ci in range(n_chunks))
+    n = hwf[0] * hwf[1]
+    chunk = min(4096, (n + 127) // 128 * 128)        # main_nerf --max_ray_batch
+    n_eval = n_test * -(-n // chunk)
+    return n_chunks * tcfg.steps_per_chunk + refresh + n_eval, refresh, n_eval
 
 
 def main():
@@ -413,7 +475,199 @@ def main():
         print(f"[phase 4] order {name}: K1 {ms1:.4f} ms, K2 body {ms2:.4f} ms "
               f"({ns} samples, {nc} distinct cells)", flush=True)
 
+
+    # ---- phase 5: K3 and K4 against the plain version, NGP main-path shapes ----
+    from flnerf_tpu_torch.models import hash_ngp
+    from flnerf_tpu_torch.ops import hash_kernel as hk
+    from flnerf_tpu_torch.render.ngp import ngp_render_rays
+    ngp_tmp = tempfile.TemporaryDirectory()
+    trainer, sampler, n_test, n_hwf = ngp_setup(ngp_tmp.name)
+    trainer.fit(sampler, verbose=False, n_steps=NGP_WINDOW)    # steps 1-256
+    # the next batch the trainer draws, through the trainer's own loss: the
+    # encoding's input (the kept samples) and its real upstream gradient are
+    # read at the hash_encode call
+    bo, bd, brgb, _, _ = copy.deepcopy(sampler).sample_chunk(1, trainer.cfg.batch_rays)
+    seen = {}
+
+    def capture(x01, table_, spec_):
+        out = encode(x01, table_, spec_)
+        seen["x01"] = x01
+        out.register_hook(lambda g: seen.setdefault("g", g))
+        return out
+
+    encode, hash_ngp.hash_encode = hash_ngp.hash_encode, capture
+    try:
+        out = ngp_render_rays(trainer.field, trainer.occ, t(bo[0]), t(bd[0]), trainer.rcfg,
+                              generator=trainer.gen)
+        torch.autograd.grad(torch.mean((out["rgb"] - t(brgb[0])) ** 2),
+                            [trainer.field.table])
+    finally:
+        hash_ngp.hash_encode = encode
+    del out
+    spec = trainer.field.spec
+    table = trainer.field.table.detach().clone()
+    x_batch, g_train = seen["x01"].detach().contiguous(), seen["g"].contiguous()
+    g_cells = trainer.rcfg.grid_size
+    idx = torch.arange(g_cells, device=dev)
+    cells = torch.stack(torch.meshgrid(idx, idx, idx, indexing="ij"), -1).reshape(-1, 3)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cells = cells[:REFRESH_CHUNK].float() + torch.rand((REFRESH_CHUNK, 3), generator=gen,
+                                                       device=dev)
+    x_refresh = trainer.field.unit_points(
+        (cells / g_cells * 2.0 - 1.0) * trainer.rcfg.bound).contiguous()
+    # a dense N(0, 1) upstream gradient: every point adds its atomics
+    g_dense = torch.randn((x_batch.shape[0], spec.output_dim), generator=gen, device=dev)
+    k3_err, k3_rel = 0.0, 0.0
+    for name, xx in (("train batch", x_batch), ("refresh chunk", x_refresh)):
+        with torch.no_grad():
+            out_k = hk.hash_encode_forward(xx, table, spec)
+            out_p = hk.hash_encode_plain(xx, table, spec)
+        torch.cuda.synchronize()
+        err, scale = float((out_k - out_p).abs().max()), float(out_p.abs().max())
+        print(f"[phase 5] K3 on the {name} {tuple(xx.shape)}: max_err {err:.3e} "
+              f"(largest output {scale:.4f})", flush=True)
+        check(bool(torch.isfinite(out_k).all()), f"K3 output not finite ({name})")
+        check(err <= 1e-5 * scale, f"K3 differs from the plain version by {err} > "
+                                   f"1e-5 * {scale} ({name})")
+        k3_err, k3_rel = max(k3_err, err), max(k3_rel, err / scale)
+    del out_k, out_p
+    k4_err = 0.0
+    for name, g_up in (("train gradient", g_train), ("dense gradient", g_dense)):
+        grad_k = hk.hash_encode_backward(x_batch, g_up, spec)
+        tp = table.clone().requires_grad_(True)
+        (grad_p,) = torch.autograd.grad(hk.hash_encode_plain(x_batch, tp, spec), [tp], g_up)
+        torch.cuda.synchronize()
+        err, scale = float((grad_k - grad_p).abs().max()), float(grad_p.abs().max())
+        live = float((g_up != 0).any(-1).float().mean())
+        print(f"[phase 5] K4 on the train batch, {name} (nonzero at {live:.4f} of the "
+              f"points): max_err {err:.3e} (largest entry {scale:.4e})", flush=True)
+        # on the plateau the train gradient may be zero at every point (dead
+        # sigma-net ReLUs); then K4 must give exactly zero too
+        check((scale > 0 or name == "train gradient") and err <= 1e-4 * scale,
+              f"K4 differs from the plain version by {err} > 1e-4 * {scale} ({name})")
+        k4_err = max(k4_err, err)
+    print(f"[phase 5] table after {NGP_WINDOW} steps: max |entry| "
+          f"{float(table.abs().max()):.4f}, mean |entry| {float(table.abs().mean()):.3e}",
+          flush=True)
+    del grad_k, grad_p, tp
+
+    # ---- phase 6: the NGP main path, through the CLI on the card ----
+    from flnerf_tpu_torch.cli import main_nerf
+    hk.reset_launch_counts()
+    vk.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        res = main_nerf.main(["synthetic", "-O", "--iters", str(NGP_ITERS),
+                              "--workspace", tmp])
+        torch.cuda.synchronize()
+        ngp_wall = time.time() - t0
+        h_fwd, h_bwd = hk.HASH_FWD_LAUNCHES, hk.HASH_BWD_LAUNCHES
+        with open(os.path.join(tmp, "results.txt")) as f:
+            results = f.read().split()
+    ngp_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps_ngp = res["steps"]
+    losses = [h["chunk_loss"] for h in res["history"]]
+    want_fwd, n_refresh, n_eval = expected_hash_launches(trainer, len(n_test), n_hwf)
+    print(f"[phase 6] launches K3 {h_fwd} K4 {h_bwd} (K1 {vk.FWD_LAUNCHES}, K2 "
+          f"{vk.BWD_LAUNCHES}); steps {steps_ngp}, refresh chunks {n_refresh}, eval chunks "
+          f"{n_eval}; mean train loss per chunk first {losses[0]:.5f} last {losses[-1]:.5f} "
+          f"(min {min(losses):.5f} max {max(losses[1:]):.5f} after the first); "
+          f"test PSNR {res['psnr']:.3f} SSIM {res['ssim']:.4f}; "
+          f"main {ngp_wall:.1f} s; peak memory {ngp_peak_gb:.2f} GB; results.txt "
+          f"{results}", flush=True)
+    check(h_bwd == steps_ngp == NGP_ITERS, f"K4 launches {h_bwd} != steps {steps_ngp}")
+    check(h_fwd == want_fwd, f"K3 launches {h_fwd} != steps + refresh + eval chunks "
+                             f"{want_fwd}")
+    check(vk.FWD_LAUNCHES == vk.BWD_LAUNCHES == 0, "the NGP path launched a cuvol kernel")
+    check(all(math.isfinite(v) for v in losses), f"train loss not finite: {losses}")
+    # the first chunk's mean holds the fall from the initial field; after
+    # it, this configuration sits on the reference's plateau (fault R1)
+    check(losses[-1] < losses[0], f"train loss did not fall: {losses}")
+    check(math.isfinite(res["psnr"]), f"test PSNR not finite: {res['psnr']}")
+
+    # train rays/s over steps 257-512: phase 5's trainer, a second fit
+    torch.cuda.synchronize()
+    t0 = time.time()
+    trainer.fit(sampler, verbose=False, n_steps=NGP_WINDOW)
+    torch.cuda.synchronize()
+    win_s = time.time() - t0
+    print(f"[phase 6] train rays/s over steps {NGP_WINDOW + 1}-{2 * NGP_WINDOW}: "
+          f"{NGP_WINDOW * trainer.cfg.batch_rays / win_s:.1f} ({NGP_WINDOW} steps, "
+          f"{NGP_WINDOW // trainer.cfg.steps_per_chunk} partial refreshes, {win_s:.3f} s); "
+          f"loss {trainer.history[-1]['loss']:.5f}", flush=True)
+
+    # ---- phase 6b: where the NGP step's device time goes ----
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        trainer.fit(sampler, verbose=False, n_steps=NGP_PROFILE_STEPS)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.time() - t0) * 1e3
+    dev_events = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                        key=lambda e: -e.self_device_time_total)
+    dev_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
+    print(f"[phase 6b] profiled NGP fit of {NGP_PROFILE_STEPS} steps: device busy "
+          f"{dev_ms:.1f} ms of {prof_wall_ms:.1f} ms wall ({100 * dev_ms / prof_wall_ms:.1f}%); "
+          f"top kernels by device time:")
+    for e in dev_events[:12] + [e for e in dev_events[12:] if "hash_" in e.key]:
+        print(f"[phase 6b]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
+              f"{e.key[:90]}")
+    ngp_tmp.cleanup()
+
+    # ---- phase 7: K3 and K4 times on phase 5's batch ----
+    n_pts = x_batch.shape[0]
+    k3_ms = cuda_ms(lambda: hk.hash_encode_forward(x_batch, table, spec), 20)
+    grad_buf = torch.zeros((spec.num_levels, spec.t_cap, 2), device=dev)
+    k4_ms = cuda_ms(lambda: hk.hash_encode_backward(x_batch, g_train, spec,
+                                                    grad_table=grad_buf), 20)
+    k4_dense_ms = cuda_ms(lambda: hk.hash_encode_backward(x_batch, g_dense, spec,
+                                                          grad_table=grad_buf), 20)
+    k4_zero_ms = cuda_ms(lambda: torch.zeros((spec.num_levels, spec.t_cap, 2), device=dev), 20)
+    with torch.no_grad():
+        k3_plain_ms = cuda_ms(lambda: hk.hash_encode_plain(x_batch, table, spec), 5)
+    tp = table.clone().requires_grad_(True)
+    out_g = hk.hash_encode_plain(x_batch, tp, spec)
+    k4_plain_ms = cuda_ms(lambda: torch.autograd.grad(out_g, [tp], g_train,
+                                                      retain_graph=True), 5)
+    k4_dense_plain_ms = cuda_ms(lambda: torch.autograd.grad(out_g, [tp], g_dense,
+                                                            retain_graph=True), 5)
+    del out_g, tp
+    # what this batch's data needs: distinct table entries its corners touch
+    # (K3), and those of the points with a nonzero upstream gradient (K4)
+    idx, _ = hk.corner_indices_weights(x_batch, spec)
+    lvl = torch.arange(spec.num_levels, device=dev)[:, None] * spec.t_cap
+    touched = int((idx + lvl).unique().numel())
+    live = (g_train != 0).any(-1)
+    live_pts = int(live.sum())
+    touched_live = int((idx.reshape(spec.num_levels, n_pts, 8)[:, live].reshape(
+        spec.num_levels, -1) + lvl).unique().numel())
+    del idx
+    L2 = spec.num_levels
+    # K4 on the dense gradient: every point adds its atomics, every touched
+    # entry is written; on the train gradient only the points it reaches
+    k3_bytes = n_pts * 12 + n_pts * L2 * 8 + touched * 8
+    k4_bytes = n_pts * 12 + n_pts * L2 * 8 + touched * 8
+    k4_train_bytes = n_pts * 12 + n_pts * L2 * 8 + touched_live * 8
+    for name, nbytes, flops in (("K3", k3_bytes, n_pts * L2 * K3_FLOPS),
+                                ("K4", k4_bytes, n_pts * L2 * K4_FLOPS),
+                                ("K4 train", k4_train_bytes, live_pts * L2 * K4_FLOPS)):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+        bounds[name] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+    zero_bound = spec.num_levels * spec.t_cap * 8 / HBM_BYTES_PER_S * 1e3
+    print(f"[phase 7] train batch: {n_pts} points x {L2} levels, {touched} distinct table "
+          f"entries touched ({touched_live} by the {live_pts} points with a gradient); L2 "
+          f"gather volume {n_pts * L2 * 8 * 8 / 1e6:.1f} MB (8 corners x 8 B per point and "
+          f"level); K3 {k3_ms:.4f} ms (plain {k3_plain_ms:.3f} ms, bound "
+          f"{bounds['K3'][0]:.4f} ms by {bounds['K3'][1]}); K4 body on the dense gradient "
+          f"{k4_dense_ms:.4f} ms (plain backward {k4_dense_plain_ms:.3f} ms, bound "
+          f"{bounds['K4'][0]:.4f} ms by {bounds['K4'][1]}), on the train gradient "
+          f"{k4_ms:.4f} ms (plain backward {k4_plain_ms:.3f} ms, bound "
+          f"{bounds['K4 train'][0]:.4f} ms by {bounds['K4 train'][1]}); K4's zero-fill "
+          f"{k4_zero_ms:.4f} ms (bound {zero_bound:.4f} ms); launches per train step K3 "
+          f"{h_fwd / steps_ngp:.4f}, K4 {h_bwd / steps_ngp:.4f}", flush=True)
+
     src = "flnerf_tpu_torch/ops/csrc/voxel_cuvol.cu"
+    hsrc = "flnerf_tpu_torch/ops/csrc/hash_encode.cu"
     kernels = [
         {"name": "cuvol_forward (K1)", "route": "cuda", "source": src,
          "replaces": "flnerf_tpu/ops/voxel_pallas.py:430", "launches": fwd_launches,
@@ -423,6 +677,14 @@ def main():
          "replaces": "flnerf_tpu/ops/voxel_pallas.py:511", "launches": bwd_launches,
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": plain_bwd_ms,
          "bound_ms": bounds["K2"][0], "bound_by": bounds["K2"][1], "library_ms": None},
+        {"name": "hash_encode_forward (K3)", "route": "cuda", "source": hsrc,
+         "replaces": "flnerf_tpu/ops/hash_pallas.py:142", "launches": h_fwd,
+         "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
+         "bound_ms": bounds["K3"][0], "bound_by": bounds["K3"][1], "library_ms": None},
+        {"name": "hash_encode_backward (K4)", "route": "cuda", "source": hsrc,
+         "replaces": "flnerf_tpu/ops/hash_pallas.py:185", "launches": h_bwd,
+         "max_abs_err": k4_err, "ms": k4_dense_ms, "plain_ms": k4_dense_plain_ms,
+         "bound_ms": bounds["K4"][0], "bound_by": bounds["K4"][1], "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,11 +1,19 @@
-"""Weights carried across: the reference package's Plenoxels state, given as
-numpy arrays, into this port's tensors, and back.
+"""Weights carried across: the reference package's Plenoxels and NGP state,
+given as numpy arrays, into this port's tensors, and back.
 
 The reference (``flnerf_tpu/models/voxel_sh.py`` ``VoxelGrid`` and
 ``flnerf_tpu/train/plenoxels_trainer.py`` ``PlenoxelsState``) keeps the same
 dense layouts as the port: density [X,Y,Z] f32, sh [X,Y,Z,27] f32, alive
 [X,Y,Z] bool, RMSProp accumulators shaped like density and sh, and an int
 step.  ``np.asarray`` of its arrays gives the inputs here.
+
+NGP (``flnerf_tpu/models/hash_ngp.py`` params of the packed engine): a dict
+with ``table`` [L, C, T_r, 128] f32 (entry t of level l, feature c at
+[l, c, t >> 7, t & 127]) and the lists ``sigma_net`` and ``color_net`` of
+[in, out] weights.  The port keeps the table as [L, T_cap, C] and the
+weights as [in, out], in ``NGPField.parameters()`` order: table, sigma_net,
+color_net.  Its occupancy state is the reference's density grid and mean,
+with the bitfield repacked.
 """
 
 from __future__ import annotations
@@ -14,6 +22,7 @@ import numpy as np
 import torch
 
 from flnerf_tpu_torch.models.voxel_sh import VoxelGrid
+from flnerf_tpu_torch.render.ngp import NGPRenderConfig, OccupancyState, with_density
 from flnerf_tpu_torch.train.plenoxels_trainer import PlenoxelsState
 
 
@@ -51,3 +60,49 @@ def plenoxels_state_to_numpy(state: PlenoxelsState):
     return voxel_grid_to_numpy(state.grid) + (
         state.rms_density.cpu().numpy(), state.rms_sh.cpu().numpy(),
         int(state.step))
+
+
+def ngp_params_from_numpy(params, device="cpu") -> list:
+    """The reference's NGP params dict -> [table [L, T_cap, C], *sigma_net,
+    *color_net] tensors (``NGPField.parameters()`` order)."""
+    table = np.asarray(params["table"], np.float32)
+    L, C, t_r, lanes = table.shape
+    table = np.ascontiguousarray(table.reshape(L, C, t_r * lanes).transpose(0, 2, 1))
+    return [torch.tensor(table, device=device)] + [
+        _f32(w, device) for w in list(params["sigma_net"]) + list(params["color_net"])]
+
+
+def load_ngp_params(field, params) -> None:
+    """Copy the reference's NGP params dict into ``field``'s parameters."""
+    with torch.no_grad():
+        for p, v in zip(field.parameters(), ngp_params_from_numpy(params, field.table.device)):
+            p.copy_(v)
+
+
+def ngp_params_to_numpy(tensors, num_sigma_layers: int, lanes: int = 128) -> dict:
+    """Inverse of ``ngp_params_from_numpy``: tensors in parameter order ->
+    the reference's dict (table [L, C, T_r, 128], sigma_net, color_net)."""
+    arrs = [t.detach().cpu().numpy() for t in tensors]
+    L, t_cap, C = arrs[0].shape
+    table = np.ascontiguousarray(arrs[0].transpose(0, 2, 1).reshape(L, C, t_cap // lanes, lanes))
+    return {"table": table, "sigma_net": arrs[1:1 + num_sigma_layers],
+            "color_net": arrs[1 + num_sigma_layers:]}
+
+
+def occupancy_from_numpy(density, mean_density, cfg: NGPRenderConfig,
+                         device="cpu") -> OccupancyState:
+    """The reference's occupancy density grid [G, G, G] and mean -> an
+    ``OccupancyState`` with its bitfield packed (when G^3 % 32 == 0)."""
+    density = _f32(density, device)
+    g = cfg.grid_size
+    if tuple(density.shape) != (g, g, g):
+        raise ValueError(f"occupancy grid {tuple(density.shape)} != grid_size {g}")
+    occ = OccupancyState(density, torch.zeros((), device=device),
+                         torch.zeros(1) if g ** 3 % 32 == 0 else None)
+    return with_density(occ, density, cfg, mean_density=float(mean_density))
+
+
+def occupancy_to_numpy(occ: OccupancyState):
+    """(density [G, G, G], mean, bits [G^3/32] int32 or None)."""
+    return (occ.density.cpu().numpy(), float(occ.mean_density),
+            None if occ.bits is None else occ.bits.cpu().numpy())

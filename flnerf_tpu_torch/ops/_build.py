@@ -90,6 +90,19 @@ def build_log(name: str) -> str:
         return f.read()
 
 
+def check_tensor(t, name: str, shape, dtype, device) -> None:
+    """Raise on what a kernel does not take: another device, dtype, shape,
+    or a non-contiguous layout."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     if name not in _LIBS:

@@ -57,17 +57,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(t: torch.Tensor, name: str, shape, dtype, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _common_args(density, sh, alive, origins, dirs, tmin, tmax, dscale, shmult,
                  cfg: VoxelGridConfig):
     """Validate the kernels' inputs and return the C arguments they share."""
@@ -90,7 +79,7 @@ def _common_args(density, sh, alive, origins, dirs, tmin, tmax, dscale, shmult,
         (dscale, "delta_scale", (n,), f32),
         (shmult, "sh_mult", (n, 9), f32),
     ):
-        _check(t, name, shape, dtype, dev)
+        _build.check_tensor(t, name, shape, dtype, dev)
     if n >= 2 ** 31 or cfg.max_steps >= 2 ** 24:
         raise ValueError("ray count or max_steps out of the kernels' range")
     return [density.data_ptr(), sh.data_ptr(), alive.data_ptr(), x, y, z,
@@ -132,13 +121,14 @@ def cuvol_backward(density, sh, alive, origins, dirs, tmin, tmax, dscale,
     args = _common_args(density, sh, alive, origins, dirs, tmin, tmax, dscale,
                         shmult, cfg)
     n = origins.shape[0]
-    _check(out, "out", (n, 8), torch.float32, density.device)
-    _check(grad_out, "grad_out", (n, 8), torch.float32, density.device)
+    _build.check_tensor(out, "out", (n, 8), torch.float32, density.device)
+    _build.check_tensor(grad_out, "grad_out", (n, 8), torch.float32, density.device)
     if grads is None:
         grads = torch.zeros_like(density), torch.zeros_like(sh)
     grad_density, grad_sh = grads
-    _check(grad_density, "grad_density", density.shape, torch.float32, density.device)
-    _check(grad_sh, "grad_sh", sh.shape, torch.float32, density.device)
+    _build.check_tensor(grad_density, "grad_density", density.shape, torch.float32,
+                        density.device)
+    _build.check_tensor(grad_sh, "grad_sh", sh.shape, torch.float32, density.device)
     if n == 0:
         return grad_density, grad_sh
     rc = _lib().cuvol_backward(*args, out.data_ptr(), grad_out.data_ptr(),

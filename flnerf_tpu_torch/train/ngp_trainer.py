@@ -1,0 +1,423 @@
+"""Instant-NGP trainer with probability-map ray selection.
+
+Port of ``flnerf_tpu/train/ngp_trainer.py`` for one device.  Reference
+behavior (ngp-ours):
+  * Trainer (nerf/utils.py:288-911): Adam betas (0.9, 0.99) eps 1e-15
+    (``optax.scale_by_adam``), lr * 0.1**min(step/max_steps, 1), occupancy
+    update every chunk of 16 steps (utils.py:837-839), EMA of the weights,
+    random background for RGBA data;
+  * ray selection (nerf/provider.py + quadtree.py): per-image probability
+    map (uniform by default, optionally local-variance based), multinomial
+    draw with replacement, per-ray error map, all-pixel switch near the end.
+
+``NGPSampler`` is a numpy port that draws from ``np.random.default_rng(seed)``
+in the reference's call order, so its rays equal the reference's bit for
+bit.  The step counter (which is also Adam's count) lives on the host: no
+device read is ever needed for it, so the reference's host step mirror and
+its invalidation (ADVICE.md item 1) reduce to this one integer.  The device
+queue is drained once per ``fit`` (the loss history, one stacked transfer),
+once per chunk with ``--error_map`` (the per-ray errors, as in the
+reference) and at the verbose prints.
+
+Not ported yet (each raises ``NotImplementedError``): the time-dependent
+(D-NeRF) path and multi-device data parallelism.
+"""
+
+from __future__ import annotations
+
+import glob
+import os
+import pickle
+import time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from flnerf_tpu_torch.core.losses import huber_loss
+from flnerf_tpu_torch.core.metrics import compute_ssim, mse2psnr
+from flnerf_tpu_torch.models.hash_ngp import NGP_BACKLOG, NGPConfig, NGPField
+from flnerf_tpu_torch.rays.camera import get_rays_np
+from flnerf_tpu_torch.rays.sharpness import sharp_image
+from flnerf_tpu_torch.render.ngp import (
+    NGPRenderConfig,
+    init_occupancy,
+    ngp_render_image,
+    ngp_render_rays,
+    update_occupancy,
+)
+from flnerf_tpu_torch.train.plenoxels_trainer import resolve_device
+
+CKPT_FORMAT = "flnerf_torch_ngp_v1"
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.99, 1e-15
+
+
+class NGPTrainConfig(NamedTuple):
+    max_steps: int = 30000
+    batch_rays: int = 4096
+    lr: float = 1e-2
+    steps_per_chunk: int = 16      # == occupancy update cadence
+    occ_update_every: int = 1      # in chunks
+    full_refreshes: int = 16       # full-grid updates before partial ones
+    use_prob_map: bool = False     # variance-based image probs (quadtree.py:5)
+    use_error_map: bool = False    # --error_map: 128x128 EMA maps (utils.py:505-527)
+    patch_size: int = 1            # >1: patch-mode draw (utils.py:78-95)
+    all_pixel_at: float = 1.0      # fraction of training after which probs
+                                   # reset to uniform (change_to_allpixel)
+    bg_color: float = 1.0
+    ema_decay: float = 0.0         # 0 disables; torch-ngp uses 0.95
+    time_dependent: bool = False   # D-NeRF: not ported, must stay False
+    loss_type: str = "mse"         # 'mse' | 'huber' (loss.py:18)
+    huber_delta: float = 0.1
+    seed: int = 0
+
+
+class NGPSampler:
+    """Per-image probability-map pixel sampler (provider.py:236-366)."""
+
+    def __init__(self, images, poses, K, cfg: NGPTrainConfig, seed: int = 0):
+        self.cfg = cfg
+        images = np.ascontiguousarray(images, np.float32)
+        # RGBA inputs keep their alpha for random-background compositing
+        self.alphas = (images[..., 3:4].reshape(images.shape[0], -1, 1)
+                       if images.shape[-1] == 4 else None)
+        self.images = images[..., :3]
+        self.n_images, self.H, self.W = images.shape[:3]
+        self.rng = np.random.default_rng(seed)
+
+        origins, dirs = [], []
+        for p in poses:
+            o, d = get_rays_np(self.H, self.W, K, p[:3, :4])
+            origins.append(o.reshape(-1, 3))
+            d = d.reshape(-1, 3)
+            dirs.append(d / np.linalg.norm(d, axis=-1, keepdims=True))
+        self.origins = np.stack(origins, 0)   # [n, HW, 3]
+        self.dirs = np.stack(dirs, 0)
+        self.pixels = self.images.reshape(self.n_images, -1, 3)
+
+        if cfg.use_prob_map:
+            probs = []
+            for im in self.images:
+                s = sharp_image(im).reshape(-1).astype(np.float64) + 1e-6
+                probs.append(s / s.sum())
+            self.image_probs = np.stack(probs, 0)
+        else:
+            self.image_probs = None
+
+        self.error_map_res = 128
+        self.error_map = (np.ones((self.n_images, self.error_map_res ** 2), np.float64)
+                          if cfg.use_error_map else None)
+        self._img_cursor = 0
+
+    def change_to_allpixel(self):
+        """provider.py:363-366 — drop the prob maps near the end."""
+        self.image_probs = None
+        self.error_map = None
+
+    def _sample_patches(self, batch: int):
+        """Patch-mode pixel draw (nerf/utils.py:78-95); overrides the
+        prob/error-map sampling."""
+        p = self.cfg.patch_size
+        n_patch = batch // (p * p)
+        ix = self.rng.integers(0, self.H - p, n_patch)
+        iy = self.rng.integers(0, self.W - p, n_patch)
+        pi, pj = np.meshgrid(np.arange(p), np.arange(p), indexing="ij")
+        px = (ix[:, None] + pi.reshape(-1)[None]).reshape(-1)
+        py = (iy[:, None] + pj.reshape(-1)[None]).reshape(-1)
+        inds = px * self.W + py
+        if inds.shape[0] < batch:      # batch not divisible by p^2: pad
+            extra = self.rng.integers(0, self.H * self.W, batch - inds.shape[0])
+            inds = np.concatenate([inds, extra])
+        return inds
+
+    def _sample_error_map(self, i: int, batch: int):
+        """2-level error-map draw (nerf/utils.py:113-124)."""
+        em = self.error_map[i]
+        p = em / em.sum()
+        inds_coarse = self.rng.choice(em.shape[0], size=batch, p=p)
+        r = self.error_map_res
+        ix, iy = inds_coarse // r, inds_coarse % r
+        sx, sy = self.H / r, self.W / r
+        px = np.minimum((ix * sx + self.rng.random(batch) * sx).astype(np.int64), self.H - 1)
+        py = np.minimum((iy * sy + self.rng.random(batch) * sy).astype(np.int64), self.W - 1)
+        return px * self.W + py, inds_coarse
+
+    def update_error_map(self, img_ids, inds_coarse, per_ray_err):
+        """EMA update at the sampled coarse cells (utils.py:521-527):
+        new = 0.1 * old + 0.9 * err."""
+        if self.error_map is None:
+            return
+        for s in range(img_ids.shape[0]):
+            em = self.error_map[img_ids[s]]
+            em[inds_coarse[s]] = 0.1 * em[inds_coarse[s]] + 0.9 * per_ray_err[s]
+
+    def sample_chunk(self, n_steps: int, batch: int):
+        """[n_steps] training batches, each of ``batch`` rays from one image
+        (provider.py:289).  Returns (origins, dirs, rgb [n_steps, batch, 3|4
+        — alpha appended for RGBA], img_ids [n_steps], inds_coarse|None)."""
+        origins = np.empty((n_steps, batch, 3), np.float32)
+        dirs = np.empty((n_steps, batch, 3), np.float32)
+        rgb = np.empty((n_steps, batch, 3 if self.alphas is None else 4), np.float32)
+        img_ids = np.empty(n_steps, np.int64)
+        inds_coarse = (np.empty((n_steps, batch), np.int64)
+                       if self.error_map is not None and self.cfg.patch_size <= 1 else None)
+        hw = self.H * self.W
+        for s in range(n_steps):
+            i = self._img_cursor % self.n_images
+            self._img_cursor += 1
+            img_ids[s] = i
+            if self.cfg.patch_size > 1:
+                inds = self._sample_patches(batch)
+            elif self.error_map is not None:
+                inds, ic = self._sample_error_map(i, batch)
+                inds_coarse[s] = ic
+            elif self.image_probs is None:
+                inds = self.rng.integers(0, hw, batch)
+            else:
+                inds = self.rng.choice(hw, size=batch, p=self.image_probs[i])
+            origins[s] = self.origins[i, inds]
+            dirs[s] = self.dirs[i, inds]
+            rgb[s, :, :3] = self.pixels[i, inds]
+            if self.alphas is not None:
+                rgb[s, :, 3:] = self.alphas[i, inds]
+        return origins, dirs, rgb, img_ids, inds_coarse
+
+
+class NGPTrainer:
+    """Trains an ``NGPField`` built from ``field_cfg`` with parameters drawn
+    from ``torch.Generator`` seeded with ``train_cfg.seed`` (and the
+    per-step noise from a second one seeded with seed + 1)."""
+
+    def __init__(self, field_cfg: NGPConfig, render_cfg: NGPRenderConfig,
+                 train_cfg: NGPTrainConfig, device="cuda",
+                 compute_dtype=torch.bfloat16):
+        if train_cfg.time_dependent:
+            raise NotImplementedError(f"the time-dependent (D-NeRF) path {NGP_BACKLOG}")
+        if train_cfg.loss_type not in ("mse", "huber"):
+            raise ValueError(f"unknown loss_type {train_cfg.loss_type!r} (mse|huber)")
+        self.device = resolve_device(device)
+        self.rcfg = render_cfg
+        self.cfg = train_cfg
+        gen = torch.Generator(device=self.device).manual_seed(train_cfg.seed)
+        self.field = NGPField(field_cfg, compute_dtype, gen, self.device)
+        self.params = list(self.field.parameters())
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.ema = ([p.detach().clone() for p in self.params]
+                    if train_cfg.ema_decay > 0 else None)
+        self.step = 0
+        self.occ = init_occupancy(render_cfg, self.device)
+        self.gen = torch.Generator(device=self.device).manual_seed(train_cfg.seed + 1)
+        self.history = []
+
+    # ------------------------------------------------------------------
+    def lr_at(self, step: int) -> float:
+        """LambdaLR 0.1 ** (iter / max_steps), clamped, in float32."""
+        e = np.minimum(np.float32(step) / np.float32(self.cfg.max_steps), np.float32(1.0))
+        return float(np.float32(self.cfg.lr) * np.float32(0.1) ** e)
+
+    def train_step(self, origins, dirs, rgb, noise=None, bg_noise=None):
+        """One Adam step on a batch; returns (loss, per-ray loss) as device
+        tensors.  ``noise`` [B, S] and ``bg_noise`` [B, 3] (RGBA data only)
+        replace the draws from the trainer's generator."""
+        cfg = self.cfg
+        with torch.enable_grad():
+            if rgb.shape[-1] == 4:
+                # pixel-wise random background (utils.py:474-479)
+                bg = (torch.rand(rgb[..., :3].shape, generator=self.gen, device=rgb.device)
+                      if bg_noise is None else bg_noise)
+                gt = rgb[..., :3] * rgb[..., 3:] + bg * (1.0 - rgb[..., 3:])
+            else:
+                bg, gt = cfg.bg_color, rgb
+            out = ngp_render_rays(self.field, self.occ, origins, dirs, self.rcfg,
+                                  perturb=True, bg_color=bg, noise=noise,
+                                  generator=self.gen)
+            if cfg.loss_type == "huber":
+                per_ray = torch.mean(huber_loss(out["rgb"], gt, cfg.huber_delta,
+                                                reduce=False), -1)
+            else:
+                per_ray = torch.mean((out["rgb"] - gt) ** 2, -1)
+            loss = torch.mean(per_ray)
+            grads = torch.autograd.grad(loss, self.params)
+        self._adam(grads)
+        return loss.detach(), per_ray.detach()
+
+    @torch.no_grad()
+    def _adam(self, grads):
+        """optax.scale_by_adam(0.9, 0.99, 1e-15), then -lr * update, then the
+        EMA; in place."""
+        lr = self.lr_at(self.step)
+        count = self.step + 1
+        c1 = float(1.0 - np.float32(ADAM_B1) ** count)
+        c2 = float(1.0 - np.float32(ADAM_B2) ** count)
+        for p, g, m, v in zip(self.params, grads, self.mu, self.nu):
+            m.mul_(ADAM_B1).add_(g, alpha=1.0 - ADAM_B1)
+            v.mul_(ADAM_B2).addcmul_(g, g, value=1.0 - ADAM_B2)
+            p.add_((m / c1) / (torch.sqrt(v / c2) + ADAM_EPS), alpha=-lr)
+        if self.ema is not None:
+            d = self.cfg.ema_decay
+            for e, p in zip(self.ema, self.params):
+                e.mul_(d).add_(p, alpha=1.0 - d)
+        self.step = count
+
+    def refresh_occupancy(self, partial: bool):
+        self.occ = update_occupancy(self.occ, self.field, self.rcfg, partial=partial,
+                                    generator=self.gen)
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(a)
+        if self.device.type == "cuda":
+            # pinned, so the copy does not wait for the queued steps
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def fit(self, sampler: NGPSampler, verbose: bool = True, n_steps: int = None):
+        """Train cfg.max_steps steps (or n_steps, for callers that
+        interleave fits while cfg.max_steps stays the total the lr decays
+        over), in chunks of steps_per_chunk with an occupancy refresh before
+        each: full for the first full_refreshes, then partial."""
+        cfg = self.cfg
+        spc = cfg.steps_per_chunk
+        n_chunks = -((n_steps or cfg.max_steps) // -spc)
+        t0 = time.time()
+        base_step = self.step
+        hist_start = len(self.history)
+        # the previous chunk's results, absorbed after the next chunk is
+        # queued (the error map lags its rays by one chunk, as in the
+        # reference)
+        pending = None
+
+        def absorb(p):
+            img_ids, inds_coarse, per_ray, losses, step_after = p
+            if inds_coarse is not None:
+                sampler.update_error_map(img_ids, inds_coarse, per_ray.cpu().numpy())
+            # "loss" is the chunk's last step (the reference's entry);
+            # "chunk_loss" the mean over its steps
+            self.history.append({"step": step_after, "wall_s": time.time() - t0,
+                                 "loss": losses[-1], "chunk_loss": losses.mean()})
+
+        allpixel_step = int(cfg.max_steps * cfg.all_pixel_at)
+        for ci in range(n_chunks):
+            if (base_step + ci * spc >= allpixel_step) and (
+                    sampler.image_probs is not None or sampler.error_map is not None):
+                sampler.change_to_allpixel()
+                if verbose:
+                    print("switched to all-pixel (uniform) sampling")
+            if ci % cfg.occ_update_every == 0:
+                n_refresh = (base_step + ci * spc) // (cfg.occ_update_every * spc)
+                self.refresh_occupancy(partial=n_refresh >= cfg.full_refreshes)
+
+            origins, dirs, rgb, img_ids, inds_coarse = sampler.sample_chunk(
+                spc, cfg.batch_rays)
+            origins, dirs, rgb = (self._to_device(a) for a in (origins, dirs, rgb))
+            outs = [self.train_step(origins[k], dirs[k], rgb[k]) for k in range(spc)]
+            losses = torch.stack([o[0] for o in outs])
+            per_ray = torch.stack([o[1] for o in outs])
+            if pending is not None:
+                absorb(pending)
+            pending = (img_ids, inds_coarse, per_ray, losses, base_step + (ci + 1) * spc)
+
+            if verbose and (ci % max(1, n_chunks // 20) == 0 or ci == n_chunks - 1):
+                if self.history:
+                    h = self.history[-1]
+                    loss = float(h["loss"])
+                    print(f"step {h['step']}/{cfg.max_steps}: loss {loss:.5f} "
+                          f"psnr {float(mse2psnr(loss)):.2f} ({time.time() - t0:.0f}s)")
+        if pending is not None:
+            absorb(pending)
+        ent = self.history[hist_start:]
+        if ent:
+            # one stacked transfer for the whole fit
+            vals = torch.stack([torch.stack([h["loss"], h["chunk_loss"]])
+                                for h in ent]).cpu().numpy()
+            for h, (last, mean) in zip(ent, vals):
+                h["loss"], h["chunk_loss"] = float(last), float(mean)
+        return self
+
+    # ------------------------------------------------------------------
+    def save_checkpoint(self, workspace: str, name: str = None, max_keep: int = 2) -> str:
+        """Trainer.save_checkpoint analog (nerf/utils.py:1014-1074): params,
+        EMA, Adam moments, occupancy and step, in the reference's numpy
+        layouts, with max_keep rotation."""
+        from flnerf_tpu_torch.core.convert import ngp_params_to_numpy
+
+        ckpt_dir = os.path.join(workspace, "checkpoints")
+        os.makedirs(ckpt_dir, exist_ok=True)
+        name = name or f"ngp_ep{self.step:07d}"
+        ns = self.field.cfg.num_layers
+        payload = {
+            "format": CKPT_FORMAT,
+            "step": self.step,
+            "params": ngp_params_to_numpy(self.params, ns),
+            "ema_params": (ngp_params_to_numpy(self.ema, ns)
+                           if self.ema is not None else None),
+            "occ_density": self.occ.density.cpu().numpy(),
+            "occ_mean": float(self.occ.mean_density),
+            "opt_state": {"count": self.step,
+                          "mu": ngp_params_to_numpy(self.mu, ns),
+                          "nu": ngp_params_to_numpy(self.nu, ns)},
+        }
+        path = os.path.join(ckpt_dir, f"{name}.pkl")
+        with open(path, "wb") as f:
+            pickle.dump(payload, f)
+        for old in sorted(glob.glob(os.path.join(ckpt_dir, "ngp_ep*.pkl")))[:-max_keep]:
+            os.remove(old)
+        return path
+
+    def load_checkpoint(self, path_or_workspace: str) -> str:
+        """load_checkpoint analog (utils.py:1076+): a file, or the latest
+        checkpoint of a workspace.  Reads only files this package wrote."""
+        from flnerf_tpu_torch.core.convert import (
+            load_ngp_params,
+            ngp_params_from_numpy,
+            occupancy_from_numpy,
+        )
+
+        path = path_or_workspace
+        if os.path.isdir(path_or_workspace):
+            ckpts = sorted(glob.glob(os.path.join(path_or_workspace, "checkpoints",
+                                                  "ngp_ep*.pkl")))
+            if not ckpts:
+                raise FileNotFoundError(path_or_workspace)
+            path = ckpts[-1]
+        with open(path, "rb") as f:
+            d = pickle.load(f)
+        if d.get("format") != CKPT_FORMAT:
+            raise ValueError(f"{path} is not a {CKPT_FORMAT} checkpoint")
+        dev = self.device
+        load_ngp_params(self.field, d["params"])
+        if d["ema_params"] is not None and self.ema is not None:
+            self.ema = ngp_params_from_numpy(d["ema_params"], dev)
+        self.mu = ngp_params_from_numpy(d["opt_state"]["mu"], dev)
+        self.nu = ngp_params_from_numpy(d["opt_state"]["nu"], dev)
+        self.step = int(d["step"])
+        self.occ = occupancy_from_numpy(d["occ_density"], d["occ_mean"], self.rcfg, dev)
+        return path
+
+    def eval_images(self, poses, images, H, W, K, chunk: int = 8192,
+                    use_ema: bool = False):
+        """Mean PSNR and SSIM over the given views (metrics on the host)."""
+        swap = use_ema and self.ema is not None
+        if swap:
+            saved = [p.detach().clone() for p in self.params]
+            with torch.no_grad():
+                for p, e in zip(self.params, self.ema):
+                    p.copy_(e)
+        try:
+            psnrs, ssims = [], []
+            for i in range(poses.shape[0]):
+                rgb, _ = ngp_render_image(self.field, self.occ, self.rcfg, H, W, K,
+                                          poses[i][:3, :4], chunk=chunk)
+                gt = np.asarray(images[i], np.float32)
+                if gt.shape[-1] == 4:
+                    # RGBA gt on the eval bg color (utils.py:471)
+                    gt = gt[..., :3] * gt[..., 3:] + self.rcfg.bg_color * (1.0 - gt[..., 3:])
+                mse = float(np.mean((rgb - gt) ** 2))
+                psnrs.append(float(mse2psnr(mse)))
+                ssims.append(float(compute_ssim(torch.from_numpy(gt), torch.from_numpy(rgb))))
+        finally:
+            if swap:
+                with torch.no_grad():
+                    for p, s in zip(self.params, saved):
+                        p.copy_(s)
+        return float(np.mean(psnrs)), float(np.mean(ssims))

@@ -1,0 +1,49 @@
+"""The port's NGP CLI (flnerf_tpu_torch/cli/main_nerf.py) end to end on the
+CPU at a tiny size: the synthetic scene at 16x16, an 8^3 occupancy grid,
+full-width hash field (16 levels, 2^15 tables, bf16 MLPs under -O)."""
+
+import math
+import os
+
+import pytest
+import torch
+
+from flnerf_tpu.cli import main_nerf as ref_cli
+from flnerf_tpu_torch.cli import main_nerf
+
+torch.set_num_threads(1)
+
+TINY = ["--synth_h", "16", "--grid_size", "8", "--num_rays", "64", "--n_candidates", "32",
+        "--n_keep", "16", "--steps_per_chunk", "4", "--device", "cpu"]
+
+
+def test_parser_matches_reference_flag_for_flag():
+    ours = {a.dest: a.default for a in main_nerf.make_parser()._actions}
+    theirs = {a.dest: a.default for a in ref_cli.make_parser()._actions}
+    assert ours.pop("device") == "cuda"
+    assert ours == theirs
+    args = main_nerf.parse_args(["synthetic", "-O"])
+    assert args.fp16 and args.cuda_ray and args.preload
+
+
+def test_main_trains_evaluates_and_writes_results(tmp_path, capsys):
+    res = main_nerf.main(["synthetic", "-O", "--iters", "8", "--workspace", str(tmp_path)]
+                         + TINY)
+    out = capsys.readouterr().out
+    assert "training done in" in out and "rays/s" in out and "test PSNR" in out
+    assert res["steps"] == 8 and [h["step"] for h in res["history"]] == [4, 8]
+    assert math.isfinite(res["psnr"]) and math.isfinite(res["ssim"])
+    with open(tmp_path / "results.txt") as f:
+        assert f.read().startswith(f"mean PSNR: {res['psnr']}")
+    assert os.path.exists(tmp_path / "time_mins.txt")
+    assert os.listdir(tmp_path / "checkpoints") == ["ngp_ep0000008.pkl"]
+    trainer = main_nerf.build(main_nerf.parse_args(["synthetic", "-O"] + TINY))[0]
+    assert trainer.field.compute_dtype == torch.bfloat16 and trainer.cfg.ema_decay == 0.95
+    assert trainer.field.spec.t_cap == 2 ** 15 and trainer.field.spec.num_levels == 16
+
+
+@pytest.mark.parametrize("flags", [["--gui"], ["--clip_text", "a chair"], ["--rand_pose", "0"],
+                                   ["--bg_radius", "2"], ["--log2_hashmap_size", "19"]])
+def test_unported_flags_raise(flags, tmp_path):
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        main_nerf.main(["synthetic", "--workspace", str(tmp_path)] + TINY + flags)

@@ -12,7 +12,10 @@ import pytest
 import torch
 
 from flnerf_tpu_torch.models.voxel_sh import VoxelGridConfig, init_voxel_grid
-from flnerf_tpu_torch.ops import _build, voxel_kernel
+from flnerf_tpu_torch.models.hash_ngp import NGPConfig
+from flnerf_tpu_torch.ops import _build, hash_kernel, voxel_kernel
+from flnerf_tpu_torch.render.ngp import NGPRenderConfig
+from flnerf_tpu_torch.train import ngp_trainer
 from flnerf_tpu_torch.train import plenoxels_trainer as pt
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -71,9 +74,14 @@ def test_cuda_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     cfg = VoxelGridConfig(reso=(8, 8, 8), max_steps=8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pt.PlenoxelsTrainer(cfg, pt.PlenoxelsTrainConfig())
-    from flnerf_tpu_torch.cli import opt
+    from flnerf_tpu_torch.cli import main_nerf, opt
     with pytest.raises(RuntimeError, match="no CUDA device"):
         opt.main(["synthetic", "-t", str(tmp_path), "--reso", "[[8,8,8]]"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ngp_trainer.NGPTrainer(NGPConfig(num_levels=2, log2_hashmap_size=8),
+                               NGPRenderConfig(grid_size=8), ngp_trainer.NGPTrainConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main_nerf.main(["synthetic", "-O", "--iters", "4", "--workspace", str(tmp_path)])
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -88,6 +96,14 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         voxel_kernel.cuvol_backward(*g, *rays, torch.zeros((4, 8)), torch.zeros((4, 8)), cfg)
     assert voxel_kernel.FWD_LAUNCHES == before
+    spec = hash_kernel.make_packed_spec(num_levels=2, log2_hashmap_size=8)
+    x, table = torch.rand((4, 3)), torch.zeros((2, spec.t_cap, 2))
+    before = hash_kernel.HASH_FWD_LAUNCHES, hash_kernel.HASH_BWD_LAUNCHES
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        hash_kernel.hash_encode_forward(x, table, spec)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        hash_kernel.hash_encode_backward(x, torch.zeros((4, 4)), spec)
+    assert (hash_kernel.HASH_FWD_LAUNCHES, hash_kernel.HASH_BWD_LAUNCHES) == before
 
 
 def test_failed_build_raises(monkeypatch, tmp_path):
@@ -96,5 +112,7 @@ def test_failed_build_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all(["voxel_cuvol"])
-    assert _build.sources() == ["voxel_cuvol"]
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build_all()
+    assert _build.sources() == ["hash_encode", "voxel_cuvol"]
     assert np.all([not f.endswith(".so") for f in os.listdir(tmp_path)])
