@@ -49,7 +49,25 @@ Phases (any failure raises, and the script exits non-zero):
   7. K3, K4's body (its gradient zero-filled outside the timed loop; the
      zero-fill timed apart; on the train loss's gradient, and on the dense
      one) and the plain version by CUDA events on phase 5's batch, beside
-     the least time the card could take.
+     the least time the card could take;
+  8. the lattice engine's kernels, K5 (sort), K6 (forward) and K7 (table
+     gradient), against their plain versions (ops/sort_kernel.py
+     bitonic_sort_plain, ops/hash_lattice.py lattice_encode_plain with
+     autograd) on the trainer cli/main_nerf builds for `synthetic -O
+     --log2_hashmap_size 19` (2 small levels on K3/K4, 14 big ones on a
+     [14, 2^19, 2] table) after 256 steps: the kept points of its next
+     batch with the train loss's gradient and a dense random one, a
+     65,536-point refresh chunk and 65,536 points in two z-slabs; K5 also
+     through variant=1;
+  9. the lattice main path: `main_nerf synthetic -O --log2_hashmap_size 19
+     --iters 512` with the counters set to 0 just before and read just
+     after: K3 == K5 == K6 == steps + refresh chunks + eval chunks, K4 == K7
+     == steps, no cuvol launch; the loss falls; a finite test PSNR; peak
+     memory; train rays/s over steps 257-512; a 64-step profile;
+ 10. K5 (beside torch.sort on the same keys), K6 and K7's body in sorted
+     and in point order, and their plain versions, by CUDA events on phase
+     8's batch, beside the least time the card could take, and whether the
+     sorted walk pays for its sort.
 
 The last lines are one JSON object describing the kernels, the card's name
 and power limit as nvidia-smi gives them, and
@@ -94,6 +112,12 @@ REFRESH_CHUNK = 1 << 16    # render/ngp.update_occupancy's chunk
 # the 16 products w * g (16)
 K3_FLOPS = 60
 K4_FLOPS = 44
+LATTICE_FLAGS = ("--log2_hashmap_size", "19")   # torch-ngp's capacity: the lattice engine
+SLAB_POINTS = 1 << 16      # the clustered two-z-slab points of phase 8
+# K6/K7 do K3/K4's f32 arithmetic per (point, level) (their integer key
+# arithmetic is not counted)
+K6_FLOPS = K3_FLOPS
+K7_FLOPS = K4_FLOPS
 
 
 def check(cond, msg):
@@ -253,13 +277,14 @@ def kernel_ms(grid, cfg, o, d, gt, iters=20):
     return k1, k2
 
 
-def ngp_setup(workspace):
+def ngp_setup(workspace, extra=()):
     """The NGP trainer and sampler as cli/main_nerf builds them for
-    `synthetic -O --iters 512`, the test views' indices and [H, W, focal]."""
+    `synthetic -O --iters 512` (plus ``extra`` flags), the test views'
+    indices and [H, W, focal]."""
     from flnerf_tpu_torch.cli import main_nerf
     from flnerf_tpu_torch.train.ngp_trainer import NGPSampler
     args = main_nerf.parse_args(["synthetic", "-O", "--iters", str(NGP_ITERS),
-                                 "--workspace", workspace])
+                                 "--workspace", workspace, *extra])
     trainer, _, _, tcfg = main_nerf.build(args)
     images, poses, hwf, K, (i_train, _, i_test) = main_nerf.load_ngp_dataset(args)
     sampler = NGPSampler(images[i_train], poses[i_train], K, tcfg, seed=args.seed)
@@ -280,6 +305,289 @@ def expected_hash_launches(trainer, n_test, hwf):
     chunk = min(4096, (n + 127) // 128 * 128)        # main_nerf --max_ray_batch
     n_eval = n_test * -(-n // chunk)
     return n_chunks * tcfg.steps_per_chunk + refresh + n_eval, refresh, n_eval
+
+
+def bound_of(nbytes, flops):
+    """(least ms, what bounds it): bytes over HBM, f32 operations over the
+    f32 peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def pair_codes(keys, payload):
+    """Per row, the sorted int64 codes key << 32 | payload: equal codes mean
+    equal keys and an equal multiset of payloads per key."""
+    import torch
+    return torch.sort((keys.long() << 32) | (payload.long() & 0xFFFFFFFF), dim=-1)[0]
+
+
+def lattice_phases(dev, to_dev):
+    """Phases 8-10, the hash-NGP path at 2^19 (the lattice engine, K3-K7).
+    Returns the K5, K5', K6 and K7 rows of the kernels line."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from flnerf_tpu_torch.cli import main_nerf
+    from flnerf_tpu_torch.models import hash_ngp
+    from flnerf_tpu_torch.ops import hash_kernel as hk
+    from flnerf_tpu_torch.ops import hash_lattice as hl
+    from flnerf_tpu_torch.ops import sort_kernel as sk
+    from flnerf_tpu_torch.ops import voxel_kernel as vk
+    from flnerf_tpu_torch.render.ngp import ngp_render_rays
+
+    # ---- phase 8: K5, K6 and K7 against their plain versions ----
+    lat_tmp = tempfile.TemporaryDirectory()
+    trainer, sampler, n_test, hwf = ngp_setup(lat_tmp.name, LATTICE_FLAGS)
+    spec = trainer.field.spec
+    n_small = spec.split.n_small
+    trainer.fit(sampler, verbose=False, n_steps=NGP_WINDOW)    # steps 1-256
+    # the next batch, through the trainer's own loss: the big levels' input
+    # and real upstream gradient are read at the split encode
+    bo, bd, brgb, _, _ = copy.deepcopy(sampler).sample_chunk(1, trainer.cfg.batch_rays)
+    seen = {}
+
+    def capture(x01, tables, spec_):
+        out = split(x01, tables, spec_)
+        seen["x01"] = x01
+        out.register_hook(lambda g: seen.setdefault("g", g))
+        return out
+
+    split, hash_ngp.lattice_encode_split = hash_ngp.lattice_encode_split, capture
+    try:
+        out = ngp_render_rays(trainer.field, trainer.occ, to_dev(bo[0]), to_dev(bd[0]),
+                              trainer.rcfg, generator=trainer.gen)
+        torch.autograd.grad(torch.mean((out["rgb"] - to_dev(brgb[0])) ** 2),
+                            [trainer.field.table_big])
+    finally:
+        hash_ngp.lattice_encode_split = split
+    del out
+    table = trainer.field.table_big.detach().clone()
+    x_batch = seen["x01"].detach().contiguous()
+    g_train = seen["g"][:, 2 * n_small:].contiguous()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    g_cells = trainer.rcfg.grid_size
+    idx = torch.arange(g_cells, device=dev)
+    cells = torch.stack(torch.meshgrid(idx, idx, idx, indexing="ij"), -1).reshape(-1, 3)
+    cells = cells[:REFRESH_CHUNK].float() + torch.rand((REFRESH_CHUNK, 3), generator=gen,
+                                                       device=dev)
+    x_refresh = trainer.field.unit_points(
+        (cells / g_cells * 2.0 - 1.0) * trainer.rcfg.bound).contiguous()
+    # two separated z-slabs (tests/test_hash_lattice.py:60), where the TPU
+    # engine drops corners outside its slabs
+    x_slabs = torch.rand((SLAB_POINTS, 3), generator=gen, device=dev)
+    x_slabs[:, 2] *= 0.08
+    x_slabs[SLAB_POINTS // 2:, 2] += 0.9
+    inputs = {"train batch": x_batch, "refresh chunk": x_refresh, "two z-slabs": x_slabs}
+    print(f"[phase 8] lattice spec: {n_small} small levels (t_cap {spec.split.small.t_cap}), "
+          f"{spec.n_big} big levels (sizes {spec.split.big.sizes.tolist()}), big table "
+          f"{tuple(table.shape)} = {table.numel() * 4 / 1e6:.1f} MB", flush=True)
+
+    k5_err = 0
+    for name, xx in inputs.items():
+        keys, iota = hl.lattice_sort_inputs(xx, spec)
+        want = sk.bitonic_sort_plain(keys, iota)
+        for variant in (2, 1):
+            got = sk.bitonic_sort(keys, iota, variant=variant)
+            torch.cuda.synchronize()
+            wrong = int((got[0] != want[0]).sum())
+            same_pairs = torch.equal(pair_codes(*got), pair_codes(*want))
+            print(f"[phase 8] K5 (variant {variant}) on the {name}'s keys "
+                  f"{tuple(keys.shape)}: {wrong} keys differ, payload multisets per key "
+                  f"{'equal' if same_pairs else 'DIFFER'}", flush=True)
+            check(wrong == 0 and same_pairs,
+                  f"K5 (variant {variant}) differs from the plain version ({name})")
+            k5_err = max(k5_err, int((got[0].long() - want[0].long()).abs().max()))
+    del got, want
+
+    k6_err = k7_err = 0.0
+    orders = {}
+    for name, xx in inputs.items():
+        orders[name] = order = hl.lattice_sort_order(xx, spec)
+        with torch.no_grad():
+            out_k = hl.lattice_encode_forward(xx, table, spec, order)
+            out_p = hl.lattice_encode_plain(xx, table, spec)
+        torch.cuda.synchronize()
+        err, scale = float((out_k - out_p).abs().max()), float(out_p.abs().max())
+        print(f"[phase 8] K6 on the {name} {tuple(xx.shape)}: max_err {err:.3e} "
+              f"(largest output {scale:.4e})", flush=True)
+        check(bool(torch.isfinite(out_k).all()), f"K6 output not finite ({name})")
+        check(scale > 0 and err <= 1e-6 * scale,
+              f"K6 differs from the plain version by {err} > 1e-6 * {scale} ({name})")
+        k6_err = max(k6_err, err)
+    del out_k, out_p
+    grads = [("train batch", "train gradient", g_train)] + [
+        (name, "dense gradient", torch.randn((xx.shape[0], 2 * spec.n_big), generator=gen,
+                                             device=dev))
+        for name, xx in inputs.items()]
+    for name, what, g_up in grads:
+        xx = inputs[name]
+        grad_k = hl.lattice_encode_backward(xx, g_up, spec, orders[name])
+        tp = table.clone().requires_grad_(True)
+        (grad_p,) = torch.autograd.grad(hl.lattice_encode_plain(xx, tp, spec), [tp], g_up)
+        torch.cuda.synchronize()
+        err, scale = float((grad_k - grad_p).abs().max()), float(grad_p.abs().max())
+        live = float((g_up != 0).any(-1).float().mean())
+        print(f"[phase 8] K7 on the {name}, {what} (nonzero at {live:.4f} of the points): "
+              f"max_err {err:.3e} (largest entry {scale:.4e})", flush=True)
+        # on the plateau the train gradient may be zero at every point; then
+        # K7 must give exactly zero too
+        check((scale > 0 or what == "train gradient") and err <= 1e-4 * scale,
+              f"K7 differs from the plain version by {err} > 1e-4 * {scale} ({name}, {what})")
+        k7_err = max(k7_err, err)
+    g_dense = grads[1][2]
+    del grad_k, grad_p, tp, grads
+
+    # ---- phase 9: the lattice main path, through the CLI on the card ----
+    for mod in (hk, hl, sk, vk):
+        mod.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        res = main_nerf.main(["synthetic", "-O", *LATTICE_FLAGS, "--iters", str(NGP_ITERS),
+                              "--workspace", tmp])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = {"K3": hk.HASH_FWD_LAUNCHES, "K4": hk.HASH_BWD_LAUNCHES,
+                    "K5": sk.SORT_LAUNCHES, "K6": hl.LATTICE_FWD_LAUNCHES,
+                    "K7": hl.LATTICE_BWD_LAUNCHES}
+        with open(os.path.join(tmp, "results.txt")) as f:
+            results = f.read().split()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = res["steps"]
+    losses = [h["chunk_loss"] for h in res["history"]]
+    want_fwd, n_refresh, n_eval = expected_hash_launches(trainer, len(n_test), hwf)
+    print(f"[phase 9] launches {launches} (K1 {vk.FWD_LAUNCHES}, K2 {vk.BWD_LAUNCHES}); "
+          f"steps {steps}, refresh chunks {n_refresh}, eval chunks {n_eval}; mean train loss "
+          f"per chunk first {losses[0]:.5f} last {losses[-1]:.5f} (min {min(losses):.5f} max "
+          f"{max(losses[1:]):.5f} after the first); test PSNR {res['psnr']:.3f} SSIM "
+          f"{res['ssim']:.4f}; main {wall:.1f} s; peak memory {peak_gb:.2f} GB; results.txt "
+          f"{results}", flush=True)
+    check(launches["K4"] == launches["K7"] == steps == NGP_ITERS,
+          f"K4/K7 launches {launches} != steps {steps}")
+    check(launches["K3"] == launches["K5"] == launches["K6"] == want_fwd,
+          f"K3/K5/K6 launches {launches} != steps + refresh + eval chunks {want_fwd}")
+    check(vk.FWD_LAUNCHES == vk.BWD_LAUNCHES == 0, "the NGP path launched a cuvol kernel")
+    check(all(math.isfinite(v) for v in losses), f"train loss not finite: {losses}")
+    check(losses[-1] < losses[0], f"train loss did not fall: {losses}")
+    check(math.isfinite(res["psnr"]), f"test PSNR not finite: {res['psnr']}")
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    trainer.fit(sampler, verbose=False, n_steps=NGP_WINDOW)
+    torch.cuda.synchronize()
+    win_s = time.time() - t0
+    print(f"[phase 9] train rays/s over steps {NGP_WINDOW + 1}-{2 * NGP_WINDOW}: "
+          f"{NGP_WINDOW * trainer.cfg.batch_rays / win_s:.1f} ({NGP_WINDOW} steps, "
+          f"{NGP_WINDOW // trainer.cfg.steps_per_chunk} partial refreshes, {win_s:.3f} s); "
+          f"loss {trainer.history[-1]['loss']:.5f}", flush=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        trainer.fit(sampler, verbose=False, n_steps=NGP_PROFILE_STEPS)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.time() - t0) * 1e3
+    dev_events = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                        key=lambda e: -e.self_device_time_total)
+    dev_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
+    print(f"[phase 9] profiled lattice fit of {NGP_PROFILE_STEPS} steps: device busy "
+          f"{dev_ms:.1f} ms of {prof_wall_ms:.1f} ms wall ({100 * dev_ms / prof_wall_ms:.1f}%); "
+          f"top kernels by device time:")
+    for e in dev_events[:14] + [e for e in dev_events[14:]
+                                if "hash_" in e.key or "lattice" in e.key or "bitonic" in e.key]:
+        print(f"[phase 9]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
+              f"{e.key[:90]}")
+    lat_tmp.cleanup()
+
+    # ---- phase 10: K5, K6 and K7 times on phase 8's batch ----
+    n_pts, lb = x_batch.shape[0], spec.n_big
+    keys, iota = hl.lattice_sort_inputs(x_batch, spec)
+    k5_ms = cuda_ms(lambda: sk.bitonic_sort(keys, iota), 20)
+    k5_plain_ms = cuda_ms(lambda: sk.bitonic_sort_plain(keys, iota), 20)
+    k5_lib_ms = cuda_ms(lambda: torch.sort(keys, dim=-1), 20)
+    keys_ms = cuda_ms(lambda: hl.lattice_sort_inputs(x_batch, spec), 20)
+    order = orders["train batch"]
+    ident = torch.arange(n_pts, dtype=torch.int32, device=dev).expand(lb, n_pts).contiguous()
+    grad_buf = torch.zeros((lb, spec.t_big, 2), device=dev)
+    ms = {}
+    for oname, o in (("sorted", order), ("point", ident)):
+        ms[f"K6 {oname}"] = cuda_ms(lambda: hl.lattice_encode_forward(x_batch, table, spec, o), 20)
+        ms[f"K7 {oname} dense"] = cuda_ms(lambda: hl.lattice_encode_backward(
+            x_batch, g_dense, spec, o, grad_table=grad_buf), 20)
+        ms[f"K7 {oname} train"] = cuda_ms(lambda: hl.lattice_encode_backward(
+            x_batch, g_train, spec, o, grad_table=grad_buf), 20)
+    zero_ms = cuda_ms(lambda: torch.zeros((lb, spec.t_big, 2), device=dev), 20)
+    with torch.no_grad():
+        k6_plain_ms = cuda_ms(lambda: hl.lattice_encode_plain(x_batch, table, spec), 5)
+    tp = table.clone().requires_grad_(True)
+    out_g = hl.lattice_encode_plain(x_batch, tp, spec)
+    k7_plain_ms = cuda_ms(lambda: torch.autograd.grad(out_g, [tp], g_dense, retain_graph=True), 5)
+    del out_g, tp
+    # what this batch's data needs: the distinct big-table entries its
+    # corners touch (K6), and those of the points with a nonzero gradient
+    cidx, _ = hl.corner_indices_weights(x_batch, spec)                 # [Lb, N, 8]
+    cidx = cidx + torch.arange(lb, device=dev)[:, None, None] * spec.t_big
+    touched = int(cidx.unique().numel())
+    live = (g_train != 0).any(-1)
+    live_pts = int(live.sum())
+    touched_live = int(cidx[:, live].unique().numel())
+    del cidx
+    # the encode's own bytes: x01 and the [N, Lb*2] output (K6) or upstream
+    # gradient (K7) once, each touched entry read once (K6) or read and
+    # written once (K7's body adds into the gradient); the walk order is the
+    # sorted design's and is not counted
+    x_bytes, io_bytes = n_pts * 12, n_pts * lb * 8
+    bounds = {
+        "K5": bound_of(2 * keys.numel() * 8, 0),
+        "K6": bound_of(x_bytes + io_bytes + touched * 8, n_pts * lb * K6_FLOPS),
+        "K7": bound_of(x_bytes + io_bytes + touched * 16, n_pts * lb * K7_FLOPS),
+        "K7 train": bound_of(x_bytes + io_bytes + touched_live * 16, live_pts * lb * K7_FLOPS),
+    }
+    sorted_total = keys_ms + k5_ms + ms["K6 sorted"] + ms["K7 sorted dense"]
+    point_total = ms["K6 point"] + ms["K7 point dense"]
+    print(f"[phase 10] train batch: {n_pts} points x {lb} big levels, {touched} distinct "
+          f"big-table entries touched ({touched_live} by the {live_pts} points with a "
+          f"gradient); L2 sector volume {n_pts * lb * 8 * 32 / 1e6:.1f} MB (8 corners x a "
+          f"32 B sector per point and level) for {n_pts * lb * 8 * 8 / 1e6:.1f} MB of "
+          f"gathered entries", flush=True)
+    print(f"[phase 10] K5 on keys {tuple(keys.shape)}: {k5_ms:.4f} ms (plain "
+          f"{k5_plain_ms:.4f} ms; torch.sort {k5_lib_ms:.4f} ms; bound "
+          f"{bounds['K5'][0]:.4f} ms by {bounds['K5'][1]}); base keys and padding "
+          f"{keys_ms:.4f} ms", flush=True)
+    print(f"[phase 10] K6 sorted order {ms['K6 sorted']:.4f} ms, point order "
+          f"{ms['K6 point']:.4f} ms (plain {k6_plain_ms:.3f} ms, bound {bounds['K6'][0]:.4f} ms "
+          f"by {bounds['K6'][1]}); K7 body on the dense gradient sorted "
+          f"{ms['K7 sorted dense']:.4f} ms, point {ms['K7 point dense']:.4f} ms (plain "
+          f"backward {k7_plain_ms:.3f} ms, bound {bounds['K7'][0]:.4f} ms by "
+          f"{bounds['K7'][1]}); on the train gradient sorted {ms['K7 sorted train']:.4f} ms, "
+          f"point {ms['K7 point train']:.4f} ms (bound {bounds['K7 train'][0]:.4f} ms); "
+          f"zero-fill {zero_ms:.4f} ms", flush=True)
+    print(f"[phase 10] sorted walk incl. keys and sort (keys + K5 + K6 + K7 dense) "
+          f"{sorted_total:.4f} ms vs point order (K6 + K7 dense) {point_total:.4f} ms: "
+          f"{'sorted' if sorted_total < point_total else 'point'} order is faster; launches "
+          f"per train step K5 {launches['K5'] / steps:.4f}, K6 {launches['K6'] / steps:.4f}, "
+          f"K7 {launches['K7'] / steps:.4f}", flush=True)
+
+    src = "flnerf_tpu_torch/ops/csrc/hash_lattice.cu"
+    return [
+        {"name": "bitonic_sort (K5)", "route": "cuda", "source": src,
+         "replaces": "flnerf_tpu/ops/sort_pallas.py:118", "launches": launches["K5"],
+         "max_abs_err": float(k5_err), "ms": k5_ms, "plain_ms": k5_plain_ms,
+         "bound_ms": bounds["K5"][0], "bound_by": bounds["K5"][1], "library_ms": k5_lib_ms},
+        # K5' is K5's kernel: the variant chose a TPU schedule only, so the
+        # row repeats K5's launches and times
+        {"name": "bitonic_sort variant=1 (K5', the same kernel as K5)", "route": "cuda",
+         "source": src, "replaces": "flnerf_tpu/ops/sort_pallas.py:61",
+         "launches": launches["K5"], "max_abs_err": float(k5_err), "ms": k5_ms,
+         "plain_ms": k5_plain_ms, "bound_ms": bounds["K5"][0], "bound_by": bounds["K5"][1],
+         "library_ms": k5_lib_ms},
+        {"name": "lattice_encode_forward (K6)", "route": "cuda", "source": src,
+         "replaces": "flnerf_tpu/ops/hash_lattice.py:415", "launches": launches["K6"],
+         "max_abs_err": k6_err, "ms": ms["K6 sorted"], "plain_ms": k6_plain_ms,
+         "bound_ms": bounds["K6"][0], "bound_by": bounds["K6"][1], "library_ms": None},
+        {"name": "lattice_encode_backward (K7)", "route": "cuda", "source": src,
+         "replaces": "flnerf_tpu/ops/hash_lattice.py:502", "launches": launches["K7"],
+         "max_abs_err": k7_err, "ms": ms["K7 sorted dense"], "plain_ms": k7_plain_ms,
+         "bound_ms": bounds["K7"][0], "bound_by": bounds["K7"][1], "library_ms": None},
+    ]
 
 
 def main():
@@ -644,10 +952,11 @@ def main():
     del idx
     L2 = spec.num_levels
     # K4 on the dense gradient: every point adds its atomics, every touched
-    # entry is written; on the train gradient only the points it reaches
+    # entry is read and written (the body adds into the gradient); on the
+    # train gradient only the entries of the points it reaches
     k3_bytes = n_pts * 12 + n_pts * L2 * 8 + touched * 8
-    k4_bytes = n_pts * 12 + n_pts * L2 * 8 + touched * 8
-    k4_train_bytes = n_pts * 12 + n_pts * L2 * 8 + touched_live * 8
+    k4_bytes = n_pts * 12 + n_pts * L2 * 8 + touched * 16
+    k4_train_bytes = n_pts * 12 + n_pts * L2 * 8 + touched_live * 16
     for name, nbytes, flops in (("K3", k3_bytes, n_pts * L2 * K3_FLOPS),
                                 ("K4", k4_bytes, n_pts * L2 * K4_FLOPS),
                                 ("K4 train", k4_train_bytes, live_pts * L2 * K4_FLOPS)):
@@ -686,6 +995,8 @@ def main():
          "max_abs_err": k4_err, "ms": k4_dense_ms, "plain_ms": k4_dense_plain_ms,
          "bound_ms": bounds["K4"][0], "bound_by": bounds["K4"][1], "library_ms": None},
     ]
+    del trainer, sampler, x_batch, x_refresh, g_train, g_dense, table, grad_buf
+    kernels += lattice_phases(dev, t)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

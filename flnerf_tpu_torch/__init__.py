@@ -7,7 +7,13 @@ and scipy only, never JAX and nothing of ``flnerf_tpu``.
 
 Ported so far: quadtree-budgeted Plenoxels training (``cli/opt.py``), with
 the fused cuvol render forward and backward as CUDA kernels
-(``ops/voxel_kernel.py``, ``ops/csrc/voxel_cuvol.cu``).
+(``ops/voxel_kernel.py``, ``ops/csrc/voxel_cuvol.cu``); hash-NGP training
+(``cli/main_nerf.py``) on the packed engine, with the hash encoding's
+forward and table gradient as CUDA kernels (``ops/hash_kernel.py``,
+``ops/csrc/hash_encode.cu``), and at 2^16 and more table entries on the
+lattice engine, with its sort, forward and table gradient as CUDA kernels
+(``ops/sort_kernel.py``, ``ops/hash_lattice.py``,
+``ops/csrc/hash_lattice.cu``).
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU; with no card present they raise instead of falling back.

@@ -8,13 +8,18 @@ nerf_matrix_to_ngp's scale/offset, provider.py:20) -> field, renderer and
 trainer configs -> fit -> final checkpoint -> test-split eval ->
 ``results.txt`` (and ``time_mins.txt``).
 
+``--log2_hashmap_size`` 16 and above (torch-ngp's own 19 included) runs the
+lattice engine under ``--hash_engine auto`` or ``lattice``, as the reference
+resolves it; ``matmul`` keeps the packed engine at any size.
+
 Not ported yet (each raises ``NotImplementedError``): ``--gui``,
-``--clip_text`` / ``--rand_pose``, ``--bg_radius > 0`` and the big-table
-engines (``--log2_hashmap_size`` >= 16).
+``--clip_text`` / ``--rand_pose``, ``--bg_radius > 0`` and the sorted engine
+(``--hash_engine sorted``).
 
 Usage:
   python -m flnerf_tpu_torch.cli.main_nerf data/nerf_synthetic/lego -O --bound 1 --scale 0.8
   python -m flnerf_tpu_torch.cli.main_nerf synthetic -O --iters 2000
+  python -m flnerf_tpu_torch.cli.main_nerf synthetic -O --log2_hashmap_size 19
 """
 
 from __future__ import annotations
@@ -96,7 +101,8 @@ def make_parser():
     parser.add_argument("--log2_hashmap_size", type=int, default=15)
     parser.add_argument("--hash_engine", type=str, default="auto",
                         choices=("auto", "matmul", "sorted", "lattice"),
-                        help="big-table encode engine (log2 >= 16; not ported yet)")
+                        help="big-table encode engine at log2 >= 16: auto and lattice "
+                        "run the lattice engine; sorted is not ported yet")
     return parser
 
 

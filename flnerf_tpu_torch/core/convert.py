@@ -7,13 +7,17 @@ dense layouts as the port: density [X,Y,Z] f32, sh [X,Y,Z,27] f32, alive
 [X,Y,Z] bool, RMSProp accumulators shaped like density and sh, and an int
 step.  ``np.asarray`` of its arrays gives the inputs here.
 
-NGP (``flnerf_tpu/models/hash_ngp.py`` params of the packed engine): a dict
-with ``table`` [L, C, T_r, 128] f32 (entry t of level l, feature c at
-[l, c, t >> 7, t & 127]) and the lists ``sigma_net`` and ``color_net`` of
-[in, out] weights.  The port keeps the table as [L, T_cap, C] and the
-weights as [in, out], in ``NGPField.parameters()`` order: table, sigma_net,
-color_net.  Its occupancy state is the reference's density grid and mean,
-with the bitfield repacked.
+NGP (``flnerf_tpu/models/hash_ngp.py`` params): a dict with ``table`` and
+the lists ``sigma_net`` and ``color_net`` of [in, out] weights.  The packed
+engine's ``table`` is [L, C, T_r, 128] f32 (entry t of level l, feature c at
+[l, c, t >> 7, t & 127]), kept by the port as [L, T_cap, C].  The lattice
+engine's is the tuple (ts, tb): ts (None without small levels) in the packed
+layout, tb [Lb, t_r64, 128] (entry e at [l, e >> 6, 2 * (e & 63) + c]),
+kept by the port as [Lb, t_r64 * 64, 2], whole, padding included, so
+checkpoints round-trip unchanged.  The weights stay [in, out], in
+``NGPField.parameters()`` order: table(s), sigma_net, color_net.  Its
+occupancy state is the reference's density grid and mean, with the
+bitfield repacked.
 """
 
 from __future__ import annotations
@@ -62,31 +66,58 @@ def plenoxels_state_to_numpy(state: PlenoxelsState):
         int(state.step))
 
 
-def ngp_params_from_numpy(params, device="cpu") -> list:
-    """The reference's NGP params dict -> [table [L, T_cap, C], *sigma_net,
-    *color_net] tensors (``NGPField.parameters()`` order)."""
-    table = np.asarray(params["table"], np.float32)
+def _natural_from_packed(table) -> np.ndarray:
+    """[L, C, T_r, 128] -> [L, T_r * 128, C]."""
+    table = np.asarray(table, np.float32)
     L, C, t_r, lanes = table.shape
-    table = np.ascontiguousarray(table.reshape(L, C, t_r * lanes).transpose(0, 2, 1))
-    return [torch.tensor(table, device=device)] + [
+    return np.ascontiguousarray(table.reshape(L, C, t_r * lanes).transpose(0, 2, 1))
+
+
+def _packed_from_natural(table: np.ndarray, lanes: int = 128) -> np.ndarray:
+    """[L, T_cap, C] -> [L, C, T_cap / 128, 128]."""
+    L, t_cap, C = table.shape
+    return np.ascontiguousarray(table.transpose(0, 2, 1).reshape(L, C, t_cap // lanes, lanes))
+
+
+def ngp_params_from_numpy(params, device="cpu") -> list:
+    """The reference's NGP params dict -> [table(s), *sigma_net, *color_net]
+    tensors (``NGPField.parameters()`` order): [L, T_cap, C] for a packed
+    table; [Ls, T_cap, C] (when ts is not None) and [Lb, t_r64 * 64, 2] for
+    the lattice tuple (ts, tb)."""
+    table = params["table"]
+    if isinstance(table, (tuple, list)):
+        ts, tb = table
+        tb = np.asarray(tb, np.float32)
+        tables = ([] if ts is None else [_natural_from_packed(ts)]) + [
+            tb.reshape(tb.shape[0], -1, 2)]
+    else:
+        tables = [_natural_from_packed(table)]
+    return [torch.tensor(t, device=device) for t in tables] + [
         _f32(w, device) for w in list(params["sigma_net"]) + list(params["color_net"])]
 
 
 def load_ngp_params(field, params) -> None:
     """Copy the reference's NGP params dict into ``field``'s parameters."""
     with torch.no_grad():
-        for p, v in zip(field.parameters(), ngp_params_from_numpy(params, field.table.device)):
+        for p, v in zip(field.parameters(), ngp_params_from_numpy(params, field.device)):
             p.copy_(v)
 
 
-def ngp_params_to_numpy(tensors, num_sigma_layers: int, lanes: int = 128) -> dict:
+def ngp_params_to_numpy(tensors, num_sigma_layers: int, lattice: bool = False) -> dict:
     """Inverse of ``ngp_params_from_numpy``: tensors in parameter order ->
-    the reference's dict (table [L, C, T_r, 128], sigma_net, color_net)."""
+    the reference's dict (table, sigma_net, color_net).  With ``lattice``
+    the leading 3-D tensors are (table_small,) table_big and ``table`` is
+    the tuple (ts or None, tb [Lb, t_r64, 128])."""
     arrs = [t.detach().cpu().numpy() for t in tensors]
-    L, t_cap, C = arrs[0].shape
-    table = np.ascontiguousarray(arrs[0].transpose(0, 2, 1).reshape(L, C, t_cap // lanes, lanes))
-    return {"table": table, "sigma_net": arrs[1:1 + num_sigma_layers],
-            "color_net": arrs[1 + num_sigma_layers:]}
+    n_tables = sum(1 for a in arrs[:2] if a.ndim == 3)
+    if lattice:
+        tb = arrs[n_tables - 1]
+        table = (_packed_from_natural(arrs[0]) if n_tables == 2 else None,
+                 np.ascontiguousarray(tb.reshape(tb.shape[0], -1, 128)))
+    else:
+        table = _packed_from_natural(arrs[0])
+    return {"table": table, "sigma_net": arrs[n_tables:n_tables + num_sigma_layers],
+            "color_net": arrs[n_tables + num_sigma_layers:]}
 
 
 def occupancy_from_numpy(density, mean_density, cfg: NGPRenderConfig,

@@ -1,7 +1,9 @@
 """Instant-NGP field: multiresolution hash encoding + tiny MLPs.
 
 Port of ``flnerf_tpu/models/hash_ngp.py`` for the packed (matmul) engine,
-the one the NGP CLI's defaults select (``--log2_hashmap_size 15``).
+the one the NGP CLI's defaults select (``--log2_hashmap_size 15``), and the
+lattice engine, which ``hash_engine`` ``auto`` and ``lattice`` select at
+``log2_hashmap_size >= 16`` (torch-ngp's 2^19, gridencoder grid.py:91).
 Parity target ngp-ours/nerf/network.py:10-194:
   * sigma net: 2 bias-free Linear layers, hidden 64, output 1+15 (sigma via
     trunc_exp + 15-dim geometric feature);
@@ -9,9 +11,11 @@ Parity target ngp-ours/nerf/network.py:10-194:
     ++ geo_feat, sigmoid rgb;
   * hash encoder with desired_resolution = 2048 * bound.
 
-The encoding is ``ops/hash_kernel.hash_encode`` (K3/K4 on the card).  The
-MLP weights keep the reference's [in, out] layout, so ``core/convert.py``
-carries them across unchanged.
+The encoding is ``encode_with_spec``: ``ops/hash_kernel.hash_encode`` (K3/K4
+on the card) for a packed spec, ``ops/hash_lattice.lattice_encode_split``
+(K3/K4 for the small levels, K5/K6/K7 for the big ones) for a lattice spec.
+The MLP weights keep the reference's [in, out] layout, so
+``core/convert.py`` carries them across unchanged.
 
 bf16: the reference multiplies bf16 by bf16 into f32
 (``preferred_element_type``), where ``torch.matmul`` on bf16 would round its
@@ -20,9 +24,8 @@ type and multiplies them in f32: the products of bf16 values are exact in
 f32, so each layer's output is rounded where the reference rounds it and
 nowhere else.  The gradients round to bf16 at the same casts.
 
-Not ported yet (each raises ``NotImplementedError``): the big-table engines
-(``hash_engine`` lattice and sorted, log2_hashmap_size >= 16) and the
-background env-map (``bg_radius > 0``).
+Not ported yet (each raises ``NotImplementedError``): the sorted engine
+(``hash_engine='sorted'``) and the background env-map (``bg_radius > 0``).
 """
 
 from __future__ import annotations
@@ -40,12 +43,16 @@ from flnerf_tpu_torch.ops.hash_kernel import (
     init_packed_table,
     make_packed_spec,
 )
+from flnerf_tpu_torch.ops.hash_lattice import (
+    LatticeSpec,
+    init_lattice_tables,
+    lattice_encode_split,
+    make_lattice_spec,
+)
 from flnerf_tpu_torch.ops.sh_encoding import sh_encode
 
-LATTICE_SLICE = ("is not ported yet; it is queued as slice 3 of the port "
-                 "(ROADMAP.md: the lattice engine at 2^19, K6/K7)")
 SORTED_SLICE = ("is not ported yet; it is queued as slice 4 of the port "
-                "(ROADMAP.md: the sorted engine, K5/K8/K9)")
+                "(ROADMAP.md: the sorted engine, K8/K9)")
 NGP_BACKLOG = "is not ported yet; it is queued in ROADMAP.md's NGP backlog"
 
 
@@ -54,7 +61,8 @@ class NGPConfig(NamedTuple):
     level_dim: int = 2
     base_resolution: int = 16
     # 2^15 and below run the packed engine (K3/K4); 2^16 and above select
-    # the lattice or sorted engines, not ported yet
+    # the lattice engine ('auto', 'lattice') or the sorted engine (not
+    # ported yet)
     log2_hashmap_size: int = 15
     split_min_size: int = 1 << 15
     hash_engine: str = "auto"
@@ -80,9 +88,10 @@ class NGPConfig(NamedTuple):
     bg_resolution: int = 2048
 
 
-def make_ngp_spec(cfg: NGPConfig) -> PackedHashSpec:
-    """The packed spec; the reference's engine choice, with the engines not
-    ported yet raising."""
+def make_ngp_spec(cfg: NGPConfig):
+    """The reference's engine choice: a ``PackedHashSpec`` up to 2^15 tables
+    (and for 'matmul'), a ``LatticeSpec`` at 2^16 and above for 'auto' and
+    'lattice'; the sorted engine, not ported yet, raises."""
     if cfg.hash_engine not in ("auto", "matmul", "sorted", "lattice"):
         raise ValueError(f"unknown hash_engine {cfg.hash_engine!r} "
                          "(auto|matmul|sorted|lattice)")
@@ -95,9 +104,14 @@ def make_ngp_spec(cfg: NGPConfig) -> PackedHashSpec:
         # 'auto' resolves to the lattice engine, as in the reference
         if cfg.hash_engine == "sorted":
             raise NotImplementedError(f"the sorted hash engine {SORTED_SLICE}")
-        raise NotImplementedError(
-            f"the lattice hash engine (log2_hashmap_size >= 16, "
-            f"hash_engine={cfg.hash_engine!r}) {LATTICE_SLICE}")
+        return make_lattice_spec(
+            num_levels=cfg.num_levels,
+            level_dim=cfg.level_dim,
+            base_resolution=cfg.base_resolution,
+            log2_hashmap_size=cfg.log2_hashmap_size,
+            desired_resolution=int(cfg.desired_resolution * cfg.bound),
+            split_min_size=cfg.split_min_size,
+        )
     return make_packed_spec(
         num_levels=cfg.num_levels,
         level_dim=cfg.level_dim,
@@ -105,6 +119,23 @@ def make_ngp_spec(cfg: NGPConfig) -> PackedHashSpec:
         log2_hashmap_size=cfg.log2_hashmap_size,
         desired_resolution=int(cfg.desired_resolution * cfg.bound),
     )
+
+
+def init_ngp_table(spec, generator=None, device="cpu"):
+    """Table parameters for either spec kind: (table_small or None,
+    table_big) for a lattice spec, the [L, T_cap, C] table for a packed
+    one."""
+    if isinstance(spec, LatticeSpec):
+        return init_lattice_tables(spec, generator, device)
+    return init_packed_table(spec, generator, device)
+
+
+def encode_with_spec(x01: torch.Tensor, table, spec) -> torch.Tensor:
+    """x01 [N, 3] -> [N, L*C] features over the spec kind: the one place
+    the field routes its encoding through."""
+    if isinstance(spec, LatticeSpec):
+        return lattice_encode_split(x01, table, spec)
+    return hash_encode(x01, table, spec)
 
 
 def mlp_chain(x: torch.Tensor, layers, compute_dtype) -> torch.Tensor:
@@ -125,9 +156,12 @@ def _linear_nobias(fan_in: int, fan_out: int, generator, device) -> nn.Parameter
 
 
 class NGPField(nn.Module):
-    """The field: ``table`` [L, T_cap, C], ``sigma_net`` and ``color_net``
-    as lists of [in, out] weights.  Parameters are drawn from ``generator``
-    (torch's stream, not the reference's); tests carry weights across."""
+    """The field: the hash table(s), ``sigma_net`` and ``color_net`` as
+    lists of [in, out] weights.  A packed spec holds ``table`` [L, T_cap,
+    C]; a lattice spec holds ``table_small`` (None without small levels)
+    and ``table_big``, in the reference's tuple order.  Parameters are drawn
+    from ``generator`` (torch's stream, not the reference's); tests carry
+    weights across."""
 
     def __init__(self, cfg: NGPConfig, compute_dtype=torch.bfloat16,
                  generator=None, device="cpu"):
@@ -137,7 +171,13 @@ class NGPField(nn.Module):
         self.cfg = cfg
         self.spec = make_ngp_spec(cfg)
         self.compute_dtype = compute_dtype
-        self.table = nn.Parameter(init_packed_table(self.spec, generator, device))
+        table = init_ngp_table(self.spec, generator, device)
+        if isinstance(self.spec, LatticeSpec):
+            ts, tb = table
+            self.table_small = None if ts is None else nn.Parameter(ts)
+            self.table_big = nn.Parameter(tb)
+        else:
+            self.table = nn.Parameter(table)
         dims = [self.spec.output_dim] + [cfg.hidden_dim] * (cfg.num_layers - 1) + [
             1 + cfg.geo_feat_dim]
         self.sigma_net = nn.ParameterList(
@@ -147,6 +187,18 @@ class NGPField(nn.Module):
         self.color_net = nn.ParameterList(
             [_linear_nobias(a, b, generator, device) for a, b in zip(dims, dims[1:])])
 
+    @property
+    def tables(self):
+        """The encoding's table argument: (table_small, table_big) for a
+        lattice spec, ``table`` for a packed one."""
+        if isinstance(self.spec, LatticeSpec):
+            return self.table_small, self.table_big
+        return self.table
+
+    @property
+    def device(self) -> torch.device:
+        return self.sigma_net[0].device
+
     def unit_points(self, x: torch.Tensor) -> torch.Tensor:
         """World points [..., 3] -> the encoding's input, [N, 3] in [0, 1]."""
         return torch.clamp((x.reshape(-1, 3) / self.cfg.bound + 1.0) * 0.5, 0.0, 1.0)
@@ -154,7 +206,7 @@ class NGPField(nn.Module):
     def density(self, x: torch.Tensor):
         """x in [-bound, bound]^3 [..., 3] -> (sigma [...], geo_feat [..., F])."""
         sh = x.shape[:-1]
-        enc = hash_encode(self.unit_points(x), self.table, self.spec)
+        enc = encode_with_spec(self.unit_points(x), self.tables, self.spec)
         h = mlp_chain(enc, self.sigma_net, self.compute_dtype)
         sigma = trunc_exp(h[..., 0])
         return sigma.reshape(sh), h[..., 1:].reshape(*sh, -1)

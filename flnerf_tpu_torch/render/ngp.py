@@ -352,7 +352,7 @@ def ngp_render_image(field, occ: OccupancyState, cfg: NGPRenderConfig, H: int, W
     Returns (rgb [H, W, 3], depth [H, W]) as numpy."""
     if bg_color is not None:
         cfg = cfg._replace(bg_color=float(bg_color))
-    rays_o, rays_d = get_rays(H, W, K, c2w, field.table.device)
+    rays_o, rays_d = get_rays(H, W, K, c2w, field.device)
     rays_o = rays_o.reshape(-1, 3)
     rays_d = rays_d.reshape(-1, 3)
     rays_d = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)

@@ -1,6 +1,7 @@
 """The port's NGP CLI (flnerf_tpu_torch/cli/main_nerf.py) end to end on the
 CPU at a tiny size: the synthetic scene at 16x16, an 8^3 occupancy grid,
-full-width hash field (16 levels, 2^15 tables, bf16 MLPs under -O)."""
+full-width hash field (16 levels, bf16 MLPs under -O) with 2^15 tables (the
+packed engine) or 2^16 tables (the lattice engine)."""
 
 import math
 import os
@@ -10,6 +11,7 @@ import torch
 
 from flnerf_tpu.cli import main_nerf as ref_cli
 from flnerf_tpu_torch.cli import main_nerf
+from flnerf_tpu_torch.ops.hash_lattice import LatticeSpec
 
 torch.set_num_threads(1)
 
@@ -26,9 +28,13 @@ def test_parser_matches_reference_flag_for_flag():
     assert args.fp16 and args.cuda_ray and args.preload
 
 
-def test_main_trains_evaluates_and_writes_results(tmp_path, capsys):
+ENGINE_FLAGS = {"packed": [], "lattice": ["--log2_hashmap_size", "16"]}
+
+
+@pytest.mark.parametrize("engine", ["packed", "lattice"])
+def test_main_trains_evaluates_and_writes_results(tmp_path, capsys, engine):
     res = main_nerf.main(["synthetic", "-O", "--iters", "8", "--workspace", str(tmp_path)]
-                         + TINY)
+                         + TINY + ENGINE_FLAGS[engine])
     out = capsys.readouterr().out
     assert "training done in" in out and "rays/s" in out and "test PSNR" in out
     assert res["steps"] == 8 and [h["step"] for h in res["history"]] == [4, 8]
@@ -37,13 +43,22 @@ def test_main_trains_evaluates_and_writes_results(tmp_path, capsys):
         assert f.read().startswith(f"mean PSNR: {res['psnr']}")
     assert os.path.exists(tmp_path / "time_mins.txt")
     assert os.listdir(tmp_path / "checkpoints") == ["ngp_ep0000008.pkl"]
-    trainer = main_nerf.build(main_nerf.parse_args(["synthetic", "-O"] + TINY))[0]
+    trainer = main_nerf.build(main_nerf.parse_args(["synthetic", "-O"] + TINY
+                                                   + ENGINE_FLAGS[engine]))[0]
     assert trainer.field.compute_dtype == torch.bfloat16 and trainer.cfg.ema_decay == 0.95
-    assert trainer.field.spec.t_cap == 2 ** 15 and trainer.field.spec.num_levels == 16
+    spec = trainer.field.spec
+    assert spec.num_levels == 16
+    if engine == "lattice":
+        assert isinstance(spec, LatticeSpec) and spec.t_big == 2 ** 16
+        assert (spec.split.n_small, spec.n_big) == (2, 14)
+        assert trainer.field.table_big.shape == (14, 2 ** 16, 2)
+    else:
+        assert spec.t_cap == 2 ** 15
 
 
 @pytest.mark.parametrize("flags", [["--gui"], ["--clip_text", "a chair"], ["--rand_pose", "0"],
-                                   ["--bg_radius", "2"], ["--log2_hashmap_size", "19"]])
+                                   ["--bg_radius", "2"],
+                                   ["--log2_hashmap_size", "19", "--hash_engine", "sorted"]])
 def test_unported_flags_raise(flags, tmp_path):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         main_nerf.main(["synthetic", "--workspace", str(tmp_path)] + TINY + flags)

@@ -13,7 +13,7 @@ import torch
 
 from flnerf_tpu_torch.models.voxel_sh import VoxelGridConfig, init_voxel_grid
 from flnerf_tpu_torch.models.hash_ngp import NGPConfig
-from flnerf_tpu_torch.ops import _build, hash_kernel, voxel_kernel
+from flnerf_tpu_torch.ops import _build, hash_kernel, hash_lattice, sort_kernel, voxel_kernel
 from flnerf_tpu_torch.render.ngp import NGPRenderConfig
 from flnerf_tpu_torch.train import ngp_trainer
 from flnerf_tpu_torch.train import plenoxels_trainer as pt
@@ -104,6 +104,20 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         hash_kernel.hash_encode_backward(x, torch.zeros((4, 4)), spec)
     assert (hash_kernel.HASH_FWD_LAUNCHES, hash_kernel.HASH_BWD_LAUNCHES) == before
+    lspec = hash_lattice.make_lattice_spec(num_levels=6, log2_hashmap_size=16,
+                                           desired_resolution=512)
+    order = hash_lattice.lattice_sort_order(x, lspec)
+    tb = torch.zeros((lspec.n_big, lspec.t_big, 2))
+    before = (hash_lattice.LATTICE_FWD_LAUNCHES, hash_lattice.LATTICE_BWD_LAUNCHES,
+              sort_kernel.SORT_LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        hash_lattice.lattice_encode_forward(x, tb, lspec, order)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        hash_lattice.lattice_encode_backward(x, torch.zeros((4, 2 * lspec.n_big)), lspec, order)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        sort_kernel.bitonic_sort_kernel(torch.zeros(128, dtype=torch.int32))
+    assert (hash_lattice.LATTICE_FWD_LAUNCHES, hash_lattice.LATTICE_BWD_LAUNCHES,
+            sort_kernel.SORT_LAUNCHES) == before
 
 
 def test_failed_build_raises(monkeypatch, tmp_path):
@@ -114,5 +128,5 @@ def test_failed_build_raises(monkeypatch, tmp_path):
         _build.build_all(["voxel_cuvol"])
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all()
-    assert _build.sources() == ["hash_encode", "voxel_cuvol"]
+    assert _build.sources() == ["hash_encode", "hash_lattice", "voxel_cuvol"]
     assert np.all([not f.endswith(".so") for f in os.listdir(tmp_path)])

@@ -4,9 +4,11 @@ render/ngp.py, train/ngp_trainer.py; the encoding through hash_encode_xla,
 the reference's CPU path).  Weights cross with core/convert.py; the
 reference's random draws (jitter, parity, perturbation, background) are
 taken from its keys and fed to the port.  Small widths: 4 levels, 2^10
-tables, 16^3 occupancy grids, 32 candidates and 16 kept samples (powers of
-two, so the reference's jitted divisions by these constants, which XLA
-turns into reciprocal multiplies, stay exact)."""
+tables (the packed engine) or 6 levels, 2^16 tables (the lattice engine: 1
+small level, 1 dense and 4 hashed big levels), 16^3 occupancy grids, 32
+candidates and 16 kept samples (powers of two, so the reference's jitted
+divisions by these constants, which XLA turns into reciprocal multiplies,
+stay exact)."""
 
 import jax
 import jax.numpy as jnp
@@ -22,27 +24,33 @@ from flnerf_tpu.render import ngp as ref_r
 from flnerf_tpu.train import ngp_trainer as ref_t
 from flnerf_tpu_torch.core import convert
 from flnerf_tpu_torch.models import hash_ngp as m
+from flnerf_tpu_torch.ops.hash_lattice import LatticeSpec
 from flnerf_tpu_torch.render import ngp as r
 from flnerf_tpu_torch.train import ngp_trainer as t_ngp
 
 torch.set_num_threads(1)
 
 FIELD_KW = dict(num_levels=4, log2_hashmap_size=10, desired_resolution=64, bound=1.0)
+ENGINE_KW = {"packed": FIELD_KW,
+             "lattice": dict(num_levels=6, log2_hashmap_size=16, desired_resolution=512,
+                             bound=1.0)}
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 
 
-def _ref_params(dtype="f32", seed=0, table_scale=1e4):
-    """The reference field's functions and params (numpy), the table scaled
-    from its U(-1e-4, 1e-4) init to O(1) so the encoding carries weight."""
-    init_fn, density_fn, rgb_fn = ref_m.make_ngp_field(ref_m.NGPConfig(**FIELD_KW),
+def _ref_params(dtype="f32", seed=0, table_scale=1e4, engine="packed"):
+    """The reference field's functions and params (numpy), the table(s)
+    scaled from their U(-1e-4, 1e-4) init to O(1) so the encoding carries
+    weight."""
+    init_fn, density_fn, rgb_fn = ref_m.make_ngp_field(ref_m.NGPConfig(**ENGINE_KW[engine]),
                                                        compute_dtype=DTYPES[dtype][0])
     params = jax.tree_util.tree_map(np.asarray, init_fn(jax.random.PRNGKey(seed)))
-    params["table"] = params["table"] * np.float32(table_scale)
+    params["table"] = jax.tree_util.tree_map(lambda t: t * np.float32(table_scale),
+                                             params["table"])
     return density_fn, rgb_fn, params
 
 
-def _field(params, dtype="f32"):
-    field = m.NGPField(m.NGPConfig(**FIELD_KW), DTYPES[dtype][1])
+def _field(params, dtype="f32", engine="packed"):
+    field = m.NGPField(m.NGPConfig(**ENGINE_KW[engine]), DTYPES[dtype][1])
     convert.load_ngp_params(field, params)
     return field
 
@@ -93,8 +101,10 @@ def test_configs_match_reference():
 def test_engine_choice_and_unported_options_raise():
     assert m.make_ngp_spec(m.NGPConfig(bound=2.0)).t_cap == 2 ** 15
     assert m.make_ngp_spec(m.NGPConfig(log2_hashmap_size=16, hash_engine="matmul")).t_cap == 2 ** 16
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        m.make_ngp_spec(m.NGPConfig(log2_hashmap_size=19))
+    spec = m.make_ngp_spec(m.NGPConfig(log2_hashmap_size=19, bound=2.0))
+    assert isinstance(spec, LatticeSpec) and spec.n_big == 14 and spec.t_big == 2 ** 19
+    assert isinstance(m.make_ngp_spec(m.NGPConfig(log2_hashmap_size=16,
+                                                  hash_engine="lattice")), LatticeSpec)
     with pytest.raises(NotImplementedError, match="slice 4"):
         m.make_ngp_spec(m.NGPConfig(log2_hashmap_size=19, hash_engine="sorted"))
     with pytest.raises(ValueError, match="needs log2_hashmap_size"):
@@ -113,10 +123,11 @@ def test_engine_choice_and_unported_options_raise():
 TOL = {"f32": dict(rtol=1e-5, atol=1e-5), "bf16": dict(rtol=2e-2, atol=2e-2)}
 
 
+@pytest.mark.parametrize("engine", ["packed", "lattice"])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-def test_field_matches(dtype):
-    density_fn, rgb_fn, params = _ref_params(dtype)
-    field = _field(params, dtype)
+def test_field_matches(dtype, engine):
+    density_fn, rgb_fn, params = _ref_params(dtype, engine=engine)
+    field = _field(params, dtype, engine)
     rng = np.random.default_rng(1)
     x = rng.uniform(-1, 1, (256, 3)).astype(np.float32)
     d = rng.standard_normal((256, 3)).astype(np.float32)
@@ -295,18 +306,26 @@ def test_sampler_draws_equal(mode):
             assert s.image_probs is None and s.error_map is None
 
 
+@pytest.mark.parametrize("engine", ["packed", "lattice"])
 @pytest.mark.parametrize("rgba", [False, True])
-def test_two_trainer_steps_match(rgba):
+def test_two_trainer_steps_match(rgba, engine):
     """Two Adam steps (with EMA) from the same params, occupancy, rays and
-    noise; the reference runs its jitted chunk of 2 steps on one device."""
-    init_fn, density_fn, rgb_fn = ref_m.make_ngp_field(ref_m.NGPConfig(**FIELD_KW),
+    noise; the reference runs its chunk of 2 steps on one device, jitted for
+    the packed engine and eagerly for the lattice engine (its CPU path there
+    is lattice_encode_xla).  Jitted, XLA:CPU rounds the sample positions
+    differently from the eager reference (which the port matches to ~1e-6
+    entry-wise); the 2^16 lattice's fine levels move single table-gradient
+    entries by up to ~1% then, and Adam, which divides each entry's step by
+    its own |g|, turns that into step differences the test would report."""
+    kw = ENGINE_KW[engine]
+    init_fn, density_fn, rgb_fn = ref_m.make_ngp_field(ref_m.NGPConfig(**kw),
                                                        compute_dtype=jnp.float32)
     rcfg = r.NGPRenderConfig(n_candidates=32, n_keep=16, grid_size=16, bound=1.0)
     tcfg = t_ngp.NGPTrainConfig(max_steps=64, batch_rays=64, steps_per_chunk=2,
                                 ema_decay=0.95)
     t_ref = ref_t.NGPTrainer(init_fn, density_fn, rgb_fn, rcfg, ref_t.NGPTrainConfig(*tcfg),
                              mesh=make_mesh(jax.devices()[:1]))
-    t = t_ngp.NGPTrainer(m.NGPConfig(**FIELD_KW), rcfg, tcfg, device="cpu",
+    t = t_ngp.NGPTrainer(m.NGPConfig(**kw), rcfg, tcfg, device="cpu",
                          compute_dtype=torch.float32)
     params = jax.tree_util.tree_map(np.asarray, t_ref.state.params)
     convert.load_ngp_params(t.field, params)
@@ -317,8 +336,9 @@ def test_two_trainer_steps_match(rgba):
     poses[:, :3, 3] *= 0.5
     o, d, rgb, _, _ = t_ngp.NGPSampler(images, poses, K, tcfg, seed=0).sample_chunk(2, 64)
     base_key = jax.random.PRNGKey(11)
-    t_ref.state, losses_ref, per_ray_ref = t_ref._chunk_fn(t_ref.state, t_ref.occ, o, d, rgb,
-                                                           base_key)
+    with jax.disable_jit(engine == "lattice"):
+        t_ref.state, losses_ref, per_ray_ref = t_ref._chunk_fn(t_ref.state, t_ref.occ, o, d,
+                                                               rgb, base_key)
     for k, key in enumerate(jax.random.split(base_key, 2)):
         kp, kb = jax.random.split(key)
         noise = torch.from_numpy(np.array(jax.random.uniform(kp, (64, 32))))
@@ -341,17 +361,19 @@ def test_two_trainer_steps_match(rgba):
             a = a.detach().numpy()
             assert np.linalg.norm(a - b) <= 1e-4 * np.linalg.norm(b)
             assert np.abs(a - b).max() <= 1e-3 * np.abs(b).max()
-    moved = t.params[0].detach().numpy() - convert.ngp_params_from_numpy(params)[0].numpy()
-    assert np.abs(moved).max() > 1e-3   # the steps moved the table
+    start = convert.ngp_params_from_numpy(params)
+    for i in range(2 if engine == "lattice" else 1):   # the steps moved the table(s)
+        assert np.abs(t.params[i].detach().numpy() - start[i].numpy()).max() > 1e-3
 
 
-def test_fit_checkpoint_round_trip(tmp_path):
+@pytest.mark.parametrize("engine", ["packed", "lattice"])
+def test_fit_checkpoint_round_trip(tmp_path, engine):
     rcfg = r.NGPRenderConfig(n_candidates=16, n_keep=8, grid_size=8, bound=1.0)
     tcfg = t_ngp.NGPTrainConfig(max_steps=8, batch_rays=32, steps_per_chunk=4,
                                 ema_decay=0.95, use_error_map=True)
     images, poses, K = _scene(n=2)
     s = t_ngp.NGPSampler(images, poses, K, tcfg)
-    t = t_ngp.NGPTrainer(m.NGPConfig(**FIELD_KW), rcfg, tcfg, device="cpu")
+    t = t_ngp.NGPTrainer(m.NGPConfig(**ENGINE_KW[engine]), rcfg, tcfg, device="cpu")
     t.fit(s, verbose=False)
     assert t.step == 8 and [h["step"] for h in t.history] == [4, 8]
     assert all(isinstance(h[k], float) and np.isfinite(h[k]) for h in t.history
@@ -362,7 +384,7 @@ def test_fit_checkpoint_round_trip(tmp_path):
     t.save_checkpoint(str(tmp_path), max_keep=2)
     t.save_checkpoint(str(tmp_path), name="ngp_ep9999999", max_keep=1)
     assert sorted(p.name for p in (tmp_path / "checkpoints").iterdir()) == ["ngp_ep9999999.pkl"]
-    t2 = t_ngp.NGPTrainer(m.NGPConfig(**FIELD_KW), rcfg, tcfg, device="cpu")
+    t2 = t_ngp.NGPTrainer(m.NGPConfig(**ENGINE_KW[engine]), rcfg, tcfg, device="cpu")
     t2.load_checkpoint(str(tmp_path))
     assert t2.step == 8
     for a, b in zip(t.params + t.mu + t.nu + t.ema, t2.params + t2.mu + t2.nu + t2.ema):
@@ -375,12 +397,19 @@ def test_fit_checkpoint_round_trip(tmp_path):
     torch.testing.assert_close(t2.params[0], t.params[0], rtol=0, atol=0)  # swapped back
 
 
-def test_converters_round_trip():
-    _, _, params = _ref_params()
-    back = convert.ngp_params_to_numpy(convert.ngp_params_from_numpy(params), 2)
+@pytest.mark.parametrize("engine", ["packed", "lattice"])
+def test_converters_round_trip(engine):
+    _, _, params = _ref_params(engine=engine)
+    lattice = engine == "lattice"
+    back = convert.ngp_params_to_numpy(convert.ngp_params_from_numpy(params), 2, lattice)
     for k in ("table", "sigma_net", "color_net"):
-        for a, b in zip(np.atleast_1d(back[k]) if k == "table" else back[k],
-                        np.atleast_1d(params[k]) if k == "table" else params[k]):
+        ours, theirs = back[k], params[k]
+        if k == "table":
+            assert isinstance(ours, tuple) == lattice
+            ours, theirs = (ours, theirs) if lattice else ([ours], [theirs])
+        assert len(ours) == len(theirs)
+        for a, b in zip(ours, theirs):
+            assert a.shape == b.shape
             np.testing.assert_array_equal(a, b)
     rcfg = r.NGPRenderConfig(grid_size=16)
     dens = _occ_density(16)
