@@ -67,7 +67,28 @@ Phases (any failure raises, and the script exits non-zero):
  10. K5 (beside torch.sort on the same keys), K6 and K7's body in sorted
      and in point order, and their plain versions, by CUDA events on phase
      8's batch, beside the least time the card could take, and whether the
-     sorted walk pays for its sort.
+     sorted walk pays for its sort;
+ 11. the sorted engine's kernels, K5 on the engine's own (corner entry,
+     slot) pairs, K8 (forward) and K9 (table gradient), against their plain
+     versions (bitonic_sort_plain, ops/hash_kernel.py hash_encode_plain on
+     the big levels' packed spec with autograd) on the trainer cli/main_nerf
+     builds for `synthetic -O --log2_hashmap_size 19 --hash_engine sorted`
+     (2 small levels on K3/K4, 14 big ones on a [14, 2^19, 2] table, the
+     xor hash) after 256 steps: the kept points of its next batch with the
+     train loss's gradient and a dense random one, a 65,536-point refresh
+     chunk, 65,536 points in two z-slabs and 65,536 points whose three
+     z-clusters share sorted blocks of a dense level;
+ 12. the sorted main path: `main_nerf synthetic -O --log2_hashmap_size 19
+     --hash_engine sorted --iters 512` with the counters set to 0 just
+     before and read just after: K3 == K5 == K8 == steps + refresh chunks +
+     eval chunks, K4 == K9 == steps, no K1/K2/K6/K7 launch; the loss falls;
+     a finite test PSNR, printed beside phase 6's (2^15, xor hash) and
+     phase 9's (2^19, lattice hash); peak memory; train rays/s over steps
+     257-512; a 64-step profile;
+ 13. K5 on the engine's pairs (beside torch.sort on the same keys), K8 and
+     K9's body (sorted and point order; K9 with and without its warp's run
+     sums) and the plain versions, by CUDA events on phase 11's batch,
+     beside the least time the card could take.
 
 The last lines are one JSON object describing the kernels, the card's name
 and power limit as nvidia-smi gives them, and
@@ -118,6 +139,14 @@ SLAB_POINTS = 1 << 16      # the clustered two-z-slab points of phase 8
 # arithmetic is not counted)
 K6_FLOPS = K3_FLOPS
 K7_FLOPS = K4_FLOPS
+SORTED_FLAGS = ("--log2_hashmap_size", "19", "--hash_engine", "sorted")
+CLUSTER_POINTS = 1 << 10   # points in each small cluster of phase 11's three-cluster input
+# f32 operations per (point, level), 8 corners, counted from
+# csrc/hash_sorted.cu: per corner K8 recomputes the position (6), frac and
+# 1 - frac (6), the weight (2), w * f (2) and adds it (2); K9 the same
+# geometry (14) and w * g (2), its run sums not counted
+K8_FLOPS = 8 * 18
+K9_FLOPS = 8 * 16
 
 
 def check(cond, msg):
@@ -321,19 +350,74 @@ def pair_codes(keys, payload):
     return torch.sort((keys.long() << 32) | (payload.long() & 0xFFFFFFFF), dim=-1)[0]
 
 
+def next_batch_encode(trainer, sampler, to_dev, encoder):
+    """The encoding's input and the train loss's real upstream gradient on
+    the trainer's next batch: ``encoder`` (the encode's name in
+    models/hash_ngp) is wrapped while the batch renders through the
+    trainer's field and occupancy grid.  Returns (x01, gradient of the whole
+    [N, L*2] encoding).  (The loss is differentiated for the field's first
+    table, which every engine's encoding reads.)"""
+    import torch
+    from flnerf_tpu_torch.models import hash_ngp
+    from flnerf_tpu_torch.render.ngp import ngp_render_rays
+    bo, bd, brgb, _, _ = copy.deepcopy(sampler).sample_chunk(1, trainer.cfg.batch_rays)
+    seen = {}
+    inner = getattr(hash_ngp, encoder)
+
+    def capture(x01, tables, spec_):
+        out = inner(x01, tables, spec_)
+        seen["x01"] = x01
+        out.register_hook(lambda g: seen.setdefault("g", g))
+        return out
+
+    setattr(hash_ngp, encoder, capture)
+    try:
+        out = ngp_render_rays(trainer.field, trainer.occ, to_dev(bo[0]), to_dev(bd[0]),
+                              trainer.rcfg, generator=trainer.gen)
+        torch.autograd.grad(torch.mean((out["rgb"] - to_dev(brgb[0])) ** 2),
+                            [next(trainer.field.parameters())])
+    finally:
+        setattr(hash_ngp, encoder, inner)
+    return seen["x01"].detach().contiguous(), seen["g"]
+
+
+def refresh_chunk(trainer, gen):
+    """The first REFRESH_CHUNK cells of a full occupancy refresh, jittered,
+    as the encoding's input."""
+    import torch
+    dev = trainer.device
+    g_cells = trainer.rcfg.grid_size
+    idx = torch.arange(g_cells, device=dev)
+    cells = torch.stack(torch.meshgrid(idx, idx, idx, indexing="ij"), -1).reshape(-1, 3)
+    cells = cells[:REFRESH_CHUNK].float() + torch.rand((REFRESH_CHUNK, 3), generator=gen,
+                                                       device=dev)
+    return trainer.field.unit_points(
+        (cells / g_cells * 2.0 - 1.0) * trainer.rcfg.bound).contiguous()
+
+
+def two_slabs(gen, dev):
+    """SLAB_POINTS points in two separated z-slabs
+    (tests/test_hash_lattice.py:60), where the TPU engines drop corners
+    outside their slabs."""
+    import torch
+    x = torch.rand((SLAB_POINTS, 3), generator=gen, device=dev)
+    x[:, 2] *= 0.08
+    x[SLAB_POINTS // 2:, 2] += 0.9
+    return x
+
+
 def lattice_phases(dev, to_dev):
     """Phases 8-10, the hash-NGP path at 2^19 (the lattice engine, K3-K7).
-    Returns the K5, K5', K6 and K7 rows of the kernels line."""
+    Returns the K5, K5', K6 and K7 rows of the kernels line and phase 9's
+    test PSNR."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from flnerf_tpu_torch.cli import main_nerf
-    from flnerf_tpu_torch.models import hash_ngp
     from flnerf_tpu_torch.ops import hash_kernel as hk
     from flnerf_tpu_torch.ops import hash_lattice as hl
     from flnerf_tpu_torch.ops import sort_kernel as sk
     from flnerf_tpu_torch.ops import voxel_kernel as vk
-    from flnerf_tpu_torch.render.ngp import ngp_render_rays
 
     # ---- phase 8: K5, K6 and K7 against their plain versions ----
     lat_tmp = tempfile.TemporaryDirectory()
@@ -343,40 +427,12 @@ def lattice_phases(dev, to_dev):
     trainer.fit(sampler, verbose=False, n_steps=NGP_WINDOW)    # steps 1-256
     # the next batch, through the trainer's own loss: the big levels' input
     # and real upstream gradient are read at the split encode
-    bo, bd, brgb, _, _ = copy.deepcopy(sampler).sample_chunk(1, trainer.cfg.batch_rays)
-    seen = {}
-
-    def capture(x01, tables, spec_):
-        out = split(x01, tables, spec_)
-        seen["x01"] = x01
-        out.register_hook(lambda g: seen.setdefault("g", g))
-        return out
-
-    split, hash_ngp.lattice_encode_split = hash_ngp.lattice_encode_split, capture
-    try:
-        out = ngp_render_rays(trainer.field, trainer.occ, to_dev(bo[0]), to_dev(bd[0]),
-                              trainer.rcfg, generator=trainer.gen)
-        torch.autograd.grad(torch.mean((out["rgb"] - to_dev(brgb[0])) ** 2),
-                            [trainer.field.table_big])
-    finally:
-        hash_ngp.lattice_encode_split = split
-    del out
+    x_batch, g_seen = next_batch_encode(trainer, sampler, to_dev, "lattice_encode_split")
     table = trainer.field.table_big.detach().clone()
-    x_batch = seen["x01"].detach().contiguous()
-    g_train = seen["g"][:, 2 * n_small:].contiguous()
+    g_train = g_seen[:, 2 * n_small:].contiguous()
     gen = torch.Generator(device=dev).manual_seed(2)
-    g_cells = trainer.rcfg.grid_size
-    idx = torch.arange(g_cells, device=dev)
-    cells = torch.stack(torch.meshgrid(idx, idx, idx, indexing="ij"), -1).reshape(-1, 3)
-    cells = cells[:REFRESH_CHUNK].float() + torch.rand((REFRESH_CHUNK, 3), generator=gen,
-                                                       device=dev)
-    x_refresh = trainer.field.unit_points(
-        (cells / g_cells * 2.0 - 1.0) * trainer.rcfg.bound).contiguous()
-    # two separated z-slabs (tests/test_hash_lattice.py:60), where the TPU
-    # engine drops corners outside its slabs
-    x_slabs = torch.rand((SLAB_POINTS, 3), generator=gen, device=dev)
-    x_slabs[:, 2] *= 0.08
-    x_slabs[SLAB_POINTS // 2:, 2] += 0.9
+    x_refresh = refresh_chunk(trainer, gen)
+    x_slabs = two_slabs(gen, dev)
     inputs = {"train batch": x_batch, "refresh chunk": x_refresh, "two z-slabs": x_slabs}
     print(f"[phase 8] lattice spec: {n_small} small levels (t_cap {spec.split.small.t_cap}), "
           f"{spec.n_big} big levels (sizes {spec.split.big.sizes.tolist()}), big table "
@@ -567,7 +623,7 @@ def lattice_phases(dev, to_dev):
           f"K7 {launches['K7'] / steps:.4f}", flush=True)
 
     src = "flnerf_tpu_torch/ops/csrc/hash_lattice.cu"
-    return [
+    return res["psnr"], [
         {"name": "bitonic_sort (K5)", "route": "cuda", "source": src,
          "replaces": "flnerf_tpu/ops/sort_pallas.py:118", "launches": launches["K5"],
          "max_abs_err": float(k5_err), "ms": k5_ms, "plain_ms": k5_plain_ms,
@@ -587,6 +643,263 @@ def lattice_phases(dev, to_dev):
          "replaces": "flnerf_tpu/ops/hash_lattice.py:502", "launches": launches["K7"],
          "max_abs_err": k7_err, "ms": ms["K7 sorted dense"], "plain_ms": k7_plain_ms,
          "bound_ms": bounds["K7"][0], "bound_by": bounds["K7"][1], "library_ms": None},
+    ]
+
+
+def three_clusters(gen, dev):
+    """SLAB_POINTS points: a bulk in z < 0.15 and three tiny z-clusters of
+    CLUSTER_POINTS (tests/test_hash_sorted.py:180 at this scale), whose
+    keys share sorted blocks of a dense level; the TPU engine gives zeros
+    for the middle cluster's corners outside its head and tail slabs."""
+    import torch
+    x = torch.rand((SLAB_POINTS, 3), generator=gen, device=dev)
+    nf = SLAB_POINTS - 3 * CLUSTER_POINTS
+    x[:nf, 2] *= 0.15
+    for k, z in enumerate((0.40, 0.82, 0.95)):
+        sl = slice(nf + k * CLUSTER_POINTS, nf + (k + 1) * CLUSTER_POINTS)
+        x[sl, 2] = z + 0.001 * x[sl, 2]
+    return x
+
+
+def sorted_phases(dev, to_dev, other_psnrs=None):
+    """Phases 11-13, the hash-NGP path at 2^19 on the sorted engine (K3, K4,
+    K5, K8, K9).  ``other_psnrs`` names the other NGP paths' test PSNRs, to
+    print beside this one's.  Returns the K8 and K9 rows of the kernels
+    line."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from flnerf_tpu_torch.cli import main_nerf
+    from flnerf_tpu_torch.ops import hash_kernel as hk
+    from flnerf_tpu_torch.ops import hash_lattice as hl
+    from flnerf_tpu_torch.ops import hash_sorted as hs
+    from flnerf_tpu_torch.ops import sort_kernel as sk
+    from flnerf_tpu_torch.ops import voxel_kernel as vk
+
+    # ---- phase 11: K5 on the engine's pairs, K8 and K9 against their plain versions ----
+    tmp_dir = tempfile.TemporaryDirectory()
+    trainer, sampler, n_test, hwf = ngp_setup(tmp_dir.name, SORTED_FLAGS)
+    spec = trainer.field.spec
+    bspec = hs._big_packed_spec(spec)
+    lb = spec.n_big
+    trainer.fit(sampler, verbose=False, n_steps=NGP_WINDOW)    # steps 1-256
+    x_batch, g_seen = next_batch_encode(trainer, sampler, to_dev, "hash_encode_split")
+    table = trainer.field.table_big.detach().clone()
+    g_train = g_seen[:, 2 * spec.n_small:].contiguous()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    inputs = {"train batch": x_batch, "refresh chunk": refresh_chunk(trainer, gen),
+              "two z-slabs": two_slabs(gen, dev), "three z-clusters": three_clusters(gen, dev)}
+    print(f"[phase 11] split spec: {spec.n_small} small levels (t_cap {spec.small.t_cap}), "
+          f"{lb} big levels (sizes {spec.big.sizes.tolist()}, hashed "
+          f"{spec.big.use_hash.astype(int).tolist()}), big table {tuple(table.shape)} = "
+          f"{table.numel() * 4 / 1e6:.1f} MB; {hs.POINT_CAP} points a chunk", flush=True)
+
+    pairs = {}
+    for name, xx in inputs.items():
+        unsorted = hs.sort_inputs(xx, spec)
+        keys, pay = unsorted[..., 0].contiguous(), unsorted[..., 1].contiguous()
+        want = sk.bitonic_sort_plain(keys, pay)
+        got = sk.sort_pairs_(unsorted.clone())
+        torch.cuda.synchronize()
+        wrong = int((got[..., 0] != want[0]).sum())
+        same_pairs = torch.equal(pair_codes(got[..., 0], got[..., 1]), pair_codes(*want))
+        print(f"[phase 11] K5 on the {name}'s pairs {tuple(unsorted.shape)}: {wrong} keys "
+              f"differ, payload multisets per key {'equal' if same_pairs else 'DIFFER'}",
+              flush=True)
+        check(wrong == 0 and same_pairs, f"K5 differs from the plain version ({name})")
+        pairs[name] = (unsorted, got)
+    del keys, pay, want
+
+    k8_err = k9_err = 0.0
+    for name, xx in inputs.items():
+        with torch.no_grad():
+            out_k = hs.sorted_encode_forward(xx, table, spec, pairs[name][1])
+            out_p = hk.hash_encode_plain(xx, table, bspec)
+        torch.cuda.synchronize()
+        err, scale = float((out_k - out_p).abs().max()), float(out_p.abs().max())
+        print(f"[phase 11] K8 on the {name} {tuple(xx.shape)}: max_err {err:.3e} "
+              f"(largest output {scale:.4e})", flush=True)
+        check(bool(torch.isfinite(out_k).all()), f"K8 output not finite ({name})")
+        check(scale > 0 and err <= 1e-6 * scale,
+              f"K8 differs from the plain version by {err} > 1e-6 * {scale} ({name})")
+        k8_err = max(k8_err, err)
+    del out_k, out_p
+    grads = [("train batch", "train gradient", g_train)] + [
+        (name, "dense gradient", torch.randn((xx.shape[0], 2 * lb), generator=gen, device=dev))
+        for name, xx in inputs.items()]
+    for name, what, g_up in grads:
+        xx = inputs[name]
+        grad_k = hs.sorted_encode_backward(xx, g_up, spec, pairs[name][1])
+        tp = table.clone().requires_grad_(True)
+        (grad_p,) = torch.autograd.grad(hk.hash_encode_plain(xx, tp, bspec), [tp], g_up)
+        torch.cuda.synchronize()
+        err, scale = float((grad_k - grad_p).abs().max()), float(grad_p.abs().max())
+        live = float((g_up != 0).any(-1).float().mean())
+        print(f"[phase 11] K9 on the {name}, {what} (nonzero at {live:.4f} of the points): "
+              f"max_err {err:.3e} (largest entry {scale:.4e})", flush=True)
+        # the train gradient may be zero at every point (the 2^15 plateau);
+        # then K9 must give exactly zero too
+        check((scale > 0 or what == "train gradient") and err <= 1e-4 * scale,
+              f"K9 differs from the plain version by {err} > 1e-4 * {scale} ({name}, {what})")
+        k9_err = max(k9_err, err)
+    g_dense = grads[1][2]
+    del grad_k, grad_p, tp, grads
+
+    # ---- phase 12: the sorted main path, through the CLI on the card ----
+    for mod in (hk, hl, hs, sk, vk):
+        mod.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        res = main_nerf.main(["synthetic", "-O", *SORTED_FLAGS, "--iters", str(NGP_ITERS),
+                              "--workspace", tmp])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = {"K3": hk.HASH_FWD_LAUNCHES, "K4": hk.HASH_BWD_LAUNCHES,
+                    "K5": sk.SORT_LAUNCHES, "K8": hs.SORTED_FWD_LAUNCHES,
+                    "K9": hs.SORTED_BWD_LAUNCHES}
+        others = {"K1": vk.FWD_LAUNCHES, "K2": vk.BWD_LAUNCHES,
+                  "K6": hl.LATTICE_FWD_LAUNCHES, "K7": hl.LATTICE_BWD_LAUNCHES}
+        with open(os.path.join(tmp, "results.txt")) as f:
+            results = f.read().split()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = res["steps"]
+    losses = [h["chunk_loss"] for h in res["history"]]
+    want_fwd, n_refresh, n_eval = expected_hash_launches(trainer, len(n_test), hwf)
+    print(f"[phase 12] launches {launches} (others {others}); steps {steps}, refresh chunks "
+          f"{n_refresh}, eval chunks {n_eval}; mean train loss per chunk first "
+          f"{losses[0]:.5f} last {losses[-1]:.5f} (min {min(losses):.5f} max "
+          f"{max(losses[1:]):.5f} after the first); test PSNR {res['psnr']:.3f} SSIM "
+          f"{res['ssim']:.4f}; main {wall:.1f} s; peak memory {peak_gb:.2f} GB; results.txt "
+          f"{results}", flush=True)
+    psnrs = dict(other_psnrs or {})
+    psnrs["2^19, xor hash (phase 12, the sorted engine)"] = res["psnr"]
+    print("[phase 12] test PSNR after " + str(NGP_ITERS) + " steps: " + "; ".join(
+        f"{k} {v:.3f}" for k, v in psnrs.items()), flush=True)
+    check(launches["K4"] == launches["K9"] == steps == NGP_ITERS,
+          f"K4/K9 launches {launches} != steps {steps}")
+    check(launches["K3"] == launches["K5"] == launches["K8"] == want_fwd,
+          f"K3/K5/K8 launches {launches} != steps + refresh + eval chunks {want_fwd}")
+    check(not any(others.values()), f"the sorted path launched another engine's kernel: "
+                                    f"{others}")
+    check(all(math.isfinite(v) for v in losses), f"train loss not finite: {losses}")
+    check(losses[-1] < losses[0], f"train loss did not fall: {losses}")
+    check(math.isfinite(res["psnr"]), f"test PSNR not finite: {res['psnr']}")
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    trainer.fit(sampler, verbose=False, n_steps=NGP_WINDOW)
+    torch.cuda.synchronize()
+    win_s = time.time() - t0
+    print(f"[phase 12] train rays/s over steps {NGP_WINDOW + 1}-{2 * NGP_WINDOW}: "
+          f"{NGP_WINDOW * trainer.cfg.batch_rays / win_s:.1f} ({NGP_WINDOW} steps, "
+          f"{NGP_WINDOW // trainer.cfg.steps_per_chunk} partial refreshes, {win_s:.3f} s); "
+          f"loss {trainer.history[-1]['loss']:.5f}", flush=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        trainer.fit(sampler, verbose=False, n_steps=NGP_PROFILE_STEPS)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.time() - t0) * 1e3
+    dev_events = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                        key=lambda e: -e.self_device_time_total)
+    dev_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
+    print(f"[phase 12] profiled sorted-engine fit of {NGP_PROFILE_STEPS} steps: device busy "
+          f"{dev_ms:.1f} ms of {prof_wall_ms:.1f} ms wall ({100 * dev_ms / prof_wall_ms:.1f}%); "
+          f"top kernels by device time:")
+    for e in dev_events[:14] + [e for e in dev_events[14:]
+                                if "hash_" in e.key or "sorted" in e.key or "bitonic" in e.key]:
+        print(f"[phase 12]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
+              f"{e.key[:90]}")
+    del trainer, sampler
+    tmp_dir.cleanup()
+
+    # ---- phase 13: K5, K8 and K9 times on phase 11's batch ----
+    n_pts = x_batch.shape[0]
+    unsorted, spairs = pairs["train batch"]
+    keys, pay = unsorted[..., 0].contiguous(), unsorted[..., 1].contiguous()
+    work = spairs.clone()
+    # the bitonic network is oblivious to the data: sorting sorted rows again
+    # is the same work
+    k5_ms = cuda_ms(lambda: sk.sort_pairs_(work), 10)
+    k5_plain_ms = cuda_ms(lambda: sk.bitonic_sort_plain(keys, pay), 5)
+    k5_lib_ms = cuda_ms(lambda: torch.sort(keys, dim=-1), 5)
+    prep_ms = cuda_ms(lambda: hs.sort_inputs(x_batch, spec), 10)
+    del work
+    out_buf = torch.zeros((n_pts, 2 * lb), device=dev)
+    grad_buf = torch.zeros((lb, spec.t_cap_big, 2), device=dev)
+    ms = {}
+    for oname, pr in (("sorted", spairs), ("point", unsorted)):
+        ms[f"K8 {oname}"] = cuda_ms(lambda: hs.sorted_encode_forward(
+            x_batch, table, spec, pr, out=out_buf), 20)
+        for agg, tag in ((True, "run sums"), (False, "per corner")):
+            for gname, g_up in (("dense", g_dense), ("train", g_train)):
+                ms[f"K9 {oname} {gname} {tag}"] = cuda_ms(lambda: hs.sorted_encode_backward(
+                    x_batch, g_up, spec, pr, grad_table=grad_buf, aggregate=agg), 20)
+    out_zero_ms = cuda_ms(lambda: torch.zeros((n_pts, 2 * lb), device=dev), 20)
+    grad_zero_ms = cuda_ms(lambda: torch.zeros((lb, spec.t_cap_big, 2), device=dev), 20)
+    del out_buf, grad_buf
+    with torch.no_grad():
+        k8_plain_ms = cuda_ms(lambda: hk.hash_encode_plain(x_batch, table, bspec), 5)
+    tp = table.clone().requires_grad_(True)
+    out_g = hk.hash_encode_plain(x_batch, tp, bspec)
+    k9_plain_ms = cuda_ms(lambda: torch.autograd.grad(out_g, [tp], g_dense, retain_graph=True), 5)
+    del out_g, tp
+    # what this batch's data needs: the distinct big-table entries its
+    # corners touch (K8), and those of the points with a nonzero gradient
+    ck = hs.corner_keys(x_batch, spec).long()
+    ck = ck + torch.arange(lb, device=dev)[:, None, None] * spec.t_cap_big
+    touched = int(ck.unique().numel())
+    live = (g_train != 0).any(-1)
+    live_pts = int(live.sum())
+    touched_live = int(ck[:, live].unique().numel())
+    del ck
+    # the encode's own bytes: x01 and the [N, Lb*2] output (K8) or upstream
+    # gradient (K9) once, each touched entry read once (K8) or read and
+    # written once (K9's body adds into the gradient); the pairs are the
+    # sorted design's own and are not counted
+    x_bytes, io_bytes = n_pts * 12, n_pts * lb * 8
+    bounds = {
+        "K5": bound_of(2 * spairs.numel() * 4, 0),
+        "K8": bound_of(x_bytes + io_bytes + touched * 8, n_pts * lb * K8_FLOPS),
+        "K9": bound_of(x_bytes + io_bytes + touched * 16, n_pts * lb * K9_FLOPS),
+        "K9 train": bound_of(x_bytes + io_bytes + touched_live * 16, live_pts * lb * K9_FLOPS),
+    }
+    print(f"[phase 13] train batch: {n_pts} points x {lb} big levels in "
+          f"{spairs.shape[0] // lb} chunks, pairs {tuple(spairs.shape)} = "
+          f"{spairs.numel() * 4 / 1e6:.1f} MB; {touched} distinct big-table entries touched "
+          f"({touched_live} by the {live_pts} points with a gradient)", flush=True)
+    print(f"[phase 13] K5 on the engine's pairs: {k5_ms:.4f} ms (plain {k5_plain_ms:.4f} ms; "
+          f"torch.sort of the keys {k5_lib_ms:.4f} ms; bound {bounds['K5'][0]:.4f} ms by "
+          f"{bounds['K5'][1]}); keys, payloads and padding (sort_inputs) {prep_ms:.4f} ms",
+          flush=True)
+    print(f"[phase 13] K8 body sorted order {ms['K8 sorted']:.4f} ms, point order "
+          f"{ms['K8 point']:.4f} ms (plain {k8_plain_ms:.3f} ms, bound {bounds['K8'][0]:.4f} ms "
+          f"by {bounds['K8'][1]}); output zero-fill {out_zero_ms:.4f} ms", flush=True)
+    for gname, bname in (("dense", "K9"), ("train", "K9 train")):
+        print(f"[phase 13] K9 body on the {gname} gradient: sorted order run sums "
+              f"{ms[f'K9 sorted {gname} run sums']:.4f} ms, per corner "
+              f"{ms[f'K9 sorted {gname} per corner']:.4f} ms; point order run sums "
+              f"{ms[f'K9 point {gname} run sums']:.4f} ms, per corner "
+              f"{ms[f'K9 point {gname} per corner']:.4f} ms (bound {bounds[bname][0]:.4f} ms "
+              f"by {bounds[bname][1]})", flush=True)
+    sorted_total = prep_ms + k5_ms + ms["K8 sorted"] + ms["K9 sorted dense run sums"]
+    point_total = prep_ms + ms["K8 point"] + ms["K9 point dense per corner"]
+    print(f"[phase 13] K9 plain backward {k9_plain_ms:.3f} ms; gradient zero-fill "
+          f"{grad_zero_ms:.4f} ms; sorted walk (keys + K5 + K8 + K9 dense, run sums) "
+          f"{sorted_total:.4f} ms vs point order (keys + K8 + K9 dense, per corner) "
+          f"{point_total:.4f} ms; launches per train step K5 {launches['K5'] / steps:.4f}, "
+          f"K8 {launches['K8'] / steps:.4f}, K9 {launches['K9'] / steps:.4f}", flush=True)
+
+    src = "flnerf_tpu_torch/ops/csrc/hash_sorted.cu"
+    return [
+        {"name": "sorted_encode_forward (K8)", "route": "cuda", "source": src,
+         "replaces": "flnerf_tpu/ops/hash_sorted.py:261", "launches": launches["K8"],
+         "max_abs_err": k8_err, "ms": ms["K8 sorted"], "plain_ms": k8_plain_ms,
+         "bound_ms": bounds["K8"][0], "bound_by": bounds["K8"][1], "library_ms": None},
+        {"name": "sorted_encode_backward (K9)", "route": "cuda", "source": src,
+         "replaces": "flnerf_tpu/ops/hash_sorted.py:340", "launches": launches["K9"],
+         "max_abs_err": k9_err, "ms": ms["K9 sorted dense run sums"], "plain_ms": k9_plain_ms,
+         "bound_ms": bounds["K9"][0], "bound_by": bounds["K9"][1], "library_ms": None},
     ]
 
 
@@ -785,44 +1098,19 @@ def main():
 
 
     # ---- phase 5: K3 and K4 against the plain version, NGP main-path shapes ----
-    from flnerf_tpu_torch.models import hash_ngp
     from flnerf_tpu_torch.ops import hash_kernel as hk
-    from flnerf_tpu_torch.render.ngp import ngp_render_rays
     ngp_tmp = tempfile.TemporaryDirectory()
     trainer, sampler, n_test, n_hwf = ngp_setup(ngp_tmp.name)
     trainer.fit(sampler, verbose=False, n_steps=NGP_WINDOW)    # steps 1-256
     # the next batch the trainer draws, through the trainer's own loss: the
     # encoding's input (the kept samples) and its real upstream gradient are
     # read at the hash_encode call
-    bo, bd, brgb, _, _ = copy.deepcopy(sampler).sample_chunk(1, trainer.cfg.batch_rays)
-    seen = {}
-
-    def capture(x01, table_, spec_):
-        out = encode(x01, table_, spec_)
-        seen["x01"] = x01
-        out.register_hook(lambda g: seen.setdefault("g", g))
-        return out
-
-    encode, hash_ngp.hash_encode = hash_ngp.hash_encode, capture
-    try:
-        out = ngp_render_rays(trainer.field, trainer.occ, t(bo[0]), t(bd[0]), trainer.rcfg,
-                              generator=trainer.gen)
-        torch.autograd.grad(torch.mean((out["rgb"] - t(brgb[0])) ** 2),
-                            [trainer.field.table])
-    finally:
-        hash_ngp.hash_encode = encode
-    del out
+    x_batch, g_train = next_batch_encode(trainer, sampler, t, "hash_encode")
+    g_train = g_train.contiguous()
     spec = trainer.field.spec
     table = trainer.field.table.detach().clone()
-    x_batch, g_train = seen["x01"].detach().contiguous(), seen["g"].contiguous()
-    g_cells = trainer.rcfg.grid_size
-    idx = torch.arange(g_cells, device=dev)
-    cells = torch.stack(torch.meshgrid(idx, idx, idx, indexing="ij"), -1).reshape(-1, 3)
     gen = torch.Generator(device=dev).manual_seed(1)
-    cells = cells[:REFRESH_CHUNK].float() + torch.rand((REFRESH_CHUNK, 3), generator=gen,
-                                                       device=dev)
-    x_refresh = trainer.field.unit_points(
-        (cells / g_cells * 2.0 - 1.0) * trainer.rcfg.bound).contiguous()
+    x_refresh = refresh_chunk(trainer, gen)
     # a dense N(0, 1) upstream gradient: every point adds its atomics
     g_dense = torch.randn((x_batch.shape[0], spec.output_dim), generator=gen, device=dev)
     k3_err, k3_rel = 0.0, 0.0
@@ -874,7 +1162,7 @@ def main():
         with open(os.path.join(tmp, "results.txt")) as f:
             results = f.read().split()
     ngp_peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    steps_ngp = res["steps"]
+    steps_ngp, ngp_psnr = res["steps"], res["psnr"]
     losses = [h["chunk_loss"] for h in res["history"]]
     want_fwd, n_refresh, n_eval = expected_hash_launches(trainer, len(n_test), n_hwf)
     print(f"[phase 6] launches K3 {h_fwd} K4 {h_bwd} (K1 {vk.FWD_LAUNCHES}, K2 "
@@ -996,7 +1284,10 @@ def main():
          "bound_ms": bounds["K4"][0], "bound_by": bounds["K4"][1], "library_ms": None},
     ]
     del trainer, sampler, x_batch, x_refresh, g_train, g_dense, table, grad_buf
-    kernels += lattice_phases(dev, t)
+    lattice_psnr, rows = lattice_phases(dev, t)
+    kernels += rows
+    kernels += sorted_phases(dev, t, {"2^15, xor hash (phase 6)": ngp_psnr,
+                                      "2^19, lattice hash (phase 9)": lattice_psnr})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,7 +13,9 @@ forward and table gradient as CUDA kernels (``ops/hash_kernel.py``,
 ``ops/csrc/hash_encode.cu``), and at 2^16 and more table entries on the
 lattice engine, with its sort, forward and table gradient as CUDA kernels
 (``ops/sort_kernel.py``, ``ops/hash_lattice.py``,
-``ops/csrc/hash_lattice.cu``).
+``ops/csrc/hash_lattice.cu``), or on the sorted engine (torch-ngp's xor
+hash), with the same sort and its own forward and table gradient as CUDA
+kernels (``ops/hash_sorted.py``, ``ops/csrc/hash_sorted.cu``).
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU; with no card present they raise instead of falling back.

@@ -10,16 +10,17 @@ trainer configs -> fit -> final checkpoint -> test-split eval ->
 
 ``--log2_hashmap_size`` 16 and above (torch-ngp's own 19 included) runs the
 lattice engine under ``--hash_engine auto`` or ``lattice``, as the reference
-resolves it; ``matmul`` keeps the packed engine at any size.
+resolves it, and the sorted engine (torch-ngp's xor hash) under
+``--hash_engine sorted``; ``matmul`` keeps the packed engine at any size.
 
 Not ported yet (each raises ``NotImplementedError``): ``--gui``,
-``--clip_text`` / ``--rand_pose``, ``--bg_radius > 0`` and the sorted engine
-(``--hash_engine sorted``).
+``--clip_text`` / ``--rand_pose`` and ``--bg_radius > 0``.
 
 Usage:
   python -m flnerf_tpu_torch.cli.main_nerf data/nerf_synthetic/lego -O --bound 1 --scale 0.8
   python -m flnerf_tpu_torch.cli.main_nerf synthetic -O --iters 2000
   python -m flnerf_tpu_torch.cli.main_nerf synthetic -O --log2_hashmap_size 19
+  python -m flnerf_tpu_torch.cli.main_nerf synthetic -O --log2_hashmap_size 19 --hash_engine sorted
 """
 
 from __future__ import annotations
@@ -102,7 +103,7 @@ def make_parser():
     parser.add_argument("--hash_engine", type=str, default="auto",
                         choices=("auto", "matmul", "sorted", "lattice"),
                         help="big-table encode engine at log2 >= 16: auto and lattice "
-                        "run the lattice engine; sorted is not ported yet")
+                        "run the lattice engine, sorted the sorted engine")
     return parser
 
 

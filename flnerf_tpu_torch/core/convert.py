@@ -13,8 +13,11 @@ engine's ``table`` is [L, C, T_r, 128] f32 (entry t of level l, feature c at
 [l, c, t >> 7, t & 127]), kept by the port as [L, T_cap, C].  The lattice
 engine's is the tuple (ts, tb): ts (None without small levels) in the packed
 layout, tb [Lb, t_r64, 128] (entry e at [l, e >> 6, 2 * (e & 63) + c]),
-kept by the port as [Lb, t_r64 * 64, 2], whole, padding included, so
-checkpoints round-trip unchanged.  The weights stay [in, out], in
+kept by the port as [Lb, t_r64 * 64, 2].  The sorted engine's is the tuple
+(ts, tb) with both in the packed layout, tb [Lb, C, t_r_big, 128], kept by
+the port as [Lb, t_cap_big, C].  The two tuples differ in tb's rank (3 for
+the lattice, 4 for the sorted engine).  Tables convert whole, padding
+included, so checkpoints round-trip unchanged.  The weights stay [in, out], in
 ``NGPField.parameters()`` order: table(s), sigma_net, color_net.  Its
 occupancy state is the reference's density grid and mean, with the
 bitfield repacked.
@@ -82,14 +85,17 @@ def _packed_from_natural(table: np.ndarray, lanes: int = 128) -> np.ndarray:
 def ngp_params_from_numpy(params, device="cpu") -> list:
     """The reference's NGP params dict -> [table(s), *sigma_net, *color_net]
     tensors (``NGPField.parameters()`` order): [L, T_cap, C] for a packed
-    table; [Ls, T_cap, C] (when ts is not None) and [Lb, t_r64 * 64, 2] for
-    the lattice tuple (ts, tb)."""
+    table; [Ls, T_cap, C] (when ts is not None) and then [Lb, t_r64 * 64, 2]
+    for the lattice tuple (ts, tb), [Lb, t_cap_big, C] for the sorted one."""
     table = params["table"]
     if isinstance(table, (tuple, list)):
         ts, tb = table
         tb = np.asarray(tb, np.float32)
-        tables = ([] if ts is None else [_natural_from_packed(ts)]) + [
-            tb.reshape(tb.shape[0], -1, 2)]
+        if tb.ndim == 3:     # the lattice's [Lb, t_r64, 128]
+            tb = tb.reshape(tb.shape[0], -1, 2)
+        else:                # the sorted engine's [Lb, C, t_r_big, 128]
+            tb = _natural_from_packed(tb)
+        tables = ([] if ts is None else [_natural_from_packed(ts)]) + [tb]
     else:
         tables = [_natural_from_packed(table)]
     return [torch.tensor(t, device=device) for t in tables] + [
@@ -103,19 +109,25 @@ def load_ngp_params(field, params) -> None:
             p.copy_(v)
 
 
-def ngp_params_to_numpy(tensors, num_sigma_layers: int, lattice: bool = False) -> dict:
+def ngp_params_to_numpy(tensors, num_sigma_layers: int, engine: str = "packed") -> dict:
     """Inverse of ``ngp_params_from_numpy``: tensors in parameter order ->
-    the reference's dict (table, sigma_net, color_net).  With ``lattice``
-    the leading 3-D tensors are (table_small,) table_big and ``table`` is
-    the tuple (ts or None, tb [Lb, t_r64, 128])."""
+    the reference's dict (table, sigma_net, color_net).  ``engine`` is the
+    field's (``models/hash_ngp.engine_kind``): "packed" gives one packed
+    table; "lattice" and "sorted" read the leading 3-D tensors as
+    (table_small,) table_big and give the tuple (ts or None, tb), tb
+    [Lb, t_r64, 128] for the lattice and [Lb, C, t_r_big, 128] for the
+    sorted engine."""
+    if engine not in ("packed", "lattice", "sorted"):
+        raise ValueError(f"unknown engine {engine!r} (packed|lattice|sorted)")
     arrs = [t.detach().cpu().numpy() for t in tensors]
     n_tables = sum(1 for a in arrs[:2] if a.ndim == 3)
-    if lattice:
-        tb = arrs[n_tables - 1]
-        table = (_packed_from_natural(arrs[0]) if n_tables == 2 else None,
-                 np.ascontiguousarray(tb.reshape(tb.shape[0], -1, 128)))
-    else:
+    if engine == "packed":
         table = _packed_from_natural(arrs[0])
+    else:
+        tb = arrs[n_tables - 1]
+        tb = (np.ascontiguousarray(tb.reshape(tb.shape[0], -1, 128)) if engine == "lattice"
+              else _packed_from_natural(tb))
+        table = (_packed_from_natural(arrs[0]) if n_tables == 2 else None, tb)
     return {"table": table, "sigma_net": arrs[n_tables:n_tables + num_sigma_layers],
             "color_net": arrs[n_tables + num_sigma_layers:]}
 

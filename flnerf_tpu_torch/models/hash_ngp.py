@@ -1,9 +1,12 @@
 """Instant-NGP field: multiresolution hash encoding + tiny MLPs.
 
-Port of ``flnerf_tpu/models/hash_ngp.py`` for the packed (matmul) engine,
-the one the NGP CLI's defaults select (``--log2_hashmap_size 15``), and the
-lattice engine, which ``hash_engine`` ``auto`` and ``lattice`` select at
-``log2_hashmap_size >= 16`` (torch-ngp's 2^19, gridencoder grid.py:91).
+Port of ``flnerf_tpu/models/hash_ngp.py`` for its three encoding engines:
+the packed (matmul) engine, the one the NGP CLI's defaults select
+(``--log2_hashmap_size 15``); the lattice engine, which ``hash_engine``
+``auto`` and ``lattice`` select at ``log2_hashmap_size >= 16`` (torch-ngp's
+2^19, gridencoder grid.py:91); and the sorted engine (``hash_engine
+sorted`` at ``log2_hashmap_size >= 16``), torch-ngp's own xor hash at that
+capacity.
 Parity target ngp-ours/nerf/network.py:10-194:
   * sigma net: 2 bias-free Linear layers, hidden 64, output 1+15 (sigma via
     trunc_exp + 15-dim geometric feature);
@@ -13,7 +16,9 @@ Parity target ngp-ours/nerf/network.py:10-194:
 
 The encoding is ``encode_with_spec``: ``ops/hash_kernel.hash_encode`` (K3/K4
 on the card) for a packed spec, ``ops/hash_lattice.lattice_encode_split``
-(K3/K4 for the small levels, K5/K6/K7 for the big ones) for a lattice spec.
+(K3/K4 for the small levels, K5/K6/K7 for the big ones) for a lattice spec,
+``ops/hash_sorted.hash_encode_split`` (K3/K4 for the small levels, K5/K8/K9
+for the big ones) for a split spec.
 The MLP weights keep the reference's [in, out] layout, so
 ``core/convert.py`` carries them across unchanged.
 
@@ -24,8 +29,8 @@ type and multiplies them in f32: the products of bf16 values are exact in
 f32, so each layer's output is rounded where the reference rounds it and
 nowhere else.  The gradients round to bf16 at the same casts.
 
-Not ported yet (each raises ``NotImplementedError``): the sorted engine
-(``hash_engine='sorted'``) and the background env-map (``bg_radius > 0``).
+Not ported yet (raises ``NotImplementedError``): the background env-map
+(``bg_radius > 0``).
 """
 
 from __future__ import annotations
@@ -49,10 +54,14 @@ from flnerf_tpu_torch.ops.hash_lattice import (
     lattice_encode_split,
     make_lattice_spec,
 )
+from flnerf_tpu_torch.ops.hash_sorted import (
+    SplitHashSpec,
+    hash_encode_split,
+    init_split_table,
+    make_split_spec,
+)
 from flnerf_tpu_torch.ops.sh_encoding import sh_encode
 
-SORTED_SLICE = ("is not ported yet; it is queued as slice 4 of the port "
-                "(ROADMAP.md: the sorted engine, K8/K9)")
 NGP_BACKLOG = "is not ported yet; it is queued in ROADMAP.md's NGP backlog"
 
 
@@ -61,8 +70,7 @@ class NGPConfig(NamedTuple):
     level_dim: int = 2
     base_resolution: int = 16
     # 2^15 and below run the packed engine (K3/K4); 2^16 and above select
-    # the lattice engine ('auto', 'lattice') or the sorted engine (not
-    # ported yet)
+    # the lattice engine ('auto', 'lattice') or the sorted engine ('sorted')
     log2_hashmap_size: int = 15
     split_min_size: int = 1 << 15
     hash_engine: str = "auto"
@@ -90,8 +98,8 @@ class NGPConfig(NamedTuple):
 
 def make_ngp_spec(cfg: NGPConfig):
     """The reference's engine choice: a ``PackedHashSpec`` up to 2^15 tables
-    (and for 'matmul'), a ``LatticeSpec`` at 2^16 and above for 'auto' and
-    'lattice'; the sorted engine, not ported yet, raises."""
+    (and for 'matmul'); at 2^16 and above a ``LatticeSpec`` for 'auto' and
+    'lattice', a ``SplitHashSpec`` for 'sorted'."""
     if cfg.hash_engine not in ("auto", "matmul", "sorted", "lattice"):
         raise ValueError(f"unknown hash_engine {cfg.hash_engine!r} "
                          "(auto|matmul|sorted|lattice)")
@@ -102,9 +110,8 @@ def make_ngp_spec(cfg: NGPConfig):
             "cheaper below that and is selected by 'auto'")
     if cfg.log2_hashmap_size >= 16 and cfg.hash_engine != "matmul":
         # 'auto' resolves to the lattice engine, as in the reference
-        if cfg.hash_engine == "sorted":
-            raise NotImplementedError(f"the sorted hash engine {SORTED_SLICE}")
-        return make_lattice_spec(
+        make = make_split_spec if cfg.hash_engine == "sorted" else make_lattice_spec
+        return make(
             num_levels=cfg.num_levels,
             level_dim=cfg.level_dim,
             base_resolution=cfg.base_resolution,
@@ -121,12 +128,20 @@ def make_ngp_spec(cfg: NGPConfig):
     )
 
 
+def engine_kind(spec) -> str:
+    """The engine a spec selects: "packed", "lattice" or "sorted"."""
+    if isinstance(spec, LatticeSpec):
+        return "lattice"
+    return "sorted" if isinstance(spec, SplitHashSpec) else "packed"
+
+
 def init_ngp_table(spec, generator=None, device="cpu"):
-    """Table parameters for either spec kind: (table_small or None,
-    table_big) for a lattice spec, the [L, T_cap, C] table for a packed
-    one."""
+    """Table parameters for any spec kind: (table_small or None, table_big)
+    for a lattice or split spec, the [L, T_cap, C] table for a packed one."""
     if isinstance(spec, LatticeSpec):
         return init_lattice_tables(spec, generator, device)
+    if isinstance(spec, SplitHashSpec):
+        return init_split_table(spec, generator, device)
     return init_packed_table(spec, generator, device)
 
 
@@ -135,6 +150,8 @@ def encode_with_spec(x01: torch.Tensor, table, spec) -> torch.Tensor:
     the field routes its encoding through."""
     if isinstance(spec, LatticeSpec):
         return lattice_encode_split(x01, table, spec)
+    if isinstance(spec, SplitHashSpec):
+        return hash_encode_split(x01, table, spec)
     return hash_encode(x01, table, spec)
 
 
@@ -158,10 +175,10 @@ def _linear_nobias(fan_in: int, fan_out: int, generator, device) -> nn.Parameter
 class NGPField(nn.Module):
     """The field: the hash table(s), ``sigma_net`` and ``color_net`` as
     lists of [in, out] weights.  A packed spec holds ``table`` [L, T_cap,
-    C]; a lattice spec holds ``table_small`` (None without small levels)
-    and ``table_big``, in the reference's tuple order.  Parameters are drawn
-    from ``generator`` (torch's stream, not the reference's); tests carry
-    weights across."""
+    C]; a lattice or split spec holds ``table_small`` (None without small
+    levels) and ``table_big``, in the reference's tuple order.  Parameters
+    are drawn from ``generator`` (torch's stream, not the reference's);
+    tests carry weights across."""
 
     def __init__(self, cfg: NGPConfig, compute_dtype=torch.bfloat16,
                  generator=None, device="cpu"):
@@ -172,7 +189,7 @@ class NGPField(nn.Module):
         self.spec = make_ngp_spec(cfg)
         self.compute_dtype = compute_dtype
         table = init_ngp_table(self.spec, generator, device)
-        if isinstance(self.spec, LatticeSpec):
+        if engine_kind(self.spec) != "packed":
             ts, tb = table
             self.table_small = None if ts is None else nn.Parameter(ts)
             self.table_big = nn.Parameter(tb)
@@ -190,8 +207,8 @@ class NGPField(nn.Module):
     @property
     def tables(self):
         """The encoding's table argument: (table_small, table_big) for a
-        lattice spec, ``table`` for a packed one."""
-        if isinstance(self.spec, LatticeSpec):
+        lattice or split spec, ``table`` for a packed one."""
+        if engine_kind(self.spec) != "packed":
             return self.table_small, self.table_big
         return self.table
 

@@ -12,9 +12,10 @@ so one CUDA kernel serves both.
 CUDA tensors launch K5 (``bitonic_sort_pairs`` in ``csrc/hash_lattice.cu``),
 which sorts (key, payload) pairs in place.  With one payload the pair
 carries it; with none or several, the pair carries the position and the
-payloads are gathered through the sorted positions.  CPU tensors take the
-plain version, a torch sort and a gather.  ``SORT_LAUNCHES`` counts the
-kernel's launches.
+payloads are gathered through the sorted positions.  ``sort_pairs_`` is that
+in-place sort for callers that build the pairs themselves (the sorted hash
+engine).  CPU tensors take the plain version, a torch sort and a gather.
+``SORT_LAUNCHES`` counts the kernel's launches.
 """
 
 from __future__ import annotations
@@ -68,21 +69,32 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def bitonic_sort_kernel(keys: torch.Tensor, *values: torch.Tensor):
-    """K5 on CUDA tensors: (sorted keys, *payloads permuted with them)."""
+def sort_pairs_(pairs: torch.Tensor) -> torch.Tensor:
+    """K5 in place on CUDA (key, payload) pairs, ``[..., N, 2]`` int32 and
+    contiguous (one int2 each), keys non-negative: each row of N pairs ends
+    sorted by key, ascending.  Returns ``pairs``."""
     global SORT_LAUNCHES
-    if keys.device.type != "cuda":
-        raise ValueError(f"the sort kernel takes CUDA tensors, got {keys.device}")
-    n = _check(keys, values)
-    g = keys.numel() // n
-    carry = values[0] if len(values) == 1 else torch.arange(
-        n, dtype=torch.int32, device=keys.device).expand(keys.shape)
-    pairs = torch.stack([keys, carry], dim=-1).contiguous()       # [..., N, 2]: int2
-    rc = _lib().bitonic_sort_pairs(pairs.data_ptr(), g, n,
-                                   torch.cuda.current_stream(keys.device).cuda_stream)
+    if pairs.device.type != "cuda":
+        raise ValueError(f"the sort kernel takes CUDA tensors, got {pairs.device}")
+    if pairs.dim() < 2 or pairs.shape[-1] != 2 or not pairs.is_contiguous():
+        raise ValueError(f"pairs must be contiguous [..., N, 2], got {tuple(pairs.shape)}")
+    n = _check(pairs[..., 0], ())
+    rc = _lib().bitonic_sort_pairs(pairs.data_ptr(), pairs.numel() // (2 * n), n,
+                                   torch.cuda.current_stream(pairs.device).cuda_stream)
     SORT_LAUNCHES += 1
     if rc != 0:
         raise RuntimeError(f"bitonic_sort_pairs launch failed: cudaError {rc}")
+    return pairs
+
+
+def bitonic_sort_kernel(keys: torch.Tensor, *values: torch.Tensor):
+    """K5 on CUDA tensors: (sorted keys, *payloads permuted with them)."""
+    if keys.device.type != "cuda":
+        raise ValueError(f"the sort kernel takes CUDA tensors, got {keys.device}")
+    n = _check(keys, values)
+    carry = values[0] if len(values) == 1 else torch.arange(
+        n, dtype=torch.int32, device=keys.device).expand(keys.shape)
+    pairs = sort_pairs_(torch.stack([keys, carry], dim=-1).contiguous())   # [..., N, 2]: int2
     sk, sp = pairs[..., 0].contiguous(), pairs[..., 1].contiguous()
     if len(values) == 1:
         return sk, sp

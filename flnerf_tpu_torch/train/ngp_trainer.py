@@ -36,8 +36,7 @@ import torch
 
 from flnerf_tpu_torch.core.losses import huber_loss
 from flnerf_tpu_torch.core.metrics import compute_ssim, mse2psnr
-from flnerf_tpu_torch.models.hash_ngp import NGP_BACKLOG, NGPConfig, NGPField
-from flnerf_tpu_torch.ops.hash_lattice import LatticeSpec
+from flnerf_tpu_torch.models.hash_ngp import NGP_BACKLOG, NGPConfig, NGPField, engine_kind
 from flnerf_tpu_torch.rays.camera import get_rays_np
 from flnerf_tpu_torch.rays.sharpness import sharp_image
 from flnerf_tpu_torch.render.ngp import (
@@ -346,18 +345,18 @@ class NGPTrainer:
         os.makedirs(ckpt_dir, exist_ok=True)
         name = name or f"ngp_ep{self.step:07d}"
         ns = self.field.cfg.num_layers
-        lattice = isinstance(self.field.spec, LatticeSpec)
+        engine = engine_kind(self.field.spec)
         payload = {
             "format": CKPT_FORMAT,
             "step": self.step,
-            "params": ngp_params_to_numpy(self.params, ns, lattice),
-            "ema_params": (ngp_params_to_numpy(self.ema, ns, lattice)
+            "params": ngp_params_to_numpy(self.params, ns, engine),
+            "ema_params": (ngp_params_to_numpy(self.ema, ns, engine)
                            if self.ema is not None else None),
             "occ_density": self.occ.density.cpu().numpy(),
             "occ_mean": float(self.occ.mean_density),
             "opt_state": {"count": self.step,
-                          "mu": ngp_params_to_numpy(self.mu, ns, lattice),
-                          "nu": ngp_params_to_numpy(self.nu, ns, lattice)},
+                          "mu": ngp_params_to_numpy(self.mu, ns, engine),
+                          "nu": ngp_params_to_numpy(self.nu, ns, engine)},
         }
         path = os.path.join(ckpt_dir, f"{name}.pkl")
         with open(path, "wb") as f:

@@ -1,7 +1,8 @@
 """The port's NGP CLI (flnerf_tpu_torch/cli/main_nerf.py) end to end on the
 CPU at a tiny size: the synthetic scene at 16x16, an 8^3 occupancy grid,
 full-width hash field (16 levels, bf16 MLPs under -O) with 2^15 tables (the
-packed engine) or 2^16 tables (the lattice engine)."""
+packed engine) or 2^16 tables (the lattice engine, or the sorted engine
+with --hash_engine sorted)."""
 
 import math
 import os
@@ -12,6 +13,7 @@ import torch
 from flnerf_tpu.cli import main_nerf as ref_cli
 from flnerf_tpu_torch.cli import main_nerf
 from flnerf_tpu_torch.ops.hash_lattice import LatticeSpec
+from flnerf_tpu_torch.ops.hash_sorted import SplitHashSpec
 
 torch.set_num_threads(1)
 
@@ -28,10 +30,11 @@ def test_parser_matches_reference_flag_for_flag():
     assert args.fp16 and args.cuda_ray and args.preload
 
 
-ENGINE_FLAGS = {"packed": [], "lattice": ["--log2_hashmap_size", "16"]}
+ENGINE_FLAGS = {"packed": [], "lattice": ["--log2_hashmap_size", "16"],
+                "sorted": ["--log2_hashmap_size", "16", "--hash_engine", "sorted"]}
 
 
-@pytest.mark.parametrize("engine", ["packed", "lattice"])
+@pytest.mark.parametrize("engine", ["packed", "lattice", "sorted"])
 def test_main_trains_evaluates_and_writes_results(tmp_path, capsys, engine):
     res = main_nerf.main(["synthetic", "-O", "--iters", "8", "--workspace", str(tmp_path)]
                          + TINY + ENGINE_FLAGS[engine])
@@ -52,13 +55,28 @@ def test_main_trains_evaluates_and_writes_results(tmp_path, capsys, engine):
         assert isinstance(spec, LatticeSpec) and spec.t_big == 2 ** 16
         assert (spec.split.n_small, spec.n_big) == (2, 14)
         assert trainer.field.table_big.shape == (14, 2 ** 16, 2)
+    elif engine == "sorted":
+        assert isinstance(spec, SplitHashSpec) and spec.t_cap_big == 2 ** 16
+        assert (spec.n_small, spec.n_big) == (2, 14)
+        assert trainer.field.table_big.shape == (14, 2 ** 16, 2)
     else:
         assert spec.t_cap == 2 ** 15
 
 
 @pytest.mark.parametrize("flags", [["--gui"], ["--clip_text", "a chair"], ["--rand_pose", "0"],
-                                   ["--bg_radius", "2"],
-                                   ["--log2_hashmap_size", "19", "--hash_engine", "sorted"]])
+                                   ["--bg_radius", "2"]])
 def test_unported_flags_raise(flags, tmp_path):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         main_nerf.main(["synthetic", "--workspace", str(tmp_path)] + TINY + flags)
+
+
+def test_sorted_engine_flags_build_the_split_spec():
+    """torch-ngp's own capacity and hash: --log2_hashmap_size 19
+    --hash_engine sorted gives the split spec, 2 small and 14 big levels."""
+    trainer = main_nerf.build(main_nerf.parse_args(
+        ["synthetic", "-O", "--log2_hashmap_size", "19", "--hash_engine", "sorted"] + TINY))[0]
+    spec = trainer.field.spec
+    assert isinstance(spec, SplitHashSpec)
+    assert (spec.n_small, spec.n_big) == (2, 14) and spec.t_cap_big == 2 ** 19
+    assert trainer.field.table_big.shape == (14, 2 ** 19, 2)
+    assert trainer.field.table_small.shape == (2, spec.small.t_cap, 2)

@@ -13,7 +13,14 @@ import torch
 
 from flnerf_tpu_torch.models.voxel_sh import VoxelGridConfig, init_voxel_grid
 from flnerf_tpu_torch.models.hash_ngp import NGPConfig
-from flnerf_tpu_torch.ops import _build, hash_kernel, hash_lattice, sort_kernel, voxel_kernel
+from flnerf_tpu_torch.ops import (
+    _build,
+    hash_kernel,
+    hash_lattice,
+    hash_sorted,
+    sort_kernel,
+    voxel_kernel,
+)
 from flnerf_tpu_torch.render.ngp import NGPRenderConfig
 from flnerf_tpu_torch.train import ngp_trainer
 from flnerf_tpu_torch.train import plenoxels_trainer as pt
@@ -118,6 +125,20 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         sort_kernel.bitonic_sort_kernel(torch.zeros(128, dtype=torch.int32))
     assert (hash_lattice.LATTICE_FWD_LAUNCHES, hash_lattice.LATTICE_BWD_LAUNCHES,
             sort_kernel.SORT_LAUNCHES) == before
+    sspec = hash_sorted.make_split_spec(num_levels=6, log2_hashmap_size=16,
+                                        desired_resolution=512)
+    pairs = hash_sorted.sorted_pairs(x, sspec)
+    tb = torch.zeros((sspec.n_big, sspec.t_cap_big, 2))
+    before = (hash_sorted.SORTED_FWD_LAUNCHES, hash_sorted.SORTED_BWD_LAUNCHES,
+              sort_kernel.SORT_LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        hash_sorted.sorted_encode_forward(x, tb, sspec, pairs)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        hash_sorted.sorted_encode_backward(x, torch.zeros((4, 2 * sspec.n_big)), sspec, pairs)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        sort_kernel.sort_pairs_(pairs.clone())
+    assert (hash_sorted.SORTED_FWD_LAUNCHES, hash_sorted.SORTED_BWD_LAUNCHES,
+            sort_kernel.SORT_LAUNCHES) == before
 
 
 def test_failed_build_raises(monkeypatch, tmp_path):
@@ -128,5 +149,5 @@ def test_failed_build_raises(monkeypatch, tmp_path):
         _build.build_all(["voxel_cuvol"])
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all()
-    assert _build.sources() == ["hash_encode", "hash_lattice", "voxel_cuvol"]
+    assert _build.sources() == ["hash_encode", "hash_lattice", "hash_sorted", "voxel_cuvol"]
     assert np.all([not f.endswith(".so") for f in os.listdir(tmp_path)])

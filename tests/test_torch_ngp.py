@@ -8,7 +8,10 @@ tables (the packed engine) or 6 levels, 2^16 tables (the lattice engine: 1
 small level, 1 dense and 4 hashed big levels), 16^3 occupancy grids, 32
 candidates and 16 kept samples (powers of two, so the reference's jitted
 divisions by these constants, which XLA turns into reciprocal multiplies,
-stay exact)."""
+stay exact).  The sorted engine takes the lattice's widths with
+hash_engine='sorted' (the same 1 small and 5 big levels, torch-ngp's xor
+hash); the reference's CPU path encodes its big levels with
+hash_encode_xla."""
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +28,7 @@ from flnerf_tpu.train import ngp_trainer as ref_t
 from flnerf_tpu_torch.core import convert
 from flnerf_tpu_torch.models import hash_ngp as m
 from flnerf_tpu_torch.ops.hash_lattice import LatticeSpec
+from flnerf_tpu_torch.ops.hash_sorted import SplitHashSpec
 from flnerf_tpu_torch.render import ngp as r
 from flnerf_tpu_torch.train import ngp_trainer as t_ngp
 
@@ -33,7 +37,10 @@ torch.set_num_threads(1)
 FIELD_KW = dict(num_levels=4, log2_hashmap_size=10, desired_resolution=64, bound=1.0)
 ENGINE_KW = {"packed": FIELD_KW,
              "lattice": dict(num_levels=6, log2_hashmap_size=16, desired_resolution=512,
-                             bound=1.0)}
+                             bound=1.0),
+             "sorted": dict(num_levels=6, log2_hashmap_size=16, desired_resolution=512,
+                            bound=1.0, hash_engine="sorted")}
+ENGINES = ["packed", "lattice", "sorted"]
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 
 
@@ -105,8 +112,18 @@ def test_engine_choice_and_unported_options_raise():
     assert isinstance(spec, LatticeSpec) and spec.n_big == 14 and spec.t_big == 2 ** 19
     assert isinstance(m.make_ngp_spec(m.NGPConfig(log2_hashmap_size=16,
                                                   hash_engine="lattice")), LatticeSpec)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        m.make_ngp_spec(m.NGPConfig(log2_hashmap_size=19, hash_engine="sorted"))
+    spec = m.make_ngp_spec(m.NGPConfig(log2_hashmap_size=19, bound=2.0, hash_engine="sorted"))
+    ref = ref_m.make_ngp_spec(ref_m.NGPConfig(log2_hashmap_size=19, bound=2.0,
+                                              hash_engine="sorted"))
+    assert isinstance(spec, SplitHashSpec) and (spec.n_small, spec.n_big) == (2, 14)
+    assert spec.t_cap_big == ref.t_cap_big == 2 ** 19 and spec.t_r_big == ref.t_r_big
+    assert spec.small.t_cap == ref.small.t_cap
+    for ours, theirs in ((spec.base, ref.base), (spec.big, ref.big)):
+        for f in ours._fields:
+            np.testing.assert_array_equal(getattr(ours, f), getattr(theirs, f), err_msg=f)
+    assert m.engine_kind(spec) == "sorted"
+    with pytest.raises(ValueError, match="needs log2_hashmap_size"):
+        m.make_ngp_spec(m.NGPConfig(hash_engine="sorted"))
     with pytest.raises(ValueError, match="needs log2_hashmap_size"):
         m.make_ngp_spec(m.NGPConfig(hash_engine="lattice"))
     with pytest.raises(NotImplementedError, match="NGP backlog"):
@@ -123,7 +140,7 @@ def test_engine_choice_and_unported_options_raise():
 TOL = {"f32": dict(rtol=1e-5, atol=1e-5), "bf16": dict(rtol=2e-2, atol=2e-2)}
 
 
-@pytest.mark.parametrize("engine", ["packed", "lattice"])
+@pytest.mark.parametrize("engine", ENGINES)
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_field_matches(dtype, engine):
     density_fn, rgb_fn, params = _ref_params(dtype, engine=engine)
@@ -306,17 +323,18 @@ def test_sampler_draws_equal(mode):
             assert s.image_probs is None and s.error_map is None
 
 
-@pytest.mark.parametrize("engine", ["packed", "lattice"])
+@pytest.mark.parametrize("engine", ENGINES)
 @pytest.mark.parametrize("rgba", [False, True])
 def test_two_trainer_steps_match(rgba, engine):
     """Two Adam steps (with EMA) from the same params, occupancy, rays and
     noise; the reference runs its chunk of 2 steps on one device, jitted for
-    the packed engine and eagerly for the lattice engine (its CPU path there
-    is lattice_encode_xla).  Jitted, XLA:CPU rounds the sample positions
-    differently from the eager reference (which the port matches to ~1e-6
-    entry-wise); the 2^16 lattice's fine levels move single table-gradient
-    entries by up to ~1% then, and Adam, which divides each entry's step by
-    its own |g|, turns that into step differences the test would report."""
+    the packed engine and eagerly for the lattice and sorted engines (its CPU
+    paths there are lattice_encode_xla and hash_encode_xla).  Jitted, XLA:CPU
+    rounds the sample positions differently from the eager reference (which
+    the port matches to ~1e-6 entry-wise); the 2^16 tables' fine levels move
+    single table-gradient entries by up to ~1% then, and Adam, which divides
+    each entry's step by its own |g|, turns that into step differences the
+    test would report."""
     kw = ENGINE_KW[engine]
     init_fn, density_fn, rgb_fn = ref_m.make_ngp_field(ref_m.NGPConfig(**kw),
                                                        compute_dtype=jnp.float32)
@@ -336,7 +354,7 @@ def test_two_trainer_steps_match(rgba, engine):
     poses[:, :3, 3] *= 0.5
     o, d, rgb, _, _ = t_ngp.NGPSampler(images, poses, K, tcfg, seed=0).sample_chunk(2, 64)
     base_key = jax.random.PRNGKey(11)
-    with jax.disable_jit(engine == "lattice"):
+    with jax.disable_jit(engine != "packed"):
         t_ref.state, losses_ref, per_ray_ref = t_ref._chunk_fn(t_ref.state, t_ref.occ, o, d,
                                                                rgb, base_key)
     for k, key in enumerate(jax.random.split(base_key, 2)):
@@ -362,11 +380,11 @@ def test_two_trainer_steps_match(rgba, engine):
             assert np.linalg.norm(a - b) <= 1e-4 * np.linalg.norm(b)
             assert np.abs(a - b).max() <= 1e-3 * np.abs(b).max()
     start = convert.ngp_params_from_numpy(params)
-    for i in range(2 if engine == "lattice" else 1):   # the steps moved the table(s)
+    for i in range(1 if engine == "packed" else 2):   # the steps moved the table(s)
         assert np.abs(t.params[i].detach().numpy() - start[i].numpy()).max() > 1e-3
 
 
-@pytest.mark.parametrize("engine", ["packed", "lattice"])
+@pytest.mark.parametrize("engine", ENGINES)
 def test_fit_checkpoint_round_trip(tmp_path, engine):
     rcfg = r.NGPRenderConfig(n_candidates=16, n_keep=8, grid_size=8, bound=1.0)
     tcfg = t_ngp.NGPTrainConfig(max_steps=8, batch_rays=32, steps_per_chunk=4,
@@ -397,16 +415,16 @@ def test_fit_checkpoint_round_trip(tmp_path, engine):
     torch.testing.assert_close(t2.params[0], t.params[0], rtol=0, atol=0)  # swapped back
 
 
-@pytest.mark.parametrize("engine", ["packed", "lattice"])
+@pytest.mark.parametrize("engine", ENGINES)
 def test_converters_round_trip(engine):
     _, _, params = _ref_params(engine=engine)
-    lattice = engine == "lattice"
-    back = convert.ngp_params_to_numpy(convert.ngp_params_from_numpy(params), 2, lattice)
+    split = engine != "packed"
+    back = convert.ngp_params_to_numpy(convert.ngp_params_from_numpy(params), 2, engine)
     for k in ("table", "sigma_net", "color_net"):
         ours, theirs = back[k], params[k]
         if k == "table":
-            assert isinstance(ours, tuple) == lattice
-            ours, theirs = (ours, theirs) if lattice else ([ours], [theirs])
+            assert isinstance(ours, tuple) == split
+            ours, theirs = (ours, theirs) if split else ([ours], [theirs])
         assert len(ours) == len(theirs)
         for a, b in zip(ours, theirs):
             assert a.shape == b.shape
@@ -417,3 +435,28 @@ def test_converters_round_trip(engine):
     d, mean, bits = convert.occupancy_to_numpy(occ)
     np.testing.assert_array_equal(d, dens)
     assert mean == pytest.approx(0.01) and bits.shape == (16 ** 3 // 32,)
+
+
+def test_sorted_engine_gradients_arrive_entry_for_entry():
+    """The reference's sorted-engine gradients ([Ls, C, Trs, 128] and
+    [Lb, C, t_r_big, 128], both 4-D) land in the port's natural tables
+    entry for entry: entry e of level l, feature c at [l, e, c]."""
+    density_fn, _, params = _ref_params(engine="sorted")
+    x = jnp.asarray(np.random.default_rng(3).uniform(-1, 1, (256, 3)).astype(np.float32))
+    g_r = jax.grad(lambda p: jnp.sum(density_fn(p, x)[0]))(_jtree(params))
+    ts, tb = (np.asarray(t) for t in g_r["table"])
+    assert ts.ndim == tb.ndim == 4 and np.abs(tb).max() > 0 and np.abs(ts).max() > 0
+    ours = _grad_list(g_r)
+    for nat, packed in ((ours[0], ts), (ours[1], tb)):
+        L, C, t_r, lanes = packed.shape
+        assert nat.shape == (L, t_r * lanes, C)
+        rng = np.random.default_rng(4)
+        for l, e, c in zip(rng.integers(0, L, 500), rng.integers(0, t_r * lanes, 500),
+                           rng.integers(0, C, 500)):
+            assert nat[l, e, c] == packed[l, c, e // lanes, e % lanes]
+        nz = np.argwhere(packed != 0)[:200]
+        for l, c, r, ln in nz:
+            assert nat[l, r * lanes + ln, c] == packed[l, c, r, ln]
+    mlp = [np.asarray(w) for w in list(g_r["sigma_net"]) + list(g_r["color_net"])]
+    for a, b in zip(ours[2:], mlp):
+        np.testing.assert_array_equal(a, b)
