@@ -50,26 +50,29 @@ Phases (any failure raises, and the script exits non-zero):
      zero-fill timed apart; on the train loss's gradient, and on the dense
      one) and the plain version by CUDA events on phase 5's batch, beside
      the least time the card could take;
-  8. the lattice engine's kernels, K5 (sort), K6 (forward) and K7 (table
-     gradient), against their plain versions (ops/sort_kernel.py
-     bitonic_sort_plain, ops/hash_lattice.py lattice_encode_plain with
-     autograd) on the trainer cli/main_nerf builds for `synthetic -O
-     --log2_hashmap_size 19` (2 small levels on K3/K4, 14 big ones on a
-     [14, 2^19, 2] table) after 256 steps: the kept points of its next
-     batch with the train loss's gradient and a dense random one, a
-     65,536-point refresh chunk and 65,536 points in two z-slabs; K5 also
-     through variant=1;
+  8. the lattice engine's kernels, K5 (the radix sort), K6 (forward) and
+     K7 (table gradient), against their plain versions (ops/sort_kernel.py
+     bitonic_sort_plain, a stable torch.sort and a gather, which K5 must
+     equal exactly, keys and payloads; ops/hash_lattice.py
+     lattice_encode_plain with autograd) on the trainer cli/main_nerf builds
+     for `synthetic -O --log2_hashmap_size 19` (2 small levels on K3/K4, 14
+     big ones on a [14, 2^19, 2] table) after 256 steps: the kept points of
+     its next batch with the train loss's gradient and a dense random one, a
+     65,536-point refresh chunk and 65,536 points in two z-slabs; K5 on the
+     engine's key width through both variants and on 31 bits;
   9. the lattice main path: `main_nerf synthetic -O --log2_hashmap_size 19
      --iters 512` with the counters set to 0 just before and read just
      after: K3 == K5 == K6 == steps + refresh chunks + eval chunks, K4 == K7
      == steps, no cuvol launch; the loss falls; a finite test PSNR; peak
      memory; train rays/s over steps 257-512; a 64-step profile;
- 10. K5 (beside torch.sort on the same keys), K6 and K7's body in sorted
-     and in point order, and their plain versions, by CUDA events on phase
-     8's batch, beside the least time the card could take, and whether the
-     sorted walk pays for its sort;
+ 10. K5 (through bitonic_sort as the engine calls it, and on the unsorted
+     pairs alone, beside torch.sort on the same keys), K6 and K7's body in
+     sorted and in point order, and their plain versions, by CUDA events on
+     phase 8's batch, beside the least time the card could take, and whether
+     the sorted walk pays for its sort;
  11. the sorted engine's kernels, K5 on the engine's own (corner entry,
-     slot) pairs, K8 (forward) and K9 (table gradient), against their plain
+     slot) pairs (exactly the stable sort, on the engine's key width and on
+     31 bits), K8 (forward) and K9 (table gradient), against their plain
      versions (bitonic_sort_plain, ops/hash_kernel.py hash_encode_plain on
      the big levels' packed spec with autograd) on the trainer cli/main_nerf
      builds for `synthetic -O --log2_hashmap_size 19 --hash_engine sorted`
@@ -85,10 +88,12 @@ Phases (any failure raises, and the script exits non-zero):
      a finite test PSNR, printed beside phase 6's (2^15, xor hash) and
      phase 9's (2^19, lattice hash); peak memory; train rays/s over steps
      257-512; a 64-step profile;
- 13. K5 on the engine's pairs (beside torch.sort on the same keys), K8 and
-     K9's body (sorted and point order; K9 with and without its warp's run
-     sums) and the plain versions, by CUDA events on phase 11's batch,
-     beside the least time the card could take.
+ 13. K5 on the engine's unsorted pairs (restored before every sort, the
+     restore timed apart; beside torch.sort on the same keys), K8 on the
+     train batch and a refresh chunk, in point order and adding into a given
+     output, with its cluster's residency, K9's body (sorted and point order; with and
+     without its warp's run sums) and the plain versions, by CUDA events on
+     phase 11's batch, beside the least time the card could take.
 
 The last lines are one JSON object describing the kernels, the card's name
 and power limit as nvidia-smi gives them, and
@@ -159,6 +164,34 @@ def smi_line():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def ptxas_kernels(log):
+    """Per kernel of an nvcc -Xptxas=-v log: its name, registers, static
+    shared memory and spills ("name: 40 registers, 4096 bytes smem, spill
+    0/0 bytes")."""
+    import re
+    out, name, spill = [], None, ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            mangled = m.group(1)
+            # the first length-prefixed identifier that names a kernel
+            name = next((mangled[j:j + int(mangled[i:j])] for i in range(len(mangled))
+                         for j in range(i + 1, len(mangled))
+                         if mangled[i:j].isdigit() and mangled[j].isalpha()
+                         and mangled[j:j + int(mangled[i:j])].endswith("kernel")), mangled)
+            name += "<true>" if "ILb1E" in mangled else "<false>" if "ILb0E" in mangled else ""
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spill = f"spill {m.group(1)}/{m.group(2)} bytes"
+            continue
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", ln)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} registers, {m.group(2) or 0} bytes smem, {spill}")
+            name, spill = None, ""
+    return out
 
 
 def cuda_ms(fn, iters):
@@ -343,13 +376,6 @@ def bound_of(nbytes, flops):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def pair_codes(keys, payload):
-    """Per row, the sorted int64 codes key << 32 | payload: equal codes mean
-    equal keys and an equal multiset of payloads per key."""
-    import torch
-    return torch.sort((keys.long() << 32) | (payload.long() & 0xFFFFFFFF), dim=-1)[0]
-
-
 def next_batch_encode(trainer, sampler, to_dev, encoder):
     """The encoding's input and the train loss's real upstream gradient on
     the trainer's next batch: ``encoder`` (the encode's name in
@@ -439,19 +465,19 @@ def lattice_phases(dev, to_dev):
           f"{tuple(table.shape)} = {table.numel() * 4 / 1e6:.1f} MB", flush=True)
 
     k5_err = 0
+    bits = sk.key_bits_for(spec.t_big)
     for name, xx in inputs.items():
         keys, iota = hl.lattice_sort_inputs(xx, spec)
-        want = sk.bitonic_sort_plain(keys, iota)
-        for variant in (2, 1):
-            got = sk.bitonic_sort(keys, iota, variant=variant)
+        want = sk.bitonic_sort_plain(keys, iota)          # torch.sort(stable=True), a gather
+        for variant, kb in ((2, bits), (1, bits), (2, sk.KEY_BITS)):
+            got = sk.bitonic_sort(keys, iota, variant=variant, key_bits=kb)
             torch.cuda.synchronize()
-            wrong = int((got[0] != want[0]).sum())
-            same_pairs = torch.equal(pair_codes(*got), pair_codes(*want))
-            print(f"[phase 8] K5 (variant {variant}) on the {name}'s keys "
-                  f"{tuple(keys.shape)}: {wrong} keys differ, payload multisets per key "
-                  f"{'equal' if same_pairs else 'DIFFER'}", flush=True)
-            check(wrong == 0 and same_pairs,
-                  f"K5 (variant {variant}) differs from the plain version ({name})")
+            wrong = [int((a != b).sum()) for a, b in zip(got, want)]
+            print(f"[phase 8] K5 (variant {variant}, {kb} key bits) on the {name}'s keys "
+                  f"{tuple(keys.shape)}: {wrong[0]} keys and {wrong[1]} payloads differ from "
+                  f"the stable sort", flush=True)
+            check(wrong == [0, 0], f"K5 (variant {variant}, {kb} bits) differs from the "
+                                   f"stable sort ({name})")
             k5_err = max(k5_err, int((got[0].long() - want[0].long()).abs().max()))
     del got, want
 
@@ -548,7 +574,7 @@ def lattice_phases(dev, to_dev):
           f"{dev_ms:.1f} ms of {prof_wall_ms:.1f} ms wall ({100 * dev_ms / prof_wall_ms:.1f}%); "
           f"top kernels by device time:")
     for e in dev_events[:14] + [e for e in dev_events[14:]
-                                if "hash_" in e.key or "lattice" in e.key or "bitonic" in e.key]:
+                                if "hash_" in e.key or "lattice" in e.key or "radix" in e.key]:
         print(f"[phase 9]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
               f"{e.key[:90]}")
     lat_tmp.cleanup()
@@ -556,9 +582,21 @@ def lattice_phases(dev, to_dev):
     # ---- phase 10: K5, K6 and K7 times on phase 8's batch ----
     n_pts, lb = x_batch.shape[0], spec.n_big
     keys, iota = hl.lattice_sort_inputs(x_batch, spec)
-    k5_ms = cuda_ms(lambda: sk.bitonic_sort(keys, iota), 20)
+    # through bitonic_sort as lattice_sort_order calls it: the pairs are
+    # stacked from the unsorted keys on every call, sorted, split
+    k5_ms = cuda_ms(lambda: sk.bitonic_sort(keys, iota, key_bits=bits), 20)
+    k5_31_ms = cuda_ms(lambda: sk.bitonic_sort(keys, iota), 20)
+    # the kernel alone: unsorted pairs restored before every sort, the
+    # restore timed on its own and taken off
+    pairs0 = torch.stack([keys, iota], -1).contiguous()
+    work = torch.empty_like(pairs0)
+    restore_ms = cuda_ms(lambda: work.copy_(pairs0), 20)
+    k5_pairs_ms = cuda_ms(lambda: sk.sort_pairs_(work.copy_(pairs0), bits), 20) - restore_ms
+    del pairs0, work
     k5_plain_ms = cuda_ms(lambda: sk.bitonic_sort_plain(keys, iota), 20)
-    k5_lib_ms = cuda_ms(lambda: torch.sort(keys, dim=-1), 20)
+    k5_lib_ms = cuda_ms(lambda: torch.sort(keys, dim=-1, stable=True), 20)
+    k5_lib_unstable_ms = cuda_ms(lambda: torch.sort(keys, dim=-1), 20)
+    k5_cfg = sk.sort_config(keys.shape[-1], bits)
     keys_ms = cuda_ms(lambda: hl.lattice_sort_inputs(x_batch, spec), 20)
     order = orders["train batch"]
     ident = torch.arange(n_pts, dtype=torch.int32, device=dev).expand(lb, n_pts).contiguous()
@@ -604,10 +642,12 @@ def lattice_phases(dev, to_dev):
           f"gradient); L2 sector volume {n_pts * lb * 8 * 32 / 1e6:.1f} MB (8 corners x a "
           f"32 B sector per point and level) for {n_pts * lb * 8 * 8 / 1e6:.1f} MB of "
           f"gathered entries", flush=True)
-    print(f"[phase 10] K5 on keys {tuple(keys.shape)}: {k5_ms:.4f} ms (plain "
-          f"{k5_plain_ms:.4f} ms; torch.sort {k5_lib_ms:.4f} ms; bound "
-          f"{bounds['K5'][0]:.4f} ms by {bounds['K5'][1]}); base keys and padding "
-          f"{keys_ms:.4f} ms", flush=True)
+    print(f"[phase 10] K5 on keys {tuple(keys.shape)} ({k5_cfg}): {k5_ms:.4f} ms through "
+          f"bitonic_sort (stack, sort, split; {k5_31_ms:.4f} ms on 31 bits), {k5_pairs_ms:.4f} "
+          f"ms on the pairs alone (restore {restore_ms:.4f} ms taken off); plain "
+          f"{k5_plain_ms:.4f} ms; torch.sort stable {k5_lib_ms:.4f} ms, unstable "
+          f"{k5_lib_unstable_ms:.4f} ms; bound {bounds['K5'][0]:.4f} ms by "
+          f"{bounds['K5'][1]}; base keys and padding {keys_ms:.4f} ms", flush=True)
     print(f"[phase 10] K6 sorted order {ms['K6 sorted']:.4f} ms, point order "
           f"{ms['K6 point']:.4f} ms (plain {k6_plain_ms:.3f} ms, bound {bounds['K6'][0]:.4f} ms "
           f"by {bounds['K6'][1]}); K7 body on the dense gradient sorted "
@@ -623,15 +663,16 @@ def lattice_phases(dev, to_dev):
           f"K7 {launches['K7'] / steps:.4f}", flush=True)
 
     src = "flnerf_tpu_torch/ops/csrc/hash_lattice.cu"
+    ssrc = "flnerf_tpu_torch/ops/csrc/radix_sort.cu"
     return res["psnr"], [
-        {"name": "bitonic_sort (K5)", "route": "cuda", "source": src,
+        {"name": "bitonic_sort (K5, a radix sort)", "route": "cuda", "source": ssrc,
          "replaces": "flnerf_tpu/ops/sort_pallas.py:118", "launches": launches["K5"],
          "max_abs_err": float(k5_err), "ms": k5_ms, "plain_ms": k5_plain_ms,
          "bound_ms": bounds["K5"][0], "bound_by": bounds["K5"][1], "library_ms": k5_lib_ms},
         # K5' is K5's kernel: the variant chose a TPU schedule only, so the
         # row repeats K5's launches and times
         {"name": "bitonic_sort variant=1 (K5', the same kernel as K5)", "route": "cuda",
-         "source": src, "replaces": "flnerf_tpu/ops/sort_pallas.py:61",
+         "source": ssrc, "replaces": "flnerf_tpu/ops/sort_pallas.py:61",
          "launches": launches["K5"], "max_abs_err": float(k5_err), "ms": k5_ms,
          "plain_ms": k5_plain_ms, "bound_ms": bounds["K5"][0], "bound_by": bounds["K5"][1],
          "library_ms": k5_lib_ms},
@@ -695,18 +736,20 @@ def sorted_phases(dev, to_dev, other_psnrs=None):
           f"{table.numel() * 4 / 1e6:.1f} MB; {hs.POINT_CAP} points a chunk", flush=True)
 
     pairs = {}
+    bits = sk.key_bits_for(spec.t_cap_big)
     for name, xx in inputs.items():
         unsorted = hs.sort_inputs(xx, spec)
         keys, pay = unsorted[..., 0].contiguous(), unsorted[..., 1].contiguous()
-        want = sk.bitonic_sort_plain(keys, pay)
-        got = sk.sort_pairs_(unsorted.clone())
-        torch.cuda.synchronize()
-        wrong = int((got[..., 0] != want[0]).sum())
-        same_pairs = torch.equal(pair_codes(got[..., 0], got[..., 1]), pair_codes(*want))
-        print(f"[phase 11] K5 on the {name}'s pairs {tuple(unsorted.shape)}: {wrong} keys "
-              f"differ, payload multisets per key {'equal' if same_pairs else 'DIFFER'}",
-              flush=True)
-        check(wrong == 0 and same_pairs, f"K5 differs from the plain version ({name})")
+        want = sk.bitonic_sort_plain(keys, pay)           # torch.sort(stable=True), a gather
+        for kb in (bits, sk.KEY_BITS):
+            got = sk.sort_pairs_(unsorted.clone(), kb)
+            torch.cuda.synchronize()
+            wrong = [int((got[..., i] != want[i]).sum()) for i in (0, 1)]
+            print(f"[phase 11] K5 ({kb} key bits) on the {name}'s pairs "
+                  f"{tuple(unsorted.shape)}: {wrong[0]} keys and {wrong[1]} payloads differ "
+                  f"from the stable sort", flush=True)
+            check(wrong == [0, 0], f"K5 ({kb} bits) differs from the stable sort ({name})")
+        check(torch.equal(hs.sorted_pairs(xx, spec), got), f"sorted_pairs differs ({name})")
         pairs[name] = (unsorted, got)
     del keys, pay, want
 
@@ -807,7 +850,7 @@ def sorted_phases(dev, to_dev, other_psnrs=None):
           f"{dev_ms:.1f} ms of {prof_wall_ms:.1f} ms wall ({100 * dev_ms / prof_wall_ms:.1f}%); "
           f"top kernels by device time:")
     for e in dev_events[:14] + [e for e in dev_events[14:]
-                                if "hash_" in e.key or "sorted" in e.key or "bitonic" in e.key]:
+                                if "hash_" in e.key or "sorted" in e.key or "radix" in e.key]:
         print(f"[phase 12]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
               f"{e.key[:90]}")
     del trainer, sampler
@@ -817,25 +860,36 @@ def sorted_phases(dev, to_dev, other_psnrs=None):
     n_pts = x_batch.shape[0]
     unsorted, spairs = pairs["train batch"]
     keys, pay = unsorted[..., 0].contiguous(), unsorted[..., 1].contiguous()
-    work = spairs.clone()
-    # the bitonic network is oblivious to the data: sorting sorted rows again
-    # is the same work
-    k5_ms = cuda_ms(lambda: sk.sort_pairs_(work), 10)
+    # K5 on unsorted pairs every time: restored from the unsorted copy before
+    # every sort, the restore timed on its own and taken off
+    work = torch.empty_like(unsorted)
+    restore_ms = cuda_ms(lambda: work.copy_(unsorted), 10)
+    k5_ms = cuda_ms(lambda: sk.sort_pairs_(work.copy_(unsorted), bits), 10) - restore_ms
+    k5_31_ms = cuda_ms(lambda: sk.sort_pairs_(work.copy_(unsorted)), 10) - restore_ms
     k5_plain_ms = cuda_ms(lambda: sk.bitonic_sort_plain(keys, pay), 5)
-    k5_lib_ms = cuda_ms(lambda: torch.sort(keys, dim=-1), 5)
+    k5_lib_ms = cuda_ms(lambda: torch.sort(keys, dim=-1, stable=True), 5)
+    k5_lib_unstable_ms = cuda_ms(lambda: torch.sort(keys, dim=-1), 5)
+    k5_cfg = sk.sort_config(unsorted.shape[1], bits)
     prep_ms = cuda_ms(lambda: hs.sort_inputs(x_batch, spec), 10)
     del work
     out_buf = torch.zeros((n_pts, 2 * lb), device=dev)
     grad_buf = torch.zeros((lb, spec.t_cap_big, 2), device=dev)
     ms = {}
+    # K8 as the main path calls it (out=None: no zero-fill), on the train
+    # batch (336 rows) and on phase 11's refresh chunk (56 rows)
+    x_ref, ref_pairs = inputs["refresh chunk"], pairs["refresh chunk"][1]
+    active = hs.forward_active_clusters(hs.POINT_CAP)
+    ms["K8 sorted"] = cuda_ms(lambda: hs.sorted_encode_forward(x_batch, table, spec, spairs), 20)
+    ms["K8 refresh"] = cuda_ms(lambda: hs.sorted_encode_forward(x_ref, table, spec, ref_pairs),
+                               20)
+    ms["K8 point"] = cuda_ms(lambda: hs.sorted_encode_forward(x_batch, table, spec, unsorted), 20)
+    ms["K8 sorted add"] = cuda_ms(lambda: hs.sorted_encode_forward(
+        x_batch, table, spec, spairs, out=out_buf), 20)
     for oname, pr in (("sorted", spairs), ("point", unsorted)):
-        ms[f"K8 {oname}"] = cuda_ms(lambda: hs.sorted_encode_forward(
-            x_batch, table, spec, pr, out=out_buf), 20)
         for agg, tag in ((True, "run sums"), (False, "per corner")):
             for gname, g_up in (("dense", g_dense), ("train", g_train)):
                 ms[f"K9 {oname} {gname} {tag}"] = cuda_ms(lambda: hs.sorted_encode_backward(
                     x_batch, g_up, spec, pr, grad_table=grad_buf, aggregate=agg), 20)
-    out_zero_ms = cuda_ms(lambda: torch.zeros((n_pts, 2 * lb), device=dev), 20)
     grad_zero_ms = cuda_ms(lambda: torch.zeros((lb, spec.t_cap_big, 2), device=dev), 20)
     del out_buf, grad_buf
     with torch.no_grad():
@@ -868,13 +922,21 @@ def sorted_phases(dev, to_dev, other_psnrs=None):
           f"{spairs.shape[0] // lb} chunks, pairs {tuple(spairs.shape)} = "
           f"{spairs.numel() * 4 / 1e6:.1f} MB; {touched} distinct big-table entries touched "
           f"({touched_live} by the {live_pts} points with a gradient)", flush=True)
-    print(f"[phase 13] K5 on the engine's pairs: {k5_ms:.4f} ms (plain {k5_plain_ms:.4f} ms; "
-          f"torch.sort of the keys {k5_lib_ms:.4f} ms; bound {bounds['K5'][0]:.4f} ms by "
-          f"{bounds['K5'][1]}); keys, payloads and padding (sort_inputs) {prep_ms:.4f} ms",
+    print(f"[phase 13] K5 on the engine's unsorted pairs ({k5_cfg}): {k5_ms:.4f} ms "
+          f"({k5_31_ms:.4f} ms on 31 bits; restore {restore_ms:.4f} ms taken off; plain "
+          f"{k5_plain_ms:.4f} ms; torch.sort of the keys stable {k5_lib_ms:.4f} ms, unstable "
+          f"{k5_lib_unstable_ms:.4f} ms; bound {bounds['K5'][0]:.4f} ms by {bounds['K5'][1]}); "
+          f"keys, payloads and padding (sort_inputs) {prep_ms:.4f} ms", flush=True)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"[phase 13] K8, clusters of {hs.CLUSTER} CTAs with "
+          f"{-(-hs.POINT_CAP // hs.CLUSTER) * 64} B of shared memory each, {active} clusters "
+          f"resident ({active * hs.CLUSTER / n_sm:.2f} CTAs a SM of {n_sm}): train batch "
+          f"({spairs.shape[0]} rows, {spairs.shape[0] * hs.CLUSTER} CTAs) sorted order "
+          f"{ms['K8 sorted']:.4f} ms, point order {ms['K8 point']:.4f} ms, adding into a given "
+          f"output {ms['K8 sorted add']:.4f} ms; refresh chunk ({ref_pairs.shape[0]} rows, "
+          f"{ref_pairs.shape[0] * hs.CLUSTER} CTAs) {ms['K8 refresh']:.4f} ms (plain "
+          f"{k8_plain_ms:.3f} ms, bound {bounds['K8'][0]:.4f} ms by {bounds['K8'][1]})",
           flush=True)
-    print(f"[phase 13] K8 body sorted order {ms['K8 sorted']:.4f} ms, point order "
-          f"{ms['K8 point']:.4f} ms (plain {k8_plain_ms:.3f} ms, bound {bounds['K8'][0]:.4f} ms "
-          f"by {bounds['K8'][1]}); output zero-fill {out_zero_ms:.4f} ms", flush=True)
     for gname, bname in (("dense", "K9"), ("train", "K9 train")):
         print(f"[phase 13] K9 body on the {gname} gradient: sorted order run sums "
               f"{ms[f'K9 sorted {gname} run sums']:.4f} ms, per corner "
@@ -924,9 +986,7 @@ def main():
     _build.build_all()
     build_s = time.time() - t0
     for name in _build.sources():
-        regs = [ln.strip() for ln in _build.build_log(name).splitlines()
-                if "registers" in ln or "spill" in ln]
-        print(f"[phase 1] {name}.cu ptxas: " + " | ".join(regs))
+        print(f"[phase 1] {name}.cu ptxas: " + "; ".join(ptxas_kernels(_build.build_log(name))))
     print(f"[phase 1] built {_build.sources()} in {build_s:.1f} s", flush=True)
 
     # ---- phase 2: K1 and K2 against the plain version, main-path shapes ----

@@ -1,11 +1,8 @@
-// The lattice-hash encoding of the big hash levels: forward (K6), table
-// gradient (K7), and the bitonic key/payload sort (K5) that orders their
-// walk over the points.
+// The lattice-hash encoding of the big hash levels: forward (K6) and table
+// gradient (K7), walked in the order the sort K5 (csrc/radix_sort.cu) gives
+// the points.
 //
 // Replaces the TPU kernels:
-//   K5  _sort_kernel_v2 (flnerf_tpu/ops/sort_pallas.py:118, via _sort_call_v2
-//       at :192) and _sort_kernel (:61, via _sort_call at :215): the same
-//       function under two TPU schedules, so one kernel serves both;
 //   K6  _fetch_kernel (flnerf_tpu/ops/hash_lattice.py:415, called at :668);
 //   K7  _scatter_kernel (hash_lattice.py:502, called at :769 and :796).
 // K6/K7 compute WHAT lattice_encode_xla computes (hash_lattice.py:827-875):
@@ -18,9 +15,8 @@
 // matmuls, the bf16 table and the 16/14-bit fixed-point fractions exist
 // there because TPU gathers are slow.  Here a gather is a load, so no corner
 // is ever dropped (the TPU engine spills corners outside its slab), and the
-// table and fractions are f32.  The plain versions are
-// flnerf_tpu_torch/ops/hash_lattice.py lattice_encode_plain and
-// flnerf_tpu_torch/ops/sort_kernel.py bitonic_sort_plain.
+// table and fractions are f32.  The plain version is
+// flnerf_tpu_torch/ops/hash_lattice.py lattice_encode_plain.
 //
 // Layout: the big table is [L, T, 2] f32 (T = t_r64 * 64), the natural view
 // of the reference's packed [L, t_r64, 128]; entry e of level l is one
@@ -51,18 +47,6 @@
 // meet in one warp for K7's atomics.  The stores at [p, l] are scattered in
 // exchange.  Whether the sort pays for itself is measured (chip_smoke.py
 // phase 10), not assumed.
-//
-// K5 design: a bitonic network on int2 (key, payload) pairs, ascending per
-// row, ties never swapped (strict compares).  Strides below the tile (4096
-// pairs, 32 KB of shared memory) run in shared memory: one kernel sorts
-// each tile (stages up to the tile), and for each larger stage one kernel
-// finishes the strides below the tile after the global passes.  Strides at
-// or above the tile run as global compare-exchange passes, one thread per
-// pair.  What bounds it: at [14, 2^19] the 58.7 MB of pairs exceed L2, and
-// the network makes 28 global passes and 8 tile passes over them (~4.2 GB
-// of traffic) where the byte bound reads and writes them once (117 MB).
-// It is expected to lose to a radix sort; not done yet: multi-stride
-// passes, a radix sort.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -71,8 +55,6 @@ namespace {
 
 constexpr int kMaxLevels = 32;
 constexpr int kThreads = 256;
-constexpr int kSortTile = 4096;      // pairs per shared-memory tile (32 KB)
-constexpr int kSortThreads = 1024;
 
 struct Lattice {
   float scale[kMaxLevels];
@@ -169,74 +151,6 @@ lattice_bwd_kernel(const float* __restrict__ x01, const float2* __restrict__ gra
   }
 }
 
-// ---- K5: bitonic sort of (key, payload) pairs, ascending per row ----
-
-// One compare-exchange: ascending keeps the smaller key at i; ties stay.
-__device__ __forceinline__ void exchange(int2& a, int2& b, bool asc) {
-  if (asc ? (a.x > b.x) : (a.x < b.x)) {
-    const int2 t = a;
-    a = b;
-    b = t;
-  }
-}
-
-// The pair of row-local index i (bit j clear) at stride j: (i, i | j), for
-// the q-th pair of a run of pairs.
-__device__ __forceinline__ int pair_low(int q, int j) {
-  return ((q & ~(j - 1)) << 1) | (q & (j - 1));
-}
-
-// One substage (stage k, stride j) over a tile in shared memory whose first
-// pair sits at row-local index base.
-__device__ __forceinline__ void tile_substage(int2* sh, int t, int base, int k, int j) {
-  for (int q = threadIdx.x; q < (t >> 1); q += blockDim.x) {
-    const int i = pair_low(q, j);
-    int2 a = sh[i], b = sh[i | j];
-    exchange(a, b, ((base + i) & k) == 0);
-    sh[i] = a;
-    sh[i | j] = b;
-  }
-  __syncthreads();
-}
-
-// Every stage up to the tile size t, on each tile of t pairs.
-__global__ void bitonic_tile_sort_kernel(int2* data, int n, int t) {
-  extern __shared__ int2 sh[];
-  int2* src = data + (int64_t)blockIdx.x * t;
-  const int base = (int)(((int64_t)blockIdx.x * t) % n);
-  for (int e = threadIdx.x; e < t; e += blockDim.x) sh[e] = src[e];
-  __syncthreads();
-  for (int k = 2; k <= t; k <<= 1)
-    for (int j = k >> 1; j > 0; j >>= 1) tile_substage(sh, t, base, k, j);
-  for (int e = threadIdx.x; e < t; e += blockDim.x) src[e] = sh[e];
-}
-
-// The strides below the tile size t of stage k (> t), on each tile.
-__global__ void bitonic_tile_merge_kernel(int2* data, int n, int t, int k) {
-  extern __shared__ int2 sh[];
-  int2* src = data + (int64_t)blockIdx.x * t;
-  const int base = (int)(((int64_t)blockIdx.x * t) % n);
-  for (int e = threadIdx.x; e < t; e += blockDim.x) sh[e] = src[e];
-  __syncthreads();
-  for (int j = t >> 1; j > 0; j >>= 1) tile_substage(sh, t, base, k, j);
-  for (int e = threadIdx.x; e < t; e += blockDim.x) src[e] = sh[e];
-}
-
-// One substage (stage k, stride j >= the tile size) in device memory, one
-// thread per pair.
-__global__ void bitonic_global_kernel(int2* data, int n, int k, int j, int64_t pairs) {
-  const int64_t q = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (q >= pairs) return;
-  const int half = n >> 1;
-  const int64_t row = q / half;
-  const int i = pair_low((int)(q - row * half), j);
-  int2* d = data + row * n;
-  int2 a = d[i], b = d[i | j];
-  exchange(a, b, (i & k) == 0);
-  d[i] = a;
-  d[i | j] = b;
-}
-
 int make_lattice(int L, long long t, const float* scales, const uint32_t* mult,
                  const uint32_t* offs, const uint32_t* strides, const uint32_t* masks,
                  const int* use_hash, Lattice& lv) {
@@ -295,34 +209,6 @@ int lattice_encode_backward(const float* x01, const float* grad_out, const int* 
       x01, reinterpret_cast<const float2*>(grad_out), order, (int64_t)n, (int64_t)ostride, lv,
       reinterpret_cast<float2*>(grad_table));
   return (int)cudaGetLastError();
-}
-
-// K5.  pairs [g, n, 2] int32 (key, payload), device memory, sorted in place
-// by key, ascending along each row; n a power of two >= 2.
-int bitonic_sort_pairs(int* pairs, int g, int n, void* stream) {
-  if (g < 1 || n < 2 || (n & (n - 1)) != 0) return (int)cudaErrorInvalidValue;
-  int2* data = reinterpret_cast<int2*>(pairs);
-  cudaStream_t st = (cudaStream_t)stream;
-  const int t = n < kSortTile ? n : kSortTile;
-  const int threads = (t >> 1) < kSortThreads ? (t >> 1) : kSortThreads;
-  const unsigned tiles = (unsigned)((int64_t)g * (n / t));
-  const size_t shm = (size_t)t * sizeof(int2);
-  const int64_t pairs_n = (int64_t)g * (n >> 1);
-  const unsigned pair_blocks = (unsigned)((pairs_n + kThreads - 1) / kThreads);
-  bitonic_tile_sort_kernel<<<tiles, threads, shm, st>>>(data, n, t);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  for (int k = t << 1; k <= n && k > 0; k <<= 1) {
-    for (int j = k >> 1; j >= t; j >>= 1) {
-      bitonic_global_kernel<<<pair_blocks, kThreads, 0, st>>>(data, n, k, j, pairs_n);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
-    }
-    bitonic_tile_merge_kernel<<<tiles, threads, shm, st>>>(data, n, t, k);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
 }
 
 }  // extern "C"

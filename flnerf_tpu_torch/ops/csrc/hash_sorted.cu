@@ -27,39 +27,59 @@
 // pads carry a key outside [0, t).  The keys come from torch
 // (ops/hash_sorted.py corner_keys); the kernels recompute only the weights.
 //
-// Design: one thread per (row, slot), so a warp walks 32 consecutive sorted
-// corners of one level (m is a multiple of 32).  Each thread decodes its
-// pair, recomputes its corner's weight from x01 (__fmul_rn/__fadd_rn, so no
-// FMA contraction moves a point into another cell than the plain version's
-// separate torch multiply and add), then
-//   K8 gathers the float2 entry and atomically adds w*f into the zero-filled
-//      output at [p, l] (each output receives its point's 8 corners);
-//   K9 reads the upstream gradient at [p, l] and adds w*g into the gradient
-//      at [l, key].  Equal keys are adjacent after the sort, so with
-//      `aggregate` a warp first sums each run of equal keys (a segmented
-//      scan by shuffles over the warp's runs, found with a ballot) and the
-//      run's last lane issues one float2 atomic; without it every corner
-//      issues its own.  The runs are found from adjacency, so any order of
-//      the pairs gives the right sum; the sort makes the runs long.
+// K8 design: one (chunk, level) row per thread-block cluster of 8 CTAs.
+// A pair's payload names its own (point, corner) slot, and each slot
+// receives exactly one term, so no sum needs an atomic: CTA r of the
+// cluster owns points [r*per_c, (r+1)*per_c) of the chunk (per_c = per / 8)
+// with their 8 corner slots, a [8, per_c] float2 array in its shared memory
+// (128 KB at per = 16,384; the row's 1 MB of slots is what sets the cluster
+// at 8, the most a portable cluster holds), and walks 1/8 of the row's
+// pairs.  Each thread decodes 4 pairs at once, recomputes each corner's
+// weight from x01 (__fmul_rn/__fadd_rn, so no FMA contraction moves a point
+// into another cell than the plain version's separate torch multiply and
+// add), gathers the float2 table entry, and stores w*f into the owning
+// CTA's slot through distributed shared memory (a plain store; remote for 7
+// pairs in 8).  After a cluster barrier each CTA sums its points' 8 slots in
+// corner order and writes [p, l] once: stored into an uninitialised output,
+// or added to a given one, since each (p, l) has one owner.  So there is no
+// zero-fill, no global atomic and no shared-memory atomic (an f32 add on
+// shared memory, local or remote, is far slower on this card than a store:
+// PERF.md).  The sum is deterministic.
+// K9 design: one thread per (row, slot), so a warp walks 32 consecutive
+// sorted corners of one level (m is a multiple of 32); it decodes its pair,
+// recomputes the weight as K8 does, reads the upstream gradient at [p, l]
+// and adds w*g into the gradient at [l, key].  Equal keys are adjacent
+// after the sort, so with `aggregate` a warp first sums each run of equal
+// keys (a segmented scan by shuffles over the warp's runs, found with a
+// ballot) and the run's last lane issues one float2 atomic; without it
+// every corner issues its own.  The runs are found from adjacency, so any
+// order of the pairs gives the right sum; the sort makes the runs long.
 // What bounds them on this card: the scattered 8-byte accesses.  At the
 // 2^19 train step (393,216 points x 14 levels x 8 corners = 44 M pairs,
-// 352 MB) K8 and K9 each stream the pairs once and make 44 M scattered
-// accesses to the 44 MB [n, L*2] array (atomics in K8, reads in K9) and 44 M
-// to the 58.7 MB table (reads in K8, atomics in K9, fewer with aggregation),
-// beside 44 M scattered 12-byte x01 reads that stay in L2.  The sort gives
-// the table side locality (a warp's keys are nearby entries) and takes it
-// from the point side (a warp's corners belong to points far apart).  Not
-// done yet: keeping a chunk's [per, L*2] outputs in shared memory, which the
-// chunking would allow (16,384 points x 14 levels x 8 B = 1.8 MB does not
-// fit; a level at a time, 128 KB, would).
+// 352 MB) K8 and K9 each stream the pairs once (0.105 ms alone) and make
+// 44 M scattered accesses to the 58.7 MB table (reads in K8, atomics in K9,
+// fewer with aggregation) and 44 M scattered 12-byte x01 reads that stay in
+// L2.  K9 also makes 44 M scattered reads of the 44 MB [n, L*2] gradient;
+// K8 keeps that side on chip: its 44 M terms go to shared memory, and the
+// output is written once, [p, l] by [p, l].  The sort gives the table side
+// locality (a warp's keys are nearby entries) and takes it from the point
+// side (a warp's corners belong to points far apart), which the cluster's
+// shared memory absorbs for K8.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kMaxLevels = 32;
 constexpr int kThreads = 256;
+constexpr int kUnroll = 4;          // K8: pairs a thread walks at once
+constexpr int kPointCap = 1 << 14;  // K8: points a chunk (ops/hash_sorted.py POINT_CAP)
+constexpr int kCluster = 8;         // K8: CTAs a row (ops/hash_sorted.py CLUSTER)
+constexpr int kFwdThreads = 1024;   // K8: threads a CTA (one CTA an SM at 128 KB)
 
 struct Walk {
   float scale[kMaxLevels];
@@ -71,18 +91,23 @@ struct Walk {
   int64_t total;  // rows * m
 };
 
-// Trilinear weight of corner c (offset along axis d = bit d of c) of point
-// p at a level of the given scale.
-__device__ __forceinline__ float corner_weight(const float* __restrict__ x01, int64_t p,
-                                               float scale, int c) {
+// Trilinear weight of corner c (offset along axis d = bit d of c) of the
+// point x at a level of the given scale.
+__device__ __forceinline__ float weight_of(const float x[3], float scale, int c) {
   float w[3];
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
-    const float pos = __fadd_rn(__fmul_rn(x01[p * 3 + d], scale), 0.5f);
+    const float pos = __fadd_rn(__fmul_rn(x[d], scale), 0.5f);
     const float frac = __fsub_rn(pos, floorf(pos));
     w[d] = ((c >> d) & 1) ? frac : __fsub_rn(1.f, frac);
   }
   return __fmul_rn(__fmul_rn(w[0], w[1]), w[2]);
+}
+
+__device__ __forceinline__ float corner_weight(const float* __restrict__ x01, int64_t p,
+                                               float scale, int c) {
+  const float x[3] = {x01[p * 3], x01[p * 3 + 1], x01[p * 3 + 2]};
+  return weight_of(x, scale, c);
 }
 
 // Slot i's level l and, for a real corner, its key, point p and corner c;
@@ -110,17 +135,97 @@ __device__ __forceinline__ void atomic_add2(float2* addr, float2 v) {
 #endif
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The terms w * f of kUnroll pairs and their points' indices within the
+// chunk (-1 for a pad or a slot past the points).  Every load is issued
+// whatever the pair (indices clamped into range), so the kUnroll chains of
+// pair -> x01 and table loads overlap instead of running one after another.
+__device__ __forceinline__ void fwd_terms(const float* __restrict__ x01,
+                                          const float2* __restrict__ tab, const int2* kp,
+                                          int64_t p0, float scale, const Walk& wk, int* pl,
+                                          float2* v) {
+  int64_t p[kUnroll];
+  int key[kUnroll];
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const int q = kp[u].y >> 3;
+    const bool ok = kp[u].x >= 0 && kp[u].x < wk.t && kp[u].y >= 0 && q < wk.per &&
+                    p0 + q < wk.n;
+    pl[u] = ok ? q : -1;
+    p[u] = ok ? p0 + q : 0;
+    key[u] = ok ? kp[u].x : 0;
+  }
+  float x[kUnroll][3];
+  float2 f[kUnroll];
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) x[u][d] = __ldg(x01 + p[u] * 3 + d);
+    f[u] = __ldg(tab + key[u]);
+  }
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const float w = weight_of(x[u], scale, kp[u].y & 7);
+    v[u] = make_float2(__fmul_rn(w, f[u].x), __fmul_rn(w, f[u].y));
+  }
+}
+
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kFwdThreads)
 sorted_fwd_kernel(const float* __restrict__ x01, const float2* __restrict__ table,
-                  const int2* __restrict__ pairs, Walk wk, float2* __restrict__ out) {
-  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= wk.total) return;
-  int l, key, c;
-  int64_t p;
-  if (!decode(pairs, i, wk, l, key, p, c)) return;
-  const float w = corner_weight(x01, p, wk.scale[l], c);
-  const float2 f = __ldg(table + (int64_t)l * wk.t + key);
-  atomic_add2(out + p * wk.L + l, make_float2(__fmul_rn(w, f.x), __fmul_rn(w, f.y)));
+                  const int2* __restrict__ pairs, Walk wk, int per_c, int accumulate,
+                  float2* __restrict__ out) {
+  // [8][per_c]: corner c of this CTA's point i at c * per_c + i (corner-major,
+  // so the sum below reads consecutive slots across a warp)
+  extern __shared__ float2 slot[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int r = (int)cluster.block_rank();
+  const int64_t row = blockIdx.x / kCluster;
+  const int l = (int)(row % wk.L);
+  const int64_t p0 = (row / wk.L) * wk.per;       // the chunk's first point
+  for (int i = threadIdx.x; i < 8 * per_c; i += kFwdThreads) slot[i] = make_float2(0.f, 0.f);
+  cluster.sync();   // every slot of the cluster is zero before any store
+
+  const float scale = wk.scale[l];
+  const float2* tab = table + (int64_t)l * wk.t;
+  const int2* rp = pairs + row * wk.m;
+  const int64_t span = (wk.m + kCluster - 1) / kCluster;
+  const int64_t lo = r * span, hi = lo + span < wk.m ? lo + span : wk.m;
+  for (int64_t j = lo + threadIdx.x; j < hi; j += (int64_t)kFwdThreads * kUnroll) {
+    int2 kp[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t ju = j + (int64_t)u * kFwdThreads;
+      kp[u] = ju < hi ? rp[ju] : make_int2(-1, -1);
+    }
+    float2 v[kUnroll];
+    int pl[kUnroll];
+    fwd_terms(x01, tab, kp, p0, scale, wk, pl, v);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (pl[u] < 0) continue;
+      const int owner = pl[u] / per_c;
+      // the pair's own slot: a plain store, remote for 7 pairs in 8
+      cluster.map_shared_rank(slot, owner)[(kp[u].y & 7) * per_c + pl[u] - owner * per_c] = v[u];
+    }
+  }
+  cluster.sync();   // every store has landed; no CTA touches another's memory after this
+
+  const int first = r * per_c;
+  for (int i = threadIdx.x; i < per_c; i += kFwdThreads) {
+    const int64_t p = p0 + first + i;
+    if (first + i >= wk.per || p >= wk.n) break;
+    float2 a = slot[i];
+#pragma unroll
+    for (int c = 1; c < 8; ++c) {   // corner order
+      const float2 b = slot[c * per_c + i];
+      a = make_float2(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y));
+    }
+    float2* o = out + p * wk.L + l;
+    if (accumulate) {
+      const float2 b = *o;
+      a = make_float2(__fadd_rn(b.x, a.x), __fadd_rn(b.y, a.y));
+    }
+    *o = a;
+  }
 }
 
 template <bool kAggregate>
@@ -186,24 +291,60 @@ dim3 grid_of(const Walk& wk) {
   return dim3((unsigned)((wk.total + kThreads - 1) / kThreads));
 }
 
+size_t fwd_smem(int per_c) { return (size_t)8 * per_c * sizeof(float2); }
+
+cudaLaunchConfig_t fwd_config(long long rows, int per_c, cudaStream_t st) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(rows * kCluster));   // the cluster shape is the kernel's own
+  cfg.blockDim = dim3(kFwdThreads);
+  cfg.dynamicSmemBytes = fwd_smem(per_c);
+  cfg.stream = st;
+  return cfg;
+}
+
+cudaError_t allow_fwd_smem(int per_c) {
+  return cudaFuncSetAttribute(sorted_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)fwd_smem(per_c));
+}
+
 }  // namespace
 
 extern "C" {
 
 // K8.  x01 [n, 3], table [L, t, 2], pairs [rows, m, 2] and out [n, L*2]
-// are device memory; scales [L] is a host array.  out must be zero-filled
-// (or hold features to add to) and is accumulated atomically.  Returns the
-// cudaError_t of the launch (0 on success).
+// are device memory; scales [L] is a host array.  One cluster of 8 CTAs per
+// row; per <= 16,384; each (point, corner) pair at most once.  With
+// accumulate == 0 every out[p, l] is stored (out may be uninitialised), else
+// added to.  Returns the cudaError_t of the launch (0 on success).
 int sorted_encode_forward(const float* x01, const float* table, const int* pairs, long long n,
                           long long per, long long rows, long long m, int L, long long t,
-                          const float* scales, float* out, void* stream) {
+                          const float* scales, int accumulate, float* out, void* stream) {
   Walk wk;
   const int err = make_walk(n, per, rows, m, L, t, scales, wk);
   if (err != 0) return err;
-  sorted_fwd_kernel<<<grid_of(wk), kThreads, 0, (cudaStream_t)stream>>>(
-      x01, reinterpret_cast<const float2*>(table), reinterpret_cast<const int2*>(pairs), wk,
-      reinterpret_cast<float2*>(out));
+  if (per > kPointCap || rows * kCluster > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int per_c = (int)((per + kCluster - 1) / kCluster);
+  cudaError_t e = allow_fwd_smem(per_c);
+  if (e != cudaSuccess) return (int)e;
+  const cudaLaunchConfig_t cfg = fwd_config(rows, per_c, (cudaStream_t)stream);
+  e = cudaLaunchKernelEx(&cfg, sorted_fwd_kernel, x01, reinterpret_cast<const float2*>(table),
+                         reinterpret_cast<const int2*>(pairs), wk, per_c, accumulate,
+                         reinterpret_cast<float2*>(out));
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// How many K8 clusters the card holds at once for chunks of `per` points
+// (cudaOccupancyMaxActiveClusters); a negative cudaError_t on failure.
+int sorted_forward_active_clusters(long long per) {
+  if (per < 1 || per > kPointCap) return -(int)cudaErrorInvalidValue;
+  const int per_c = (int)((per + kCluster - 1) / kCluster);
+  cudaError_t e = allow_fwd_smem(per_c);
+  if (e != cudaSuccess) return -(int)e;
+  const cudaLaunchConfig_t cfg = fwd_config(64, per_c, 0);
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, sorted_fwd_kernel, &cfg);
+  return e != cudaSuccess ? -(int)e : clusters;
 }
 
 // K9.  grad_out [n, L*2] is the upstream gradient; grad_table [L, t, 2]

@@ -22,9 +22,9 @@ On CUDA tensors ``lattice_encode`` is ``LatticeEncode``, a
 ``torch.autograd.Function``:
   * the forward computes each big level's base keys with torch integer ops
     (as the reference's XLA prep does, :317-350), sorts them with K5 (one
-    [Lb, N_pad] sort, the point index as payload, pads at key 2^31-1 sorting
-    last and dropped), and launches K6, which walks the points in key order
-    and gathers their corners;
+    [Lb, N_pad] radix sort on the keys' 20 bits at 2^19, the point index as
+    payload, pads at key 2^31-1 sorting last and dropped), and launches K6,
+    which walks the points in key order and gathers their corners;
   * the backward launches K7 on the forward's order, kept in ``ctx``, so
     the reference's unsort (:699) and gradient permutation (:736) have no
     counterpart.
@@ -53,7 +53,7 @@ import torch
 from flnerf_tpu_torch.ops import _build
 from flnerf_tpu_torch.ops.hash_kernel import MAX_LEVELS, hash_encode, init_packed_table
 from flnerf_tpu_torch.ops.hash_sorted import SplitHashSpec, make_split_spec
-from flnerf_tpu_torch.ops.sort_kernel import bitonic_sort
+from flnerf_tpu_torch.ops.sort_kernel import bitonic_sort, key_bits_for
 
 PACK = 64                # table entries per 128-lane row of the reference's layout
 PAD_KEY = (1 << 31) - 1  # sorts after every real key
@@ -315,8 +315,8 @@ def lattice_sort_inputs(x01: torch.Tensor, spec: LatticeSpec):
 def lattice_sort_order(x01: torch.Tensor, spec: LatticeSpec) -> torch.Tensor:
     """[Lb, N_pad] int32: per big level, the points in ascending base-key
     order in the first N slots (the pads sort last).  On CUDA tensors the
-    sort is K5."""
-    return bitonic_sort(*lattice_sort_inputs(x01, spec))[1]
+    sort is K5, on the width of the keys, which are all below ``t_big``."""
+    return bitonic_sort(*lattice_sort_inputs(x01, spec), key_bits=key_bits_for(spec.t_big))[1]
 
 
 def _lib() -> ctypes.CDLL:

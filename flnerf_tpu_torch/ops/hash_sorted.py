@@ -30,10 +30,13 @@ On CUDA tensors ``hash_encode_sorted`` is ``SortedEncode``, a
     (``sort_inputs``): per point chunk and big level, the 8 corners' table
     entries as keys (``corner_keys``, the reference's ``hi * 128 + lo``) and
     each corner's slot in its chunk (``p_local * 8 + corner``) as payload,
-    rows padded to a power of two with ``PAD_KEY``, which sorts last; K5
-    sorts every row in one launch (``sort_kernel.sort_pairs_``); K8 walks the
-    sorted pairs, recomputes each corner's weight from x01 and adds
-    ``w * feature`` into the zero-filled [N, Lb*2] output;
+    rows padded to a power of two with ``PAD_KEY``, which sorts last; K5, a
+    radix sort, sorts every row in one call on the keys' width (20 bits at
+    2^19: two passes; ``sort_kernel.sort_pairs_``); K8 walks the sorted
+    pairs, one (chunk, level) row per thread-block cluster, recomputes each
+    corner's weight from x01, stores ``w * feature`` into the corner's own
+    slot in the cluster's shared memory, sums each point's 8 slots and
+    writes the [N, Lb*2] output once;
   * the backward launches K9 on the forward's sorted pairs, kept in ``ctx``
     as the reference keeps ``sidx``/``spay``: no second sort.
 Point sets beyond ``POINT_CAP`` split into equal chunks, as the reference's
@@ -68,9 +71,12 @@ from flnerf_tpu_torch.ops.hash_kernel import (
     hash_encode_plain,
     init_packed_table,
 )
-from flnerf_tpu_torch.ops.sort_kernel import bitonic_sort_plain, sort_pairs_
+from flnerf_tpu_torch.ops.sort_kernel import bitonic_sort_plain, key_bits_for, sort_pairs_
 
 POINT_CAP = 1 << 14      # points per chunk (the reference's pid budget, :87)
+# K8's thread-block cluster: a (chunk, level) row's 16,384 points x 8 corner
+# slots (1 MB of float2) spread over its CTAs' shared memory, 128 KB each.
+CLUSTER = 8
 PAD_KEY = (1 << 31) - 1  # sorts after every real key
 _PRIME_Y, _PRIME_Z = 2654435761, 805459861   # gridencoder.cu:42
 _U32 = 0xFFFFFFFF
@@ -299,11 +305,12 @@ def sort_inputs(x01: torch.Tensor, spec: SplitHashSpec) -> torch.Tensor:
 
 
 def sorted_pairs(x01: torch.Tensor, spec: SplitHashSpec) -> torch.Tensor:
-    """``sort_inputs`` with every row sorted by key (K5, in place, on CUDA
+    """``sort_inputs`` with every row sorted by key, stably (K5 in place on
+    the keys' width, every real key being below ``t_cap_big``, on CUDA
     tensors; the plain sort on CPU tensors)."""
     pairs = sort_inputs(x01, spec)
     if pairs.device.type == "cuda":
-        return sort_pairs_(pairs)
+        return sort_pairs_(pairs, key_bits_for(spec.t_cap_big))
     sk, sp = bitonic_sort_plain(pairs[..., 0].contiguous(), pairs[..., 1].contiguous())
     return torch.stack([sk, sp], -1)
 
@@ -316,11 +323,22 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("hash_sorted")
     if lib.sorted_encode_forward.argtypes is None:
         head = [_P, _P, _P, _LL, _LL, _LL, _LL, ctypes.c_int, _LL, _P]
-        lib.sorted_encode_forward.argtypes = head + [_P, _P]
+        lib.sorted_encode_forward.argtypes = head + [ctypes.c_int, _P, _P]
         lib.sorted_encode_backward.argtypes = head + [ctypes.c_int, _P, _P]
-        for fn in (lib.sorted_encode_forward, lib.sorted_encode_backward):
+        lib.sorted_forward_active_clusters.argtypes = [_LL]
+        for fn in (lib.sorted_encode_forward, lib.sorted_encode_backward,
+                   lib.sorted_forward_active_clusters):
             fn.restype = ctypes.c_int
     return lib
+
+
+def forward_active_clusters(per: int = POINT_CAP) -> int:
+    """How many K8 clusters the card holds at once for chunks of ``per``
+    points (the CUDA occupancy calculator's answer)."""
+    got = _lib().sorted_forward_active_clusters(int(per))
+    if got < 0:
+        raise RuntimeError(f"K8 occupancy query failed: cudaError {-got}")
+    return got
 
 
 _SCALES: dict = {}
@@ -370,20 +388,25 @@ def sorted_encode_forward(x01: torch.Tensor, table_big: torch.Tensor, spec: Spli
                           pairs: torch.Tensor, out=None) -> torch.Tensor:
     """K8: the [N, Lb*2] f32 features of the points x01 [N, 3] from the
     (key, payload) pairs (``sorted_pairs``'s, or the same pairs in any
-    order).  The output is zero-filled here, or, when ``out`` is given,
+    order), one (chunk, level) row per cluster of ``CLUSTER`` CTAs.  The
+    output is written whole here (no zero-fill), or, when ``out`` is given,
     added into."""
     global SORTED_FWD_LAUNCHES
     n, args = _kernel_args(x01, pairs, spec)
     _build.check_tensor(table_big, "table_big", (spec.n_big, spec.t_cap_big, 2),
                         torch.float32, x01.device)
+    if args[1] > POINT_CAP:
+        raise ValueError(f"K8 keeps a chunk's outputs in shared memory: at most {POINT_CAP} "
+                         f"points a chunk, got {args[1]}")
     shape = (n, spec.n_big * 2)
+    accumulate = out is not None
     if out is None:
-        out = torch.zeros(shape, dtype=torch.float32, device=x01.device)
+        out = torch.empty(shape, dtype=torch.float32, device=x01.device)
     _build.check_tensor(out, "out", shape, torch.float32, x01.device)
     if n == 0:
         return out
     rc = _lib().sorted_encode_forward(x01.data_ptr(), table_big.data_ptr(), pairs.data_ptr(),
-                                      *args, out.data_ptr(),
+                                      *args, int(accumulate), out.data_ptr(),
                                       torch.cuda.current_stream(x01.device).cuda_stream)
     SORTED_FWD_LAUNCHES += 1
     if rc != 0:

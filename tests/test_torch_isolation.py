@@ -149,5 +149,6 @@ def test_failed_build_raises(monkeypatch, tmp_path):
         _build.build_all(["voxel_cuvol"])
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all()
-    assert _build.sources() == ["hash_encode", "hash_lattice", "hash_sorted", "voxel_cuvol"]
+    assert _build.sources() == ["hash_encode", "hash_lattice", "hash_sorted", "radix_sort",
+                               "voxel_cuvol"]
     assert np.all([not f.endswith(".so") for f in os.listdir(tmp_path)])

@@ -1,8 +1,10 @@
-"""The lattice-engine CUDA kernels K5 (sort), K6 (forward) and K7 (table
+"""The lattice-engine CUDA kernels K5 (the radix sort of
+flnerf_tpu_torch/ops/csrc/radix_sort.cu), K6 (forward) and K7 (table
 gradient) of flnerf_tpu_torch/ops/csrc/hash_lattice.cu against their plain
-versions (ops/sort_kernel.py bitonic_sort_plain, ops/hash_lattice.py
-lattice_encode_plain with autograd) on the card.  Skips without a CUDA
-device: the kernels have no CPU mode.
+versions (ops/sort_kernel.py bitonic_sort_plain, a stable torch.sort and a
+gather, which K5 equals exactly; ops/hash_lattice.py lattice_encode_plain
+with autograd) on the card.  Skips without a CUDA device: the kernels have
+no CPU mode.
 
 This file imports no JAX, so it also runs on a machine without it:
 
@@ -28,18 +30,6 @@ def cuda():
     return torch.device("cuda")
 
 
-def _sorted_rows(keys, values):
-    """Per row, the (key, *payloads) tuples in lexicographic order."""
-    cols = torch.stack([keys] + list(values), -1).reshape(-1, keys.shape[-1], 1 + len(values))
-    out = []
-    for r in cols.cpu():
-        order = torch.arange(r.shape[0])
-        for c in reversed(range(r.shape[1])):
-            order = order[torch.sort(r[order, c], stable=True)[1]]
-        out.append(r[order])
-    return torch.stack(out)
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,n_values,variant", [((128,), 1, 2), ((4096,), 0, 2),
                                                     ((3, 8192), 3, 1), ((14, 1 << 19), 1, 2),
@@ -56,9 +46,52 @@ def test_sort_matches_plain_version_on_card(cuda, shape, n_values, variant):
     torch.cuda.synchronize()
     assert sk.SORT_LAUNCHES == before + 1
     want = sk.bitonic_sort_plain(keys, *values)
-    assert torch.equal(got[0], want[0])
-    if n_values:
-        assert torch.equal(_sorted_rows(got[0], got[1:]), _sorted_rows(want[0], want[1:]))
+    # both sorts are stable: equal keys and payloads, position by position
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def _radix_keys(kind, shape, g, cuda):
+    """(keys, key_bits) for a card test of K5."""
+    if kind == "random31":
+        return torch.randint(0, 2 ** 31 - 1, shape, generator=g, device=cuda,
+                             dtype=torch.int32), sk.KEY_BITS
+    n = shape[-1]
+    if kind == "pads20":
+        keys = torch.randint(0, 1 << 19, shape, generator=g, device=cuda, dtype=torch.int32)
+        keys[..., ::5] = 3
+        keys[torch.rand(shape, generator=g, device=cuda) < 0.2] = 2 ** 31 - 1
+    elif kind == "equal":
+        keys = torch.full(shape, 777, dtype=torch.int32, device=cuda)
+    elif kind == "sorted":
+        keys = (torch.arange(n, device=cuda, dtype=torch.int32) // 3).expand(shape)
+    else:                                                # reversed
+        keys = ((n - torch.arange(n, device=cuda, dtype=torch.int32)) // 3).expand(shape)
+    return keys.contiguous(), sk.key_bits_for(1 << 19)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,shape", [
+    ("random31", (1, 128)), ("random31", (7, 1 << 12)), ("random31", (336, 1 << 17)),
+    ("pads20", (14, 1 << 19)), ("pads20", (3, 8192)), ("pads20", (336, 128)),
+    ("equal", (2, 1 << 15)), ("equal", (1, 1 << 19)), ("sorted", (1, 1 << 19)),
+    ("sorted", (5, 256)), ("reversed", (5, 4096)), ("reversed", (2, 1 << 18))])
+def test_radix_sort_equals_the_stable_sort_on_card(cuda, kind, shape):
+    """K5 on (key, position) pairs equals torch.sort(stable=True) and a
+    gather exactly: random 31-bit keys on the default width, 20-bit keys
+    with pads on the engines' width, all-equal, sorted and reversed rows,
+    rows of 128 to 2^19 in 1 to 336 rows."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    keys, bits = _radix_keys(kind, shape, g, cuda)
+    pay = torch.arange(keys.numel(), dtype=torch.int32, device=cuda).reshape(shape)
+    pairs = torch.stack([keys, pay], -1).contiguous()
+    before = sk.SORT_LAUNCHES
+    sk.sort_pairs_(pairs, bits)
+    torch.cuda.synchronize()
+    assert sk.SORT_LAUNCHES == before + 1
+    want_k, order = torch.sort(keys, dim=-1, stable=True)
+    assert torch.equal(pairs[..., 0], want_k)
+    assert torch.equal(pairs[..., 1], torch.gather(pay, -1, order))
 
 
 def _inputs(device, spec, n, seed=0, clustered=False):

@@ -1,13 +1,15 @@
-"""The sorted-engine CUDA kernels K8 (forward) and K9 (table gradient) of
-flnerf_tpu_torch/ops/csrc/hash_sorted.cu, with the sort K5 on the engine's
-own pairs, against their plain versions (ops/hash_kernel.py
+"""The sorted-engine CUDA kernels K8 (forward, one (chunk, level) row per
+thread-block cluster) and K9 (table gradient) of
+flnerf_tpu_torch/ops/csrc/hash_sorted.cu, with the radix sort K5 on the
+engine's own pairs, against their plain versions (ops/hash_kernel.py
 hash_encode_plain on the big levels' packed spec with autograd,
 ops/sort_kernel.py bitonic_sort_plain) on the card.  Skips without a CUDA
 device: the kernels have no CPU mode.
 
-Tolerances: the forward adds each point's 8 corners by atomics, in another
-order than the plain version's sum: 1e-6 of the largest output; atomics
-reorder the gradient sums: 1e-4 of the largest entry.
+Tolerances: the forward sums each point's 8 corners in corner order, where
+the plain version's torch sum may take another: 1e-6 of the largest
+output; atomics reorder the gradient sums: 1e-4 of the largest
+entry; K5 is exact (both sorts are stable).
 
 This file imports no JAX, so it also runs on a machine without it:
 
@@ -113,11 +115,60 @@ def test_sort_on_the_engine_pairs_matches_plain_version(cuda):
     pairs = hs.sort_inputs(x, spec)
     assert pairs.shape == (3 * spec.n_big, 1 << 17, 2)
     want = sk.bitonic_sort_plain(pairs[..., 0].contiguous(), pairs[..., 1].contiguous())
-    got = sk.sort_pairs_(pairs.clone())
+    for bits in (sk.key_bits_for(spec.t_cap_big), sk.KEY_BITS):   # the engine's width, 31
+        got = sk.sort_pairs_(pairs.clone(), bits)
+        torch.cuda.synchronize()
+        assert torch.equal(got[..., 0], want[0]) and torch.equal(got[..., 1], want[1])
+    assert torch.equal(hs.sorted_pairs(x, spec), torch.stack(want, -1))
+
+
+def _forward_case(cuda, case):
+    """(x, table, pairs, out given or None) for a K8 case."""
+    spec = hs.make_split_spec(**FULL)
+    n = {"full chunk": hs.POINT_CAP, "ragged": 40000, "refresh": 1 << 16,
+         "point order": 20000, "accumulate": 3000}[case]
+    x, table, _ = _inputs(cuda, spec, "uniform", n, seed=5)
+    pairs = hs.sort_inputs(x, spec) if case == "point order" else hs.sorted_pairs(x, spec)
+    out = None
+    if case == "accumulate":
+        out = torch.randn((n, 2 * spec.n_big), device=cuda)
+    return spec, x, table, pairs, out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["full chunk", "ragged", "refresh", "point order",
+                                  "accumulate"])
+def test_cluster_forward_matches_plain_version(cuda, case):
+    """K8 within 1e-6 of the largest plain output: one full 16,384-point
+    chunk; 40,000 points in 3 chunks, the last one short; a 65,536-point
+    refresh chunk (4 chunks x 14 levels = 56 rows); unsorted pairs; adding
+    into a given output.  Every output is written, so the uninitialised
+    buffer leaves no trace."""
+    spec, x, table, pairs, out = _forward_case(cuda, case)
+    if case == "refresh":
+        assert pairs.shape[0] == 56
+    base = None if out is None else out.clone()
+    before = hs.SORTED_FWD_LAUNCHES
+    got = hs.sorted_encode_forward(x, table, spec, pairs, out=out)
     torch.cuda.synchronize()
-    assert torch.equal(got[..., 0], want[0])
-    code = lambda k, v: torch.sort((k.long() << 32) | (v.long() & 0xFFFFFFFF), -1)[0]
-    assert torch.equal(code(got[..., 0], got[..., 1]), code(*want))
+    assert hs.SORTED_FWD_LAUNCHES == before + 1
+    want = hk.hash_encode_plain(x, table, hs._big_packed_spec(spec))
+    if base is not None:
+        assert got is out
+        got = got - base
+    _close(got, want, 1e-6)
+
+
+@pytest.mark.cuda
+def test_cluster_forward_raises_beyond_the_point_cap(cuda):
+    """One row set for 20,000 points: a chunk beyond POINT_CAP, whose
+    outputs would not fit the cluster's shared memory."""
+    spec = hs.make_split_spec(**FULL)
+    x, table, _ = _inputs(cuda, spec, "uniform", 20000)
+    pairs = torch.full((spec.n_big, 1 << 18, 2), hs.PAD_KEY, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="at most"):
+        hs.sorted_encode_forward(x, table, spec, pairs)
+    assert hs.forward_active_clusters(hs.POINT_CAP) > 0
 
 
 @pytest.mark.cuda
