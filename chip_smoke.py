@@ -50,50 +50,60 @@ Phases (any failure raises, and the script exits non-zero):
      zero-fill timed apart; on the train loss's gradient, and on the dense
      one) and the plain version by CUDA events on phase 5's batch, beside
      the least time the card could take;
-  8. the lattice engine's kernels, K5 (the radix sort), K6 (forward) and
-     K7 (table gradient), against their plain versions (ops/sort_kernel.py
-     bitonic_sort_plain, a stable torch.sort and a gather, which K5 must
-     equal exactly, keys and payloads; ops/hash_lattice.py
-     lattice_encode_plain with autograd) on the trainer cli/main_nerf builds
-     for `synthetic -O --log2_hashmap_size 19` (2 small levels on K3/K4, 14
-     big ones on a [14, 2^19, 2] table) after 256 steps: the kept points of
-     its next batch with the train loss's gradient and a dense random one, a
-     65,536-point refresh chunk and 65,536 points in two z-slabs; K5 on the
-     engine's key width through both variants and on 31 bits;
+  8. the lattice engine's kernels, K6 (forward) and K7 (table gradient),
+     against their plain versions (ops/hash_lattice.py
+     lattice_encode_plain_levels, and lattice_encode_plain with autograd)
+     on the trainer cli/main_nerf builds for `synthetic -O
+     --log2_hashmap_size 19` (2 small levels on K3/K4, 14 big ones on a
+     [14, 2^19, 2] table) after 256 steps: the kept points of its next batch
+     with the train loss's gradient, a dense random one and a zero one, a
+     65,536-point refresh chunk and 65,536 points in two z-slabs; K5 (the
+     radix sort, no longer on this path) on the reference's base keys of
+     each, through both variants and on 31 bits, and on [65,536, 128] keys,
+     beyond the grid's 65,535 rows, exactly equal to ops/sort_kernel.py
+     bitonic_sort_plain (a stable torch.sort and a gather);
   9. the lattice main path: `main_nerf synthetic -O --log2_hashmap_size 19
      --iters 512` with the counters set to 0 just before and read just
-     after: K3 == K5 == K6 == steps + refresh chunks + eval chunks, K4 == K7
-     == steps, no cuvol launch; the loss falls; a finite test PSNR; peak
-     memory; train rays/s over steps 257-512; a 64-step profile;
- 10. K5 (through bitonic_sort as the engine calls it, and on the unsorted
-     pairs alone, beside torch.sort on the same keys), K6 and K7's body in
-     sorted and in point order, and their plain versions, by CUDA events on
-     phase 8's batch, beside the least time the card could take, and whether
-     the sorted walk pays for its sort;
+     after: K3 == K6 == steps + refresh chunks + eval chunks, K4 == K7 ==
+     steps, no K5 and no cuvol launch; the loss falls; a finite test PSNR;
+     peak memory; train rays/s over steps 257-512; a 64-step profile and
+     its device time a step;
+ 10. K6 and K7's body (in the points' own order; K7 on autograd's view of
+     the gradient and on a level-major copy) and their plain versions, by
+     CUDA events on phase 8's batch, beside the replaced designs' times and
+     the least time the card could take; the split encode's assembly and
+     the gradient's level-major copy; K6's stripped variants
+     (tools/lattice_probe.py: no gather, no store, the [p, l] store and the
+     sorted walk of the kernel it replaced) and the base keys and K5 a
+     sorted walk would need, with the finding;
  11. the sorted engine's kernels, K5 on the engine's own (corner entry,
      slot) pairs (exactly the stable sort, on the engine's key width and on
-     31 bits), K8 (forward) and K9 (table gradient), against their plain
+     31 bits), K8 (forward) and K9 (table gradient, from the points, on both
+     grid shapes, with and without its warp merge), against their plain
      versions (bitonic_sort_plain, ops/hash_kernel.py hash_encode_plain on
      the big levels' packed spec with autograd) on the trainer cli/main_nerf
      builds for `synthetic -O --log2_hashmap_size 19 --hash_engine sorted`
      (2 small levels on K3/K4, 14 big ones on a [14, 2^19, 2] table, the
      xor hash) after 256 steps: the kept points of its next batch with the
-     train loss's gradient and a dense random one, a 65,536-point refresh
-     chunk, 65,536 points in two z-slabs and 65,536 points whose three
-     z-clusters share sorted blocks of a dense level;
+     train loss's gradient, a 65,536-point refresh chunk, 65,536 points in
+     two z-slabs and 65,536 points whose three z-clusters share sorted
+     blocks of a dense level, each with a dense random gradient and a zero
+     one (K9 exactly zero);
  12. the sorted main path: `main_nerf synthetic -O --log2_hashmap_size 19
      --hash_engine sorted --iters 512` with the counters set to 0 just
      before and read just after: K3 == K5 == K8 == steps + refresh chunks +
      eval chunks, K4 == K9 == steps, no K1/K2/K6/K7 launch; the loss falls;
      a finite test PSNR, printed beside phase 6's (2^15, xor hash) and
-     phase 9's (2^19, lattice hash); peak memory; train rays/s over steps
-     257-512; a 64-step profile;
+     phase 9's (2^19, lattice hash); peak memory beside the replaced
+     design's; train rays/s over steps 257-512; a 64-step profile and its
+     device time a step;
  13. K5 on the engine's unsorted pairs (restored before every sort, the
      restore timed apart; beside torch.sort on the same keys), K8 on the
      train batch and a refresh chunk, in point order and adding into a given
-     output, with its cluster's residency, K9's body (sorted and point order; with and
-     without its warp's run sums) and the plain versions, by CUDA events on
-     phase 11's batch, beside the least time the card could take.
+     output, with its cluster's residency, K9's body on both grid shapes,
+     with and without the warp merge, on the dense and the train gradient,
+     beside the replaced design's times, and the plain versions, by CUDA
+     events on phase 11's batch, beside the least time the card could take.
 
 The last lines are one JSON object describing the kernels, the card's name
 and power limit as nvidia-smi gives them, and
@@ -152,6 +162,13 @@ CLUSTER_POINTS = 1 << 10   # points in each small cluster of phase 11's three-cl
 # geometry (14) and w * g (2), its run sums not counted
 K8_FLOPS = 8 * 18
 K9_FLOPS = 8 * 16
+# The replaced designs' figures (the sorted K6/K7 walks, the pair-walking
+# K9; PERF.md section 6, on "NVIDIA H100 80GB HBM3, 700.00 W"), printed
+# beside this run's
+BEFORE = {"K6": "0.336 ms sorted, 0.390 point order", "K7 dense": "0.985 ms",
+       "K7 train": "0.224 ms", "lattice step": "6.85 ms", "K9 dense": "0.667 ms",
+       "K9 train": "0.387 ms", "sorted step": "10.67 ms",
+       "peak": {"lattice": "3.85 GB", "sorted": "5.19 GB"}}
 
 
 def check(cond, msg):
@@ -432,10 +449,22 @@ def two_slabs(gen, dev):
     return x
 
 
+def autograd_view(g_big, n_small):
+    """The view of the big levels' [N, Lb*2] gradient that the split
+    encode's backward hands K7: [Lb, N, 2], transposed, in rows of the whole
+    [N, (Ls + Lb)*2] upstream gradient."""
+    import torch
+    n, lb = g_big.shape[0], g_big.shape[1] // 2
+    full = torch.zeros((n, n_small + lb, 2), device=g_big.device)
+    full[:, n_small:] = g_big.view(n, lb, 2)
+    return full[:, n_small:].transpose(0, 1)
+
+
 def lattice_phases(dev, to_dev):
-    """Phases 8-10, the hash-NGP path at 2^19 (the lattice engine, K3-K7).
-    Returns the K5, K5', K6 and K7 rows of the kernels line and phase 9's
-    test PSNR."""
+    """Phases 8-10, the hash-NGP path at 2^19 (the lattice engine: K3, K4,
+    K6, K7; K5 is gated on its keys but no longer on the path).  Returns
+    phase 9's test PSNR, K5's largest key error and the K6 and K7 rows of
+    the kernels line."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -444,6 +473,7 @@ def lattice_phases(dev, to_dev):
     from flnerf_tpu_torch.ops import hash_lattice as hl
     from flnerf_tpu_torch.ops import sort_kernel as sk
     from flnerf_tpu_torch.ops import voxel_kernel as vk
+    from flnerf_tpu_torch.tools import lattice_probe
 
     # ---- phase 8: K5, K6 and K7 against their plain versions ----
     lat_tmp = tempfile.TemporaryDirectory()
@@ -479,15 +509,25 @@ def lattice_phases(dev, to_dev):
             check(wrong == [0, 0], f"K5 (variant {variant}, {kb} bits) differs from the "
                                    f"stable sort ({name})")
             k5_err = max(k5_err, int((got[0].long() - want[0].long()).abs().max()))
-    del got, want
+    # more rows than the grid's y axis holds (65,535): the wrapper launches
+    # blocks of rows
+    keys = torch.randint(0, 1 << 12, (1 << 16, 128), generator=gen, device=dev,
+                         dtype=torch.int32)
+    pay = torch.arange(keys.numel(), dtype=torch.int32, device=dev).view(keys.shape)
+    got, want = sk.bitonic_sort(keys, pay), sk.bitonic_sort_plain(keys, pay)
+    torch.cuda.synchronize()
+    wrong = [int((a != b).sum()) for a, b in zip(got, want)]
+    print(f"[phase 8] K5 on {tuple(keys.shape)} keys with payloads (row blocks "
+          f"{sk.row_blocks(keys.shape[0])}): {wrong[0]} keys and {wrong[1]} payloads differ "
+          f"from the stable sort", flush=True)
+    check(wrong == [0, 0], "K5 beyond 65,535 rows differs from the stable sort")
+    del got, want, keys, pay
 
     k6_err = k7_err = 0.0
-    orders = {}
     for name, xx in inputs.items():
-        orders[name] = order = hl.lattice_sort_order(xx, spec)
         with torch.no_grad():
-            out_k = hl.lattice_encode_forward(xx, table, spec, order)
-            out_p = hl.lattice_encode_plain(xx, table, spec)
+            out_k = hl.lattice_encode_forward(xx, table, spec)        # [Lb, N, 2]
+            out_p = hl.lattice_encode_plain_levels(xx, table, spec)
         torch.cuda.synchronize()
         err, scale = float((out_k - out_p).abs().max()), float(out_p.abs().max())
         print(f"[phase 8] K6 on the {name} {tuple(xx.shape)}: max_err {err:.3e} "
@@ -500,10 +540,13 @@ def lattice_phases(dev, to_dev):
     grads = [("train batch", "train gradient", g_train)] + [
         (name, "dense gradient", torch.randn((xx.shape[0], 2 * spec.n_big), generator=gen,
                                              device=dev))
-        for name, xx in inputs.items()]
+        for name, xx in inputs.items()] + [
+        ("train batch", "zero gradient", torch.zeros_like(g_train))]
     for name, what, g_up in grads:
         xx = inputs[name]
-        grad_k = hl.lattice_encode_backward(xx, g_up, spec, orders[name])
+        # K7 reads the gradient as autograd hands it back from the split
+        # encode's assembly: a transposed view, in place
+        grad_k = hl.lattice_encode_backward(xx, autograd_view(g_up, n_small), spec)
         tp = table.clone().requires_grad_(True)
         (grad_p,) = torch.autograd.grad(hl.lattice_encode_plain(xx, tp, spec), [tp], g_up)
         torch.cuda.synchronize()
@@ -511,9 +554,8 @@ def lattice_phases(dev, to_dev):
         live = float((g_up != 0).any(-1).float().mean())
         print(f"[phase 8] K7 on the {name}, {what} (nonzero at {live:.4f} of the points): "
               f"max_err {err:.3e} (largest entry {scale:.4e})", flush=True)
-        # on the plateau the train gradient may be zero at every point; then
-        # K7 must give exactly zero too
-        check((scale > 0 or what == "train gradient") and err <= 1e-4 * scale,
+        # a zero gradient (the train gradient on a plateau) must give exactly zero
+        check((scale > 0 or what != "dense gradient") and err <= 1e-4 * scale,
               f"K7 differs from the plain version by {err} > 1e-4 * {scale} ({name}, {what})")
         k7_err = max(k7_err, err)
     g_dense = grads[1][2]
@@ -542,12 +584,13 @@ def lattice_phases(dev, to_dev):
           f"steps {steps}, refresh chunks {n_refresh}, eval chunks {n_eval}; mean train loss "
           f"per chunk first {losses[0]:.5f} last {losses[-1]:.5f} (min {min(losses):.5f} max "
           f"{max(losses[1:]):.5f} after the first); test PSNR {res['psnr']:.3f} SSIM "
-          f"{res['ssim']:.4f}; main {wall:.1f} s; peak memory {peak_gb:.2f} GB; results.txt "
-          f"{results}", flush=True)
+          f"{res['ssim']:.4f}; main {wall:.1f} s; peak memory {peak_gb:.2f} GB (before: "
+          f"{BEFORE['peak']['lattice']}); results.txt {results}", flush=True)
     check(launches["K4"] == launches["K7"] == steps == NGP_ITERS,
           f"K4/K7 launches {launches} != steps {steps}")
-    check(launches["K3"] == launches["K5"] == launches["K6"] == want_fwd,
-          f"K3/K5/K6 launches {launches} != steps + refresh + eval chunks {want_fwd}")
+    check(launches["K3"] == launches["K6"] == want_fwd,
+          f"K3/K6 launches {launches} != steps + refresh + eval chunks {want_fwd}")
+    check(launches["K5"] == 0, f"the lattice path sorted: {launches}")
     check(vk.FWD_LAUNCHES == vk.BWD_LAUNCHES == 0, "the NGP path launched a cuvol kernel")
     check(all(math.isfinite(v) for v in losses), f"train loss not finite: {losses}")
     check(losses[-1] < losses[0], f"train loss did not fall: {losses}")
@@ -571,50 +614,47 @@ def lattice_phases(dev, to_dev):
                         key=lambda e: -e.self_device_time_total)
     dev_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
     print(f"[phase 9] profiled lattice fit of {NGP_PROFILE_STEPS} steps: device busy "
-          f"{dev_ms:.1f} ms of {prof_wall_ms:.1f} ms wall ({100 * dev_ms / prof_wall_ms:.1f}%); "
-          f"top kernels by device time:")
+          f"{dev_ms:.1f} ms of {prof_wall_ms:.1f} ms wall ({100 * dev_ms / prof_wall_ms:.1f}%), "
+          f"{dev_ms / NGP_PROFILE_STEPS:.3f} ms of device time a step (before: "
+          f"{BEFORE['lattice step']}); top kernels by device time:")
     for e in dev_events[:14] + [e for e in dev_events[14:]
                                 if "hash_" in e.key or "lattice" in e.key or "radix" in e.key]:
         print(f"[phase 9]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
               f"{e.key[:90]}")
     lat_tmp.cleanup()
 
-    # ---- phase 10: K5, K6 and K7 times on phase 8's batch ----
+    # ---- phase 10: K6 and K7 times on phase 8's batch, and what sets K6's ----
     n_pts, lb = x_batch.shape[0], spec.n_big
-    keys, iota = hl.lattice_sort_inputs(x_batch, spec)
-    # through bitonic_sort as lattice_sort_order calls it: the pairs are
-    # stacked from the unsorted keys on every call, sorted, split
-    k5_ms = cuda_ms(lambda: sk.bitonic_sort(keys, iota, key_bits=bits), 20)
-    k5_31_ms = cuda_ms(lambda: sk.bitonic_sort(keys, iota), 20)
-    # the kernel alone: unsorted pairs restored before every sort, the
-    # restore timed on its own and taken off
-    pairs0 = torch.stack([keys, iota], -1).contiguous()
-    work = torch.empty_like(pairs0)
-    restore_ms = cuda_ms(lambda: work.copy_(pairs0), 20)
-    k5_pairs_ms = cuda_ms(lambda: sk.sort_pairs_(work.copy_(pairs0), bits), 20) - restore_ms
-    del pairs0, work
-    k5_plain_ms = cuda_ms(lambda: sk.bitonic_sort_plain(keys, iota), 20)
-    k5_lib_ms = cuda_ms(lambda: torch.sort(keys, dim=-1, stable=True), 20)
-    k5_lib_unstable_ms = cuda_ms(lambda: torch.sort(keys, dim=-1), 20)
-    k5_cfg = sk.sort_config(keys.shape[-1], bits)
-    keys_ms = cuda_ms(lambda: hl.lattice_sort_inputs(x_batch, spec), 20)
-    order = orders["train batch"]
-    ident = torch.arange(n_pts, dtype=torch.int32, device=dev).expand(lb, n_pts).contiguous()
+    # K7 as the main path calls it, on autograd's transposed view, and on a
+    # level-major copy of it (the copy timed apart)
+    g_dense_v, g_train_v = autograd_view(g_dense, n_small), autograd_view(g_train, n_small)
+    g_train_c = g_train_v.contiguous()
     grad_buf = torch.zeros((lb, spec.t_big, 2), device=dev)
-    ms = {}
-    for oname, o in (("sorted", order), ("point", ident)):
-        ms[f"K6 {oname}"] = cuda_ms(lambda: hl.lattice_encode_forward(x_batch, table, spec, o), 20)
-        ms[f"K7 {oname} dense"] = cuda_ms(lambda: hl.lattice_encode_backward(
-            x_batch, g_dense, spec, o, grad_table=grad_buf), 20)
-        ms[f"K7 {oname} train"] = cuda_ms(lambda: hl.lattice_encode_backward(
-            x_batch, g_train, spec, o, grad_table=grad_buf), 20)
+    ms = {"K6": cuda_ms(lambda: hl.lattice_encode_forward(x_batch, table, spec), 20)}
+    for name, g_up in (("dense", g_dense_v), ("train", g_train_v),
+                       ("train level-major", g_train_c)):
+        ms[f"K7 {name}"] = cuda_ms(lambda: hl.lattice_encode_backward(
+            x_batch, g_up, spec, grad_table=grad_buf), 20)
     zero_ms = cuda_ms(lambda: torch.zeros((lb, spec.t_big, 2), device=dev), 20)
+    gcopy_ms = cuda_ms(lambda: g_train_v.contiguous(), 20)
+    # the split encode's assembly: the one copy that joins the small and
+    # big levels
+    small = torch.zeros((n_pts, 2 * n_small), device=dev)
+    big = torch.empty((lb, n_pts, 2), device=dev)
+    asm_ms = cuda_ms(lambda: hl.assemble_split(small, big), 20)
+    del small, big, g_train_c
     with torch.no_grad():
-        k6_plain_ms = cuda_ms(lambda: hl.lattice_encode_plain(x_batch, table, spec), 5)
+        k6_plain_ms = cuda_ms(lambda: hl.lattice_encode_plain_levels(x_batch, table, spec), 5)
     tp = table.clone().requires_grad_(True)
     out_g = hl.lattice_encode_plain(x_batch, tp, spec)
     k7_plain_ms = cuda_ms(lambda: torch.autograd.grad(out_g, [tp], g_dense, retain_graph=True), 5)
     del out_g, tp
+    # the sort the lattice path no longer runs: the base keys and K5 on them
+    keys, iota = hl.lattice_sort_inputs(x_batch, spec)
+    keys_ms = cuda_ms(lambda: hl.lattice_sort_inputs(x_batch, spec), 20)
+    k5_ms = cuda_ms(lambda: sk.bitonic_sort(keys, iota, key_bits=bits), 20)
+    del keys, iota
+    probe_ms = lattice_probe.probe(x_batch, table, spec)
     # what this batch's data needs: the distinct big-table entries its
     # corners touch (K6), and those of the points with a nonzero gradient
     cidx, _ = hl.corner_indices_weights(x_batch, spec)                 # [Lb, N, 8]
@@ -624,65 +664,46 @@ def lattice_phases(dev, to_dev):
     live_pts = int(live.sum())
     touched_live = int(cidx[:, live].unique().numel())
     del cidx
-    # the encode's own bytes: x01 and the [N, Lb*2] output (K6) or upstream
+    # the encode's own bytes: x01 and the [Lb, N, 2] output (K6) or upstream
     # gradient (K7) once, each touched entry read once (K6) or read and
-    # written once (K7's body adds into the gradient); the walk order is the
-    # sorted design's and is not counted
+    # written once (K7's body adds into the gradient)
     x_bytes, io_bytes = n_pts * 12, n_pts * lb * 8
     bounds = {
-        "K5": bound_of(2 * keys.numel() * 8, 0),
         "K6": bound_of(x_bytes + io_bytes + touched * 8, n_pts * lb * K6_FLOPS),
         "K7": bound_of(x_bytes + io_bytes + touched * 16, n_pts * lb * K7_FLOPS),
         "K7 train": bound_of(x_bytes + io_bytes + touched_live * 16, live_pts * lb * K7_FLOPS),
     }
-    sorted_total = keys_ms + k5_ms + ms["K6 sorted"] + ms["K7 sorted dense"]
-    point_total = ms["K6 point"] + ms["K7 point dense"]
     print(f"[phase 10] train batch: {n_pts} points x {lb} big levels, {touched} distinct "
           f"big-table entries touched ({touched_live} by the {live_pts} points with a "
-          f"gradient); L2 sector volume {n_pts * lb * 8 * 32 / 1e6:.1f} MB (8 corners x a "
-          f"32 B sector per point and level) for {n_pts * lb * 8 * 8 / 1e6:.1f} MB of "
-          f"gathered entries", flush=True)
-    print(f"[phase 10] K5 on keys {tuple(keys.shape)} ({k5_cfg}): {k5_ms:.4f} ms through "
-          f"bitonic_sort (stack, sort, split; {k5_31_ms:.4f} ms on 31 bits), {k5_pairs_ms:.4f} "
-          f"ms on the pairs alone (restore {restore_ms:.4f} ms taken off); plain "
-          f"{k5_plain_ms:.4f} ms; torch.sort stable {k5_lib_ms:.4f} ms, unstable "
-          f"{k5_lib_unstable_ms:.4f} ms; bound {bounds['K5'][0]:.4f} ms by "
-          f"{bounds['K5'][1]}; base keys and padding {keys_ms:.4f} ms", flush=True)
-    print(f"[phase 10] K6 sorted order {ms['K6 sorted']:.4f} ms, point order "
-          f"{ms['K6 point']:.4f} ms (plain {k6_plain_ms:.3f} ms, bound {bounds['K6'][0]:.4f} ms "
-          f"by {bounds['K6'][1]}); K7 body on the dense gradient sorted "
-          f"{ms['K7 sorted dense']:.4f} ms, point {ms['K7 point dense']:.4f} ms (plain "
-          f"backward {k7_plain_ms:.3f} ms, bound {bounds['K7'][0]:.4f} ms by "
-          f"{bounds['K7'][1]}); on the train gradient sorted {ms['K7 sorted train']:.4f} ms, "
-          f"point {ms['K7 point train']:.4f} ms (bound {bounds['K7 train'][0]:.4f} ms); "
-          f"zero-fill {zero_ms:.4f} ms", flush=True)
-    print(f"[phase 10] sorted walk incl. keys and sort (keys + K5 + K6 + K7 dense) "
-          f"{sorted_total:.4f} ms vs point order (K6 + K7 dense) {point_total:.4f} ms: "
-          f"{'sorted' if sorted_total < point_total else 'point'} order is faster; launches "
-          f"per train step K5 {launches['K5'] / steps:.4f}, K6 {launches['K6'] / steps:.4f}, "
+          f"gradient)", flush=True)
+    print(f"[phase 10] K6, point order, level-major output: {ms['K6']:.4f} ms (before: "
+          f"{BEFORE['K6']}; plain {k6_plain_ms:.3f} ms, bound {bounds['K6'][0]:.4f} ms by "
+          f"{bounds['K6'][1]}); K7 body on the dense gradient {ms['K7 dense']:.4f} ms (before: "
+          f"{BEFORE['K7 dense']}; plain backward {k7_plain_ms:.3f} ms, bound "
+          f"{bounds['K7'][0]:.4f} ms by {bounds['K7'][1]}), on the train gradient "
+          f"{ms['K7 train']:.4f} ms (before: {BEFORE['K7 train']}; bound "
+          f"{bounds['K7 train'][0]:.4f} ms), on a level-major copy of the train gradient "
+          f"{ms['K7 train level-major']:.4f} ms plus the copy's {gcopy_ms:.4f} ms; zero-fill "
+          f"{zero_ms:.4f} ms; split assembly {asm_ms:.4f} ms", flush=True)
+    print("[phase 10] K6 probe (flnerf_tpu_torch/tools/lattice_probe.py) on this batch: " +
+          "; ".join(f"{k} {v:.4f} ms" for k, v in probe_ms.items()), flush=True)
+    sorted_fwd = keys_ms + k5_ms + probe_ms["sorted order, [l, p] store"]
+    print(f"[phase 10] finding: {lattice_probe.finding(probe_ms)}; the sort it would need: "
+          f"base keys {keys_ms:.4f} ms + K5 {k5_ms:.4f} ms, so a sorted forward takes "
+          f"{sorted_fwd:.4f} ms against {ms['K6']:.4f} ms in point order: "
+          f"{'sorted' if sorted_fwd < ms['K6'] else 'point'} order is faster; launches per "
+          f"train step K5 {launches['K5'] / steps:.4f}, K6 {launches['K6'] / steps:.4f}, "
           f"K7 {launches['K7'] / steps:.4f}", flush=True)
 
     src = "flnerf_tpu_torch/ops/csrc/hash_lattice.cu"
-    ssrc = "flnerf_tpu_torch/ops/csrc/radix_sort.cu"
-    return res["psnr"], [
-        {"name": "bitonic_sort (K5, a radix sort)", "route": "cuda", "source": ssrc,
-         "replaces": "flnerf_tpu/ops/sort_pallas.py:118", "launches": launches["K5"],
-         "max_abs_err": float(k5_err), "ms": k5_ms, "plain_ms": k5_plain_ms,
-         "bound_ms": bounds["K5"][0], "bound_by": bounds["K5"][1], "library_ms": k5_lib_ms},
-        # K5' is K5's kernel: the variant chose a TPU schedule only, so the
-        # row repeats K5's launches and times
-        {"name": "bitonic_sort variant=1 (K5', the same kernel as K5)", "route": "cuda",
-         "source": ssrc, "replaces": "flnerf_tpu/ops/sort_pallas.py:61",
-         "launches": launches["K5"], "max_abs_err": float(k5_err), "ms": k5_ms,
-         "plain_ms": k5_plain_ms, "bound_ms": bounds["K5"][0], "bound_by": bounds["K5"][1],
-         "library_ms": k5_lib_ms},
+    return res["psnr"], k5_err, [
         {"name": "lattice_encode_forward (K6)", "route": "cuda", "source": src,
          "replaces": "flnerf_tpu/ops/hash_lattice.py:415", "launches": launches["K6"],
-         "max_abs_err": k6_err, "ms": ms["K6 sorted"], "plain_ms": k6_plain_ms,
+         "max_abs_err": k6_err, "ms": ms["K6"], "plain_ms": k6_plain_ms,
          "bound_ms": bounds["K6"][0], "bound_by": bounds["K6"][1], "library_ms": None},
         {"name": "lattice_encode_backward (K7)", "route": "cuda", "source": src,
          "replaces": "flnerf_tpu/ops/hash_lattice.py:502", "launches": launches["K7"],
-         "max_abs_err": k7_err, "ms": ms["K7 sorted dense"], "plain_ms": k7_plain_ms,
+         "max_abs_err": k7_err, "ms": ms["K7 dense"], "plain_ms": k7_plain_ms,
          "bound_ms": bounds["K7"][0], "bound_by": bounds["K7"][1], "library_ms": None},
     ]
 
@@ -702,10 +723,11 @@ def three_clusters(gen, dev):
     return x
 
 
-def sorted_phases(dev, to_dev, other_psnrs=None):
+def sorted_phases(dev, to_dev, other_psnrs=None, lattice_k5_err=0):
     """Phases 11-13, the hash-NGP path at 2^19 on the sorted engine (K3, K4,
     K5, K8, K9).  ``other_psnrs`` names the other NGP paths' test PSNRs, to
-    print beside this one's.  Returns the K8 and K9 rows of the kernels
+    print beside this one's; ``lattice_k5_err`` is K5's largest key error
+    on phase 8's keys.  Returns the K5, K5', K8 and K9 rows of the kernels
     line."""
     import torch
     from torch.autograd import DeviceType
@@ -726,7 +748,8 @@ def sorted_phases(dev, to_dev, other_psnrs=None):
     trainer.fit(sampler, verbose=False, n_steps=NGP_WINDOW)    # steps 1-256
     x_batch, g_seen = next_batch_encode(trainer, sampler, to_dev, "hash_encode_split")
     table = trainer.field.table_big.detach().clone()
-    g_train = g_seen[:, 2 * spec.n_small:].contiguous()
+    g_train_view = g_seen[:, 2 * spec.n_small:]       # what SortedEncode's backward receives
+    g_train = g_train_view.contiguous()
     gen = torch.Generator(device=dev).manual_seed(3)
     inputs = {"train batch": x_batch, "refresh chunk": refresh_chunk(trainer, gen),
               "two z-slabs": two_slabs(gen, dev), "three z-clusters": three_clusters(gen, dev)}
@@ -737,6 +760,7 @@ def sorted_phases(dev, to_dev, other_psnrs=None):
 
     pairs = {}
     bits = sk.key_bits_for(spec.t_cap_big)
+    k5_err = 0
     for name, xx in inputs.items():
         unsorted = hs.sort_inputs(xx, spec)
         keys, pay = unsorted[..., 0].contiguous(), unsorted[..., 1].contiguous()
@@ -749,6 +773,7 @@ def sorted_phases(dev, to_dev, other_psnrs=None):
                   f"{tuple(unsorted.shape)}: {wrong[0]} keys and {wrong[1]} payloads differ "
                   f"from the stable sort", flush=True)
             check(wrong == [0, 0], f"K5 ({kb} bits) differs from the stable sort ({name})")
+            k5_err = max(k5_err, int((got[..., 0].long() - want[0].long()).abs().max()))
         check(torch.equal(hs.sorted_pairs(xx, spec), got), f"sorted_pairs differs ({name})")
         pairs[name] = (unsorted, got)
     del keys, pay, want
@@ -769,22 +794,29 @@ def sorted_phases(dev, to_dev, other_psnrs=None):
     del out_k, out_p
     grads = [("train batch", "train gradient", g_train)] + [
         (name, "dense gradient", torch.randn((xx.shape[0], 2 * lb), generator=gen, device=dev))
+        for name, xx in inputs.items()] + [
+        (name, "zero gradient", torch.zeros((xx.shape[0], 2 * lb), device=dev))
         for name, xx in inputs.items()]
     for name, what, g_up in grads:
         xx = inputs[name]
-        grad_k = hs.sorted_encode_backward(xx, g_up, spec, pairs[name][1])
         tp = table.clone().requires_grad_(True)
         (grad_p,) = torch.autograd.grad(hk.hash_encode_plain(xx, tp, bspec), [tp], g_up)
-        torch.cuda.synchronize()
-        err, scale = float((grad_k - grad_p).abs().max()), float(grad_p.abs().max())
+        scale = float(grad_p.abs().max())
         live = float((g_up != 0).any(-1).float().mean())
-        print(f"[phase 11] K9 on the {name}, {what} (nonzero at {live:.4f} of the points): "
-              f"max_err {err:.3e} (largest entry {scale:.4e})", flush=True)
-        # the train gradient may be zero at every point (the 2^15 plateau);
-        # then K9 must give exactly zero too
-        check((scale > 0 or what == "train gradient") and err <= 1e-4 * scale,
-              f"K9 differs from the plain version by {err} > 1e-4 * {scale} ({name}, {what})")
-        k9_err = max(k9_err, err)
+        # K9 needs no pairs: both grid shapes, with and without the warp merge
+        for shape, lm in (("level fastest", False), ("level-major", True)):
+            for merge in (True, False):
+                grad_k = hs.sorted_encode_backward(xx, g_up, spec, level_major=lm, merge=merge)
+                torch.cuda.synchronize()
+                err = float((grad_k - grad_p).abs().max())
+                print(f"[phase 11] K9 ({shape}, merge {merge}) on the {name}, {what} (nonzero "
+                      f"at {live:.4f} of the points): max_err {err:.3e} (largest entry "
+                      f"{scale:.4e})", flush=True)
+                # a zero gradient (the train gradient on a plateau) must give exactly zero
+                check((scale > 0 or what != "dense gradient") and err <= 1e-4 * scale,
+                      f"K9 ({shape}, merge {merge}) differs from the plain version by {err} > "
+                      f"1e-4 * {scale} ({name}, {what})")
+                k9_err = max(k9_err, err)
     g_dense = grads[1][2]
     del grad_k, grad_p, tp, grads
 
@@ -813,8 +845,9 @@ def sorted_phases(dev, to_dev, other_psnrs=None):
           f"{n_refresh}, eval chunks {n_eval}; mean train loss per chunk first "
           f"{losses[0]:.5f} last {losses[-1]:.5f} (min {min(losses):.5f} max "
           f"{max(losses[1:]):.5f} after the first); test PSNR {res['psnr']:.3f} SSIM "
-          f"{res['ssim']:.4f}; main {wall:.1f} s; peak memory {peak_gb:.2f} GB; results.txt "
-          f"{results}", flush=True)
+          f"{res['ssim']:.4f}; main {wall:.1f} s; peak memory {peak_gb:.2f} GB (before, when the "
+          f"backward kept the sorted pairs: {BEFORE['peak']['sorted']}); results.txt {results}",
+          flush=True)
     psnrs = dict(other_psnrs or {})
     psnrs["2^19, xor hash (phase 12, the sorted engine)"] = res["psnr"]
     print("[phase 12] test PSNR after " + str(NGP_ITERS) + " steps: " + "; ".join(
@@ -847,8 +880,9 @@ def sorted_phases(dev, to_dev, other_psnrs=None):
                         key=lambda e: -e.self_device_time_total)
     dev_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
     print(f"[phase 12] profiled sorted-engine fit of {NGP_PROFILE_STEPS} steps: device busy "
-          f"{dev_ms:.1f} ms of {prof_wall_ms:.1f} ms wall ({100 * dev_ms / prof_wall_ms:.1f}%); "
-          f"top kernels by device time:")
+          f"{dev_ms:.1f} ms of {prof_wall_ms:.1f} ms wall ({100 * dev_ms / prof_wall_ms:.1f}%), "
+          f"{dev_ms / NGP_PROFILE_STEPS:.3f} ms of device time a step (before: "
+          f"{BEFORE['sorted step']}); top kernels by device time:")
     for e in dev_events[:14] + [e for e in dev_events[14:]
                                 if "hash_" in e.key or "sorted" in e.key or "radix" in e.key]:
         print(f"[phase 12]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
@@ -885,11 +919,18 @@ def sorted_phases(dev, to_dev, other_psnrs=None):
     ms["K8 point"] = cuda_ms(lambda: hs.sorted_encode_forward(x_batch, table, spec, unsorted), 20)
     ms["K8 sorted add"] = cuda_ms(lambda: hs.sorted_encode_forward(
         x_batch, table, spec, spairs, out=out_buf), 20)
-    for oname, pr in (("sorted", spairs), ("point", unsorted)):
-        for agg, tag in ((True, "run sums"), (False, "per corner")):
+    for shape, lm in (("level fastest", False), ("level-major", True)):
+        for merge in (True, False):
             for gname, g_up in (("dense", g_dense), ("train", g_train)):
-                ms[f"K9 {oname} {gname} {tag}"] = cuda_ms(lambda: hs.sorted_encode_backward(
-                    x_batch, g_up, spec, pr, grad_table=grad_buf, aggregate=agg), 20)
+                ms[f"K9 {shape} {gname} merge {merge}"] = cuda_ms(
+                    lambda: hs.sorted_encode_backward(x_batch, g_up, spec, grad_table=grad_buf,
+                                                      level_major=lm, merge=merge), 20)
+    main_k9 = "level-major" if hs.BWD_LEVEL_MAJOR else "level fastest"
+    # as the main path calls it: on the columns of the whole gradient, in
+    # place; and the copy that reading them in place saves
+    ms["K9 train in place"] = cuda_ms(lambda: hs.sorted_encode_backward(
+        x_batch, g_train_view, spec, grad_table=grad_buf), 20)
+    ms["gradient copy"] = cuda_ms(lambda: g_train_view.contiguous(), 20)
     grad_zero_ms = cuda_ms(lambda: torch.zeros((lb, spec.t_cap_big, 2), device=dev), 20)
     del out_buf, grad_buf
     with torch.no_grad():
@@ -909,7 +950,7 @@ def sorted_phases(dev, to_dev, other_psnrs=None):
     del ck
     # the encode's own bytes: x01 and the [N, Lb*2] output (K8) or upstream
     # gradient (K9) once, each touched entry read once (K8) or read and
-    # written once (K9's body adds into the gradient); the pairs are the
+    # written once (K9's body adds into the gradient); K8's pairs are the
     # sorted design's own and are not counted
     x_bytes, io_bytes = n_pts * 12, n_pts * lb * 8
     bounds = {
@@ -938,30 +979,43 @@ def sorted_phases(dev, to_dev, other_psnrs=None):
           f"{k8_plain_ms:.3f} ms, bound {bounds['K8'][0]:.4f} ms by {bounds['K8'][1]})",
           flush=True)
     for gname, bname in (("dense", "K9"), ("train", "K9 train")):
-        print(f"[phase 13] K9 body on the {gname} gradient: sorted order run sums "
-              f"{ms[f'K9 sorted {gname} run sums']:.4f} ms, per corner "
-              f"{ms[f'K9 sorted {gname} per corner']:.4f} ms; point order run sums "
-              f"{ms[f'K9 point {gname} run sums']:.4f} ms, per corner "
-              f"{ms[f'K9 point {gname} per corner']:.4f} ms (bound {bounds[bname][0]:.4f} ms "
-              f"by {bounds[bname][1]})", flush=True)
-    sorted_total = prep_ms + k5_ms + ms["K8 sorted"] + ms["K9 sorted dense run sums"]
-    point_total = prep_ms + ms["K8 point"] + ms["K9 point dense per corner"]
+        print(f"[phase 13] K9 body on the {gname} gradient (before, over the sorted pairs: "
+              f"{BEFORE[f'K9 {gname}']}): " + "; ".join(
+                  f"{shape} {ms[f'K9 {shape} {gname} merge True']:.4f} ms with the warp merge, "
+                  f"{ms[f'K9 {shape} {gname} merge False']:.4f} ms without"
+                  for shape in ("level fastest", "level-major")) +
+              f" (bound {bounds[bname][0]:.4f} ms by {bounds[bname][1]})", flush=True)
     print(f"[phase 13] K9 plain backward {k9_plain_ms:.3f} ms; gradient zero-fill "
-          f"{grad_zero_ms:.4f} ms; sorted walk (keys + K5 + K8 + K9 dense, run sums) "
-          f"{sorted_total:.4f} ms vs point order (keys + K8 + K9 dense, per corner) "
-          f"{point_total:.4f} ms; launches per train step K5 {launches['K5'] / steps:.4f}, "
-          f"K8 {launches['K8'] / steps:.4f}, K9 {launches['K9'] / steps:.4f}", flush=True)
+          f"{grad_zero_ms:.4f} ms; the main path's K9: {main_k9}, with the merge, "
+          f"{ms['K9 train in place']:.4f} ms on the train gradient's columns in place (a copy "
+          f"of them: {ms['gradient copy']:.4f} ms); launches per "
+          f"train step K5 {launches['K5'] / steps:.4f}, K8 {launches['K8'] / steps:.4f}, K9 "
+          f"{launches['K9'] / steps:.4f}", flush=True)
 
     src = "flnerf_tpu_torch/ops/csrc/hash_sorted.cu"
+    ssrc = "flnerf_tpu_torch/ops/csrc/radix_sort.cu"
+    # K5 runs on the sorted path alone: its rows take that path's launches
+    # and its time on that path's pairs
+    k5 = {"route": "cuda", "source": ssrc, "launches": launches["K5"],
+          "max_abs_err": float(max(k5_err, lattice_k5_err)), "ms": k5_ms,
+          "plain_ms": k5_plain_ms, "bound_ms": bounds["K5"][0], "bound_by": bounds["K5"][1],
+          "library_ms": k5_lib_ms}
     return [
+        dict(name="bitonic_sort (K5, a radix sort)",
+             replaces="flnerf_tpu/ops/sort_pallas.py:118", **k5),
+        # K5' is K5's kernel: the variant chose a TPU schedule only, so the
+        # row repeats K5's launches and times
+        dict(name="bitonic_sort variant=1 (K5', the same kernel as K5)",
+             replaces="flnerf_tpu/ops/sort_pallas.py:61", **k5),
         {"name": "sorted_encode_forward (K8)", "route": "cuda", "source": src,
          "replaces": "flnerf_tpu/ops/hash_sorted.py:261", "launches": launches["K8"],
          "max_abs_err": k8_err, "ms": ms["K8 sorted"], "plain_ms": k8_plain_ms,
          "bound_ms": bounds["K8"][0], "bound_by": bounds["K8"][1], "library_ms": None},
         {"name": "sorted_encode_backward (K9)", "route": "cuda", "source": src,
          "replaces": "flnerf_tpu/ops/hash_sorted.py:340", "launches": launches["K9"],
-         "max_abs_err": k9_err, "ms": ms["K9 sorted dense run sums"], "plain_ms": k9_plain_ms,
-         "bound_ms": bounds["K9"][0], "bound_by": bounds["K9"][1], "library_ms": None},
+         "max_abs_err": k9_err, "ms": ms[f"K9 {main_k9} dense merge True"],
+         "plain_ms": k9_plain_ms, "bound_ms": bounds["K9"][0], "bound_by": bounds["K9"][1],
+         "library_ms": None},
     ]
 
 
@@ -1344,10 +1398,11 @@ def main():
          "bound_ms": bounds["K4"][0], "bound_by": bounds["K4"][1], "library_ms": None},
     ]
     del trainer, sampler, x_batch, x_refresh, g_train, g_dense, table, grad_buf
-    lattice_psnr, rows = lattice_phases(dev, t)
-    kernels += rows
-    kernels += sorted_phases(dev, t, {"2^15, xor hash (phase 6)": ngp_psnr,
-                                      "2^19, lattice hash (phase 9)": lattice_psnr})
+    lattice_psnr, lattice_k5_err, lattice_rows = lattice_phases(dev, t)
+    sorted_rows = sorted_phases(dev, t, {"2^15, xor hash (phase 6)": ngp_psnr,
+                                         "2^19, lattice hash (phase 9)": lattice_psnr},
+                                lattice_k5_err)
+    kernels += sorted_rows[:2] + lattice_rows + sorted_rows[2:]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -16,7 +16,7 @@ Parity target ngp-ours/nerf/network.py:10-194:
 
 The encoding is ``encode_with_spec``: ``ops/hash_kernel.hash_encode`` (K3/K4
 on the card) for a packed spec, ``ops/hash_lattice.lattice_encode_split``
-(K3/K4 for the small levels, K5/K6/K7 for the big ones) for a lattice spec,
+(K3/K4 for the small levels, K6/K7 for the big ones) for a lattice spec,
 ``ops/hash_sorted.hash_encode_split`` (K3/K4 for the small levels, K5/K8/K9
 for the big ones) for a split spec.
 The MLP weights keep the reference's [in, out] layout, so

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, ``build/kernels/<name>-<hash>.so`` at the
 repository root, and loaded with ctypes (pointers as ``c_void_p``).  The
-hash covers the source and the flags, so an edited source is rebuilt.  The
+hash covers the source, the shared headers (``csrc/*.cuh``) and the flags,
+so an edited source or header is rebuilt.  The
 first use in a process builds what is missing; ``build_all`` starts one
 ``nvcc`` per source, all at once.  A failed build raises: there is no
 fallback to the plain versions.
@@ -33,6 +34,11 @@ def sources() -> list:
     return sorted(f[:-3] for f in os.listdir(CSRC) if f.endswith(".cu"))
 
 
+def headers() -> list:
+    """Names of the shared headers (``csrc/<name>.cuh``)."""
+    return sorted(f[:-4] for f in os.listdir(CSRC) if f.endswith(".cuh"))
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -47,8 +53,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in [f"{name}.cu"] + [f"{h}.cuh" for h in headers()]:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            digest.update(fh.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

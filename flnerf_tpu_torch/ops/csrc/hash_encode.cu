@@ -23,7 +23,8 @@
 // points x 16 levels: it reads the points' coordinates once (broadcast) and
 // writes (K3) or reads (K4) 256 contiguous bytes of [N, L*2].  Each thread
 // computes its level's 8 corner indices and weights in registers (the
-// reference's corner_indices_weights, fused), then:
+// reference's corner_indices_weights, fused; csrc/hash_corners.cuh, which
+// the sorted engine's K9 shares), then:
 //   K3 gathers the 8 corners as one float2 load each and sums them;
 //   K4 adds w*g into the zero-filled gradient with one float2 atomicAdd per
 //      corner (per-component atomic, Hopper, global memory), and skips a
@@ -45,49 +46,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hash_corners.cuh"   // Levels, level_corners, atomic_add2, make_levels
+
 namespace {
 
-constexpr int kMaxLevels = 32;
+using hashgrid::Levels;
+using hashgrid::atomic_add2;
+using hashgrid::level_corners;
+using hashgrid::make_levels;
+
 constexpr int kThreads = 256;
-
-struct Levels {
-  float scale[kMaxLevels];
-  uint32_t stride[kMaxLevels];   // resolution + 1 (align_corners=False)
-  uint32_t size[kMaxLevels];     // table entries of the level
-  int use_hash[kMaxLevels];
-  int L;
-  int t_cap;
-};
-
-// The 8 corners of point x at level l: table row (within the level) and
-// trilinear weight.  Corner c's offset along axis d is bit d of c.
-__device__ __forceinline__ void level_corners(const float x[3], const Levels& lv,
-                                              int l, uint32_t idx[8], float w[8]) {
-  const float scale = lv.scale[l];
-  float frac[3];
-  uint32_t pg[3];
-#pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    const float pos = __fadd_rn(__fmul_rn(x[d], scale), 0.5f);
-    const float fl = floorf(pos);
-    frac[d] = __fsub_rn(pos, fl);
-    pg[d] = (uint32_t)(int)fl;
-  }
-  const uint32_t stride = lv.stride[l];
-  const uint32_t size = lv.size[l];
-  const bool hashed = lv.use_hash[l] != 0;
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const uint32_t b0 = c & 1, b1 = (c >> 1) & 1, b2 = (c >> 2) & 1;
-    const uint32_t p0 = pg[0] + b0, p1 = pg[1] + b1, p2 = pg[2] + b2;
-    w[c] = __fmul_rn(__fmul_rn(b0 ? frac[0] : __fsub_rn(1.f, frac[0]),
-                               b1 ? frac[1] : __fsub_rn(1.f, frac[1])),
-                     b2 ? frac[2] : __fsub_rn(1.f, frac[2]));
-    const uint32_t i = hashed ? (p0 ^ (p1 * 2654435761u) ^ (p2 * 805459861u))
-                              : (p0 + stride * (p1 + stride * p2));
-    idx[c] = i % size;
-  }
-}
 
 __global__ void __launch_bounds__(kThreads)
 hash_fwd_kernel(const float* __restrict__ x01, const float2* __restrict__ table,
@@ -127,28 +95,8 @@ hash_bwd_kernel(const float* __restrict__ x01, const float2* __restrict__ grad_o
   float2* gt = grad_table + (int64_t)l * lv.t_cap;
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
-    const float2 v = make_float2(__fmul_rn(w[c], g.x), __fmul_rn(w[c], g.y));
-#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
-    atomicAdd(gt + idx[c], v);   // per-component atomic (sm_90, global)
-#else
-    atomicAdd(&gt[idx[c]].x, v.x);
-    atomicAdd(&gt[idx[c]].y, v.y);
-#endif
+    atomic_add2(gt + idx[c], make_float2(__fmul_rn(w[c], g.x), __fmul_rn(w[c], g.y)));
   }
-}
-
-int make_levels(int L, int t_cap, const float* scales, const uint32_t* strides,
-                const uint32_t* sizes, const int* use_hash, Levels& lv) {
-  if (L < 1 || L > kMaxLevels) return (int)cudaErrorInvalidValue;
-  lv.L = L;
-  lv.t_cap = t_cap;
-  for (int l = 0; l < L; ++l) {
-    lv.scale[l] = scales[l];
-    lv.stride[l] = strides[l];
-    lv.size[l] = sizes[l];
-    lv.use_hash[l] = use_hash[l];
-  }
-  return 0;
 }
 
 }  // namespace

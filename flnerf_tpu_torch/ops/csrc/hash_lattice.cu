@@ -1,6 +1,5 @@
 // The lattice-hash encoding of the big hash levels: forward (K6) and table
-// gradient (K7), walked in the order the sort K5 (csrc/radix_sort.cu) gives
-// the points.
+// gradient (K7), walked level by level in the points' own order.
 //
 // Replaces the TPU kernels:
 //   K6  _fetch_kernel (flnerf_tpu/ops/hash_lattice.py:415, called at :668);
@@ -11,42 +10,55 @@
 // linear key x*P1 + y*P2 + z*P3 (uint32 wrap-around; size is a power of two,
 // so mod size is a mask); a dense level at x + S*(y + S*z) + offs[l][c] with
 // no modulo.  K7 is the gradient of that sum with respect to the table.
-// None of the TPU machinery is carried over: the slabs, the one-hot MXU
-// matmuls, the bf16 table and the 16/14-bit fixed-point fractions exist
-// there because TPU gathers are slow.  Here a gather is a load, so no corner
-// is ever dropped (the TPU engine spills corners outside its slab), and the
-// table and fractions are f32.  The plain version is
-// flnerf_tpu_torch/ops/hash_lattice.py lattice_encode_plain.
+// None of the TPU machinery is carried over: the sort by base key, the
+// slabs, the one-hot MXU matmuls, the bf16 table and the 16/14-bit
+// fixed-point fractions exist there because TPU gathers are slow.  Here a
+// gather is a load, so no corner is ever dropped (the TPU engine spills
+// corners outside its slab), and the table and fractions are f32.  The
+// plain version is flnerf_tpu_torch/ops/hash_lattice.py
+// lattice_encode_plain_levels.
 //
 // Layout: the big table is [L, T, 2] f32 (T = t_r64 * 64), the natural view
 // of the reference's packed [L, t_r64, 128]; entry e of level l is one
-// 8-byte float2.  x01 is [N, 3] f32 in [0, 1]; the output and the upstream
-// gradient are [N, L*2] f32.  order is [L, ostride] int32: its row l holds,
-// in its first N slots, the points sorted by their level-l base key (K5's
-// output on the call's keys), or any other permutation of 0..N-1.
+// 8-byte float2.  x01 is [N, 3] f32 in [0, 1].  The output is level-major,
+// [L, N, 2] f32: level l's features of all points are one contiguous slice
+// (ops/hash_lattice.py assembles the [N, L*2] encoding from it in the copy
+// that joins the small levels).  The upstream gradient is [L, N, 2] read
+// through its strides (in float2): level-major, or autograd's transposed
+// view of the [N, L_all*2] gradient, which then needs no copy.
 //
-// K6/K7 design: one thread per (level, slot), slot fastest, so a warp walks
-// 32 consecutive points of one level in key order.  Each thread reads its
-// point's x01 (12 bytes, a scattered read of a 4.7 MB array that stays in
-// L2), computes the cell, the base key, the 8 corner indices and weights
-// in registers (__fmul_rn/__fadd_rn, so no FMA contraction moves a point
-// into another cell than the plain version's separate multiply and add),
-// then
-//   K6 gathers the 8 corners as one float2 load each, sums them in corner
-//      order, and stores the float2 at [p, l];
-//   K7 reads the upstream gradient at [p, l], returns if it is zero (adds
-//      exactly nothing), and adds w*g into the zero-filled gradient with one
-//      float2 atomicAdd per corner.
+// Both walk the points in their own order (ray order for a train batch,
+// grid order for a refresh chunk: neighbouring points are near in space).
+// A thread reads its point's x01 (12 bytes), computes the cell, the base
+// key, the 8 corner indices and weights in registers (__fmul_rn/__fadd_rn,
+// so no FMA contraction moves a point into another cell than the plain
+// version's separate multiply and add), then
+//   K6, one thread per (level, point), the level on the grid's y axis and
+//      the point on x (the blocks of level l are issued before those of
+//      level l + 1; a warp walks 32 consecutive points of one level), gathers
+//      the 8 corners as one float2 load each, sums them in corner order, and
+//      stores the float2 at [l, p]: the warp's 256 contiguous bytes, whole
+//      sectors;
+//   K7, one thread per (point, level), level fastest (as K3/K4 and K9), reads
+//      the upstream gradient at [l, p]: from autograd's transposed view a
+//      warp reads ~2 rows of the [N, L_all*2] gradient, coalesced, and a
+//      point whose gradient is zero (most of a train step's) leaves with all
+//      its levels at once; it returns if its gradient is zero (adds exactly
+//      nothing), and adds w*g into the zero-filled gradient with one float2
+//      atomicAdd per corner.  On the same view K6's level-major walk reads
+//      32 rows a warp: it took 0.244 ms on a train step's gradient against
+//      this walk's 0.189, and 1.00 against 1.26 ms on a dense one; the main
+//      path's gradient is the train step's (PERF.md).
 // What bounds them on this card: the gathers.  At the 2^19 train step
 // (393,216 points x 14 levels x 8 corners = 44 M accesses) the 58.7 MB big
-// table no longer fits in the 50 MB L2, so a gather to a hashed level can
-// cost a 32-byte sector from device memory for 8 useful bytes.  The sort is
-// the answer the design gives: consecutive threads hold nearby base keys,
-// so their corners fall in nearby table rows (a hashed level's corner c is
-// base + a fixed offset), the sectors they fetch are shared, and equal keys
-// meet in one warp for K7's atomics.  The stores at [p, l] are scattered in
-// exchange.  Whether the sort pays for itself is measured (chip_smoke.py
-// phase 10), not assumed.
+// table does not fit in the 50 MB L2; one level's slice (4.2 MB at 2^19)
+// does, and K6's level-major grid keeps about one level's slice hot at a
+// time (K7 touches only the live points' slices, all levels at once, as K4
+// and K9 do).  A fine hashed level's corners are 8 scattered 32-byte sectors for
+// 8 useful bytes each; neighbouring points share the coarse levels'
+// sectors.  The design takes the sort by base key off the path: it bought
+// shared sectors at the price of scattered x01 reads and [p, l] stores, and
+// cost more than it saved (PERF.md, chip_smoke.py phase 10).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -100,15 +112,13 @@ __device__ __forceinline__ void lattice_corners(const float x[3], const Lattice&
 }
 
 __global__ void __launch_bounds__(kThreads)
-lattice_fwd_kernel(const float* __restrict__ x01, const float2* __restrict__ table,
-                   const int* __restrict__ order, int64_t n, int64_t ostride, Lattice lv,
-                   float2* __restrict__ out) {
-  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n * lv.L) return;
-  const int l = (int)(i / n);
-  const int64_t p = order[(int64_t)l * ostride + (i - (int64_t)l * n)];
-  if (p < 0 || p >= n) return;
-  const float x[3] = {x01[p * 3], x01[p * 3 + 1], x01[p * 3 + 2]};
+lattice_fwd_kernel(const float* __restrict__ x01, const float2* __restrict__ table, int n,
+                   Lattice lv, float2* __restrict__ out) {
+  const int l = blockIdx.y;
+  const int p = blockIdx.x * kThreads + threadIdx.x;
+  if (p >= n) return;
+  const float* xp = x01 + (int64_t)p * 3;
+  const float x[3] = {__ldg(xp), __ldg(xp + 1), __ldg(xp + 2)};
   uint32_t idx[8];
   float w[8];
   lattice_corners(x, lv, l, idx, w);
@@ -120,21 +130,21 @@ lattice_fwd_kernel(const float* __restrict__ x01, const float2* __restrict__ tab
     acc.x = __fadd_rn(acc.x, __fmul_rn(w[c], f.x));
     acc.y = __fadd_rn(acc.y, __fmul_rn(w[c], f.y));
   }
-  out[p * lv.L + l] = acc;   // [N, L, 2] == [N, L*2]
+  out[(int64_t)l * n + p] = acc;   // [L, N, 2]
 }
 
 __global__ void __launch_bounds__(kThreads)
 lattice_bwd_kernel(const float* __restrict__ x01, const float2* __restrict__ grad_out,
-                   const int* __restrict__ order, int64_t n, int64_t ostride, Lattice lv,
+                   int64_t g_level, int64_t g_point, int n, Lattice lv,
                    float2* __restrict__ grad_table) {
   const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n * lv.L) return;
-  const int l = (int)(i / n);
-  const int64_t p = order[(int64_t)l * ostride + (i - (int64_t)l * n)];
-  if (p < 0 || p >= n) return;
-  const float2 g = grad_out[p * lv.L + l];
+  if (i >= (int64_t)n * lv.L) return;
+  const int p = (int)(i / lv.L);
+  const int l = (int)(i - (int64_t)p * lv.L);
+  const float2 g = grad_out[l * g_level + p * g_point];   // [L, N, 2] by its strides
   if (g.x == 0.f && g.y == 0.f) return;   // adds exactly nothing
-  const float x[3] = {x01[p * 3], x01[p * 3 + 1], x01[p * 3 + 2]};
+  const float* xp = x01 + (int64_t)p * 3;
+  const float x[3] = {__ldg(xp), __ldg(xp + 1), __ldg(xp + 2)};
   uint32_t idx[8];
   float w[8];
   lattice_corners(x, lv, l, idx, w);
@@ -168,46 +178,49 @@ int make_lattice(int L, long long t, const float* scales, const uint32_t* mult,
   return 0;
 }
 
+// K6: one block row per level (the grid's y axis), the points along x.
+dim3 grid_of(long long n, int L) {
+  return dim3((unsigned)((n + kThreads - 1) / kThreads), (unsigned)L);
+}
+
 }  // namespace
 
 extern "C" {
 
-// K6.  x01 [n, 3], table [L, t, 2], order [L, ostride] (first n slots of
-// each row a permutation of 0..n-1) and out [n, L*2] are device memory;
+// K6.  x01 [n, 3], table [L, t, 2] and out [L, n, 2] are device memory;
 // scales [L], mult [L*3], offs [L*8], strides [L], masks [L] and use_hash
 // [L] are host arrays.  Returns the cudaError_t of the launch.
-int lattice_encode_forward(const float* x01, const float* table, const int* order, long long n,
-                           long long ostride, int L, long long t, const float* scales,
-                           const uint32_t* mult, const uint32_t* offs, const uint32_t* strides,
-                           const uint32_t* masks, const int* use_hash, float* out,
-                           void* stream) {
+int lattice_encode_forward(const float* x01, const float* table, long long n, int L,
+                           long long t, const float* scales, const uint32_t* mult,
+                           const uint32_t* offs, const uint32_t* strides, const uint32_t* masks,
+                           const int* use_hash, float* out, void* stream) {
   Lattice lv;
   const int err = make_lattice(L, t, scales, mult, offs, strides, masks, use_hash, lv);
   if (err != 0) return err;
-  const int64_t threads = (int64_t)n * L;
-  const dim3 grid((unsigned)((threads + kThreads - 1) / kThreads));
-  lattice_fwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      x01, reinterpret_cast<const float2*>(table), order, (int64_t)n, (int64_t)ostride, lv,
-      reinterpret_cast<float2*>(out));
+  if (n < 1 || n >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  lattice_fwd_kernel<<<grid_of(n, L), kThreads, 0, (cudaStream_t)stream>>>(
+      x01, reinterpret_cast<const float2*>(table), (int)n, lv, reinterpret_cast<float2*>(out));
   return (int)cudaGetLastError();
 }
 
-// K7.  grad_out [n, L*2] is the upstream gradient; grad_table [L, t, 2]
+// K7.  grad_out [L, n, 2] is the upstream gradient, its (level, point)
+// element at grad_out + 2 * (l * g_level + p * g_point); grad_table [L, t, 2]
 // must be zero-filled (or hold a gradient to add to) and is accumulated
 // atomically.
-int lattice_encode_backward(const float* x01, const float* grad_out, const int* order,
-                            long long n, long long ostride, int L, long long t,
-                            const float* scales, const uint32_t* mult, const uint32_t* offs,
-                            const uint32_t* strides, const uint32_t* masks, const int* use_hash,
-                            float* grad_table, void* stream) {
+int lattice_encode_backward(const float* x01, const float* grad_out, long long g_level,
+                            long long g_point, long long n, int L,
+                            long long t, const float* scales, const uint32_t* mult,
+                            const uint32_t* offs, const uint32_t* strides,
+                            const uint32_t* masks, const int* use_hash, float* grad_table,
+                            void* stream) {
   Lattice lv;
   const int err = make_lattice(L, t, scales, mult, offs, strides, masks, use_hash, lv);
   if (err != 0) return err;
-  const int64_t threads = (int64_t)n * L;
-  const dim3 grid((unsigned)((threads + kThreads - 1) / kThreads));
+  if (n < 1 || n >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((n * L + kThreads - 1) / kThreads));   // [n, L], level fastest
   lattice_bwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      x01, reinterpret_cast<const float2*>(grad_out), order, (int64_t)n, (int64_t)ostride, lv,
-      reinterpret_cast<float2*>(grad_table));
+      x01, reinterpret_cast<const float2*>(grad_out), (int64_t)g_level, (int64_t)g_point,
+      (int)n, lv, reinterpret_cast<float2*>(grad_table));
   return (int)cudaGetLastError();
 }
 

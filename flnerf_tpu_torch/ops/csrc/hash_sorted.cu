@@ -1,5 +1,6 @@
-// The sorted hash engine's big-level encode: forward (K8) and table
-// gradient (K9) over locality-sorted (corner entry, corner slot) pairs.
+// The sorted hash engine's big-level encode: forward (K8) over
+// locality-sorted (corner entry, corner slot) pairs, and table gradient (K9)
+// recomputed from the points.
 //
 // Replaces the TPU kernels in flnerf_tpu/ops/hash_sorted.py:
 //   K8  _fused_fwd_kernel (hash_sorted.py:261, called at :489)
@@ -20,12 +21,12 @@
 //
 // Inputs: the big table [L, t, 2] f32 (entry e of level l is one 8-byte
 // float2); x01 [n, 3] f32 in [0, 1]; the output and the upstream gradient
-// [n, L*2] f32; pairs [rows, m, 2] int32 (one int2 each), rows = chunks * L:
-// row ch*L + l holds the corners of chunk ch's points (points
-// [ch*per, ch*per + per)) at level l, sorted by key (K5), as (key = the
-// corner's table entry within the level, payload = p_local*8 + corner);
+// [n, L*2] f32.  K8 also takes pairs [rows, m, 2] int32 (one int2 each),
+// rows = chunks * L: row ch*L + l holds the corners of chunk ch's points
+// (points [ch*per, ch*per + per)) at level l, sorted by key (K5), as (key =
+// the corner's table entry within the level, payload = p_local*8 + corner);
 // pads carry a key outside [0, t).  The keys come from torch
-// (ops/hash_sorted.py corner_keys); the kernels recompute only the weights.
+// (ops/hash_sorted.py corner_keys); K8 recomputes only the weights.
 //
 // K8 design: one (chunk, level) row per thread-block cluster of 8 CTAs.
 // A pair's payload names its own (point, corner) slot, and each slot
@@ -45,50 +46,66 @@
 // zero-fill, no global atomic and no shared-memory atomic (an f32 add on
 // shared memory, local or remote, is far slower on this card than a store:
 // PERF.md).  The sum is deterministic.
-// K9 design: one thread per (row, slot), so a warp walks 32 consecutive
-// sorted corners of one level (m is a multiple of 32); it decodes its pair,
-// recomputes the weight as K8 does, reads the upstream gradient at [p, l]
-// and adds w*g into the gradient at [l, key].  Equal keys are adjacent
-// after the sort, so with `aggregate` a warp first sums each run of equal
-// keys (a segmented scan by shuffles over the warp's runs, found with a
-// ballot) and the run's last lane issues one float2 atomic; without it
-// every corner issues its own.  The runs are found from adjacency, so any
-// order of the pairs gives the right sum; the sort makes the runs long.
+// K9 design: no pairs.  One thread per (point, level) reads the upstream
+// gradient at [p, l] once (in place, from the rows of the whole [N, L_all*2]
+// gradient: no copy of the big levels' columns) and, if it is zero (89% of the points of a 2^19
+// train step), adds exactly nothing and touches nothing else; a warp whose
+// 32 gradients are all zero leaves at once.  A live thread reads its
+// point's x01, recomputes its 8 corner entries and weights
+// (csrc/hash_corners.cuh level_corners, the function of K3/K4 and of
+// corner_keys) and adds w*g into the zero-filled gradient with one float2
+// atomic per corner.  With `merge`, the warp first merges equal corners:
+// per corner, __match_any_sync groups the lanes whose (level, entry) agree,
+// the group's sum is reduced onto its lowest lane by shuffles (log2 of the
+// group's size rounds), and that lane alone issues the atomic; ray-
+// neighbouring points share the cells of the dense and coarse levels.  The
+// grid's shape is the caller's: level fastest (a warp is ~2 points x 14
+// levels: the gradient is read coalesced, a dead point skips all its levels
+// at once) or level-major (a warp is 32 consecutive points of one level,
+// the point count padded to whole warps: one level's gradient slice stays in
+// L2 for the atomics, and the merge sees 32 ray neighbours).
 // What bounds them on this card: the scattered 8-byte accesses.  At the
-// 2^19 train step (393,216 points x 14 levels x 8 corners = 44 M pairs,
-// 352 MB) K8 and K9 each stream the pairs once (0.105 ms alone) and make
-// 44 M scattered accesses to the 58.7 MB table (reads in K8, atomics in K9,
-// fewer with aggregation) and 44 M scattered 12-byte x01 reads that stay in
-// L2.  K9 also makes 44 M scattered reads of the 44 MB [n, L*2] gradient;
-// K8 keeps that side on chip: its 44 M terms go to shared memory, and the
-// output is written once, [p, l] by [p, l].  The sort gives the table side
+// 2^19 train step (393,216 points x 14 levels x 8 corners = 44 M corners)
+// K8 streams the 352 MB of pairs once (0.105 ms alone) and makes 44 M
+// scattered accesses to the 58.7 MB table and 44 M scattered 12-byte x01
+// reads that stay in L2; its 44 M terms go to shared memory, and the output
+// is written once, [p, l] by [p, l].  The sort gives the table side
 // locality (a warp's keys are nearby entries) and takes it from the point
 // side (a warp's corners belong to points far apart), which the cluster's
-// shared memory absorbs for K8.
+// shared memory absorbs for K8.  K9 reads the 44 MB gradient once and makes
+// 8 atomics for each live (point, level) only, fewer where the merge finds
+// equal corners; streaming the pairs and reading the gradient at each of
+// the 44 M sorted corners, as its sorted-pair design did, cost more than
+// the sorted runs saved (PERF.md).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hash_corners.cuh"   // Levels, level_corners, atomic_add2, make_levels
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kMaxLevels = 32;
-constexpr int kThreads = 256;
+using hashgrid::kMaxLevels;
+using hashgrid::Levels;
+using hashgrid::atomic_add2;
+using hashgrid::level_corners;
+
+constexpr int kThreads = 256;       // K9: threads a block
 constexpr int kUnroll = 4;          // K8: pairs a thread walks at once
 constexpr int kPointCap = 1 << 14;  // K8: points a chunk (ops/hash_sorted.py POINT_CAP)
 constexpr int kCluster = 8;         // K8: CTAs a row (ops/hash_sorted.py CLUSTER)
 constexpr int kFwdThreads = 1024;   // K8: threads a CTA (one CTA an SM at 128 KB)
 
-struct Walk {
+struct Walk {      // K8's pairs
   float scale[kMaxLevels];
   int L;
   int t;          // entries per level in the table
   int64_t n;      // points
   int64_t per;    // points per chunk
   int64_t m;      // slots per row
-  int64_t total;  // rows * m
 };
 
 // Trilinear weight of corner c (offset along axis d = bit d of c) of the
@@ -102,37 +119,6 @@ __device__ __forceinline__ float weight_of(const float x[3], float scale, int c)
     w[d] = ((c >> d) & 1) ? frac : __fsub_rn(1.f, frac);
   }
   return __fmul_rn(__fmul_rn(w[0], w[1]), w[2]);
-}
-
-__device__ __forceinline__ float corner_weight(const float* __restrict__ x01, int64_t p,
-                                               float scale, int c) {
-  const float x[3] = {x01[p * 3], x01[p * 3 + 1], x01[p * 3 + 2]};
-  return weight_of(x, scale, c);
-}
-
-// Slot i's level l and, for a real corner, its key, point p and corner c;
-// returns false for a pad (key outside the table) or a slot past the points.
-__device__ __forceinline__ bool decode(const int2* __restrict__ pairs, int64_t i,
-                                       const Walk& wk, int& l, int& key, int64_t& p, int& c) {
-  const int64_t row = i / wk.m;
-  l = (int)(row % wk.L);
-  const int2 kp = pairs[i];
-  if (kp.x < 0 || kp.x >= wk.t || kp.y < 0) return false;
-  const int64_t pl = kp.y >> 3;
-  p = (row / wk.L) * wk.per + pl;
-  if (pl >= wk.per || p >= wk.n) return false;
-  key = kp.x;
-  c = kp.y & 7;
-  return true;
-}
-
-__device__ __forceinline__ void atomic_add2(float2* addr, float2 v) {
-#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
-  atomicAdd(addr, v);   // per-component atomic (sm_90, global)
-#else
-  atomicAdd(&addr->x, v.x);
-  atomicAdd(&addr->y, v.y);
-#endif
 }
 
 // The terms w * f of kUnroll pairs and their points' indices within the
@@ -228,47 +214,77 @@ sorted_fwd_kernel(const float* __restrict__ x01, const float2* __restrict__ tabl
   }
 }
 
-template <bool kAggregate>
+__device__ __forceinline__ unsigned lanemask_lt() {
+  unsigned m;
+  asm("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
+  return m;
+}
+
+// Sums v over the lanes of `peers` (this lane's group, from match.any) onto
+// the group's lowest lane, which is told so by `lead`.  Each round a lane
+// adds the value of the next remaining peer above it, then the peers of odd
+// rank drop out; log2 of the group's size rounds, none for a group of one.
+// Every lane of the warp takes part (the shuffles are full-warp).
+__device__ __forceinline__ float2 sum_peers(unsigned peers, float2 v, bool& lead) {
+  const unsigned full = 0xffffffffu;
+  unsigned rank = __popc(peers & lanemask_lt());
+  lead = rank == 0;
+  unsigned above = peers & ~(lanemask_lt() | (1u << (threadIdx.x & 31)));
+  while (__any_sync(full, above != 0)) {
+    const int next = __ffs(above);   // 1 + the next peer's lane, 0 if none
+    const int src = next ? next - 1 : (int)(threadIdx.x & 31);
+    const float ox = __shfl_sync(full, v.x, src);
+    const float oy = __shfl_sync(full, v.y, src);
+    if (next) {
+      v.x += ox;
+      v.y += oy;
+    }
+    above &= ~__ballot_sync(full, rank & 1);
+    rank >>= 1;
+  }
+  return v;
+}
+
+template <bool kLevelMajor>
 __global__ void __launch_bounds__(kThreads)
 sorted_bwd_kernel(const float* __restrict__ x01, const float2* __restrict__ grad_out,
-                  const int2* __restrict__ pairs, Walk wk, float2* __restrict__ grad_table) {
+                  int64_t g_row, int n, int n_pad, Levels lv, int merge,
+                  float2* __restrict__ grad_table) {
   const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  int l = 0, key = -1, c = 0;
-  int64_t p = 0;
-  float2 v = make_float2(0.f, 0.f);
-  if (i < wk.total && decode(pairs, i, wk, l, key, p, c)) {
-    const float2 g = grad_out[p * wk.L + l];
-    if (g.x != 0.f || g.y != 0.f) {   // a zero gradient adds exactly nothing
-      const float w = corner_weight(x01, p, wk.scale[l], c);
-      v = make_float2(__fmul_rn(w, g.x), __fmul_rn(w, g.y));
-    }
+  int p, l;
+  if (kLevelMajor) {            // [L, n_pad]: a warp is 32 points of one level
+    l = (int)(i / n_pad);
+    p = (int)(i - (int64_t)l * n_pad);
+  } else {                      // [n, L]: level fastest
+    p = (int)(i / lv.L);
+    l = (int)(i - (int64_t)p * lv.L);
   }
-  float2* gt = grad_table + (int64_t)l * wk.t;
-  if (!kAggregate) {
-    if (key >= 0 && (v.x != 0.f || v.y != 0.f)) atomic_add2(gt + key, v);
-    return;
-  }
-  // The warp lies in one row (m % 32 == 0), so one level.  Runs of equal
-  // adjacent keys: run id = number of run heads up to this lane.  Every
-  // lane takes part in the shuffles (no early return above).
+  const bool in = p < n && l < lv.L;
+  const float2 g = in ? grad_out[(int64_t)p * g_row + l] : make_float2(0.f, 0.f);
+  const bool live = g.x != 0.f || g.y != 0.f;   // a zero gradient adds exactly nothing
   const unsigned full = 0xffffffffu;
-  const int lane = threadIdx.x & 31;
-  const int prev = __shfl_up_sync(full, key, 1);
-  const unsigned heads = __ballot_sync(full, lane == 0 || prev != key);
-  const int run = __popc(heads & (full >> (31 - lane)));
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {   // segmented inclusive scan
-    const float ux = __shfl_up_sync(full, v.x, off);
-    const float uy = __shfl_up_sync(full, v.y, off);
-    const int ur = __shfl_up_sync(full, run, off);
-    if (lane >= off && ur == run) {
-      v.x += ux;
-      v.y += uy;
-    }
+  if (!__any_sync(full, live)) return;          // the whole warp (every lane exists)
+  uint32_t idx[8] = {};
+  float w[8] = {};
+  if (live) {
+    const float* xp = x01 + (int64_t)p * 3;
+    const float x[3] = {__ldg(xp), __ldg(xp + 1), __ldg(xp + 2)};
+    level_corners(x, lv, l, idx, w);
   }
-  const int next = __shfl_down_sync(full, run, 1);
-  if ((lane == 31 || next != run) && key >= 0 && (v.x != 0.f || v.y != 0.f))
-    atomic_add2(gt + key, v);   // the run's last lane holds the run's sum
+  float2* gt = grad_table + (int64_t)(live ? l : 0) * lv.t_cap;
+  // a dead lane's key is its own negative number: it joins no live group
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    float2 v = live ? make_float2(__fmul_rn(w[c], g.x), __fmul_rn(w[c], g.y))
+                    : make_float2(0.f, 0.f);
+    bool lead = live;
+    if (merge) {   // warp-uniform
+      const int key = live ? l * lv.t_cap + (int)idx[c] : -1 - lane;
+      v = sum_peers(__match_any_sync(full, key), v, lead);
+    }
+    if (lead && (v.x != 0.f || v.y != 0.f)) atomic_add2(gt + idx[c], v);
+  }
 }
 
 int make_walk(long long n, long long per, long long rows, long long m, int L, long long t,
@@ -282,13 +298,8 @@ int make_walk(long long n, long long per, long long rows, long long m, int L, lo
   wk.n = n;
   wk.per = per;
   wk.m = m;
-  wk.total = rows * m;
   for (int l = 0; l < L; ++l) wk.scale[l] = scales[l];
   return 0;
-}
-
-dim3 grid_of(const Walk& wk) {
-  return dim3((unsigned)((wk.total + kThreads - 1) / kThreads));
 }
 
 size_t fwd_smem(int per_c) { return (size_t)8 * per_c * sizeof(float2); }
@@ -347,23 +358,36 @@ int sorted_forward_active_clusters(long long per) {
   return e != cudaSuccess ? -(int)e : clusters;
 }
 
-// K9.  grad_out [n, L*2] is the upstream gradient; grad_table [L, t, 2]
-// must be zero-filled (or hold a gradient to add to) and is accumulated
-// atomically; aggregate != 0 sums each warp's runs of equal keys first.
-int sorted_encode_backward(const float* x01, const float* grad_out, const int* pairs,
-                           long long n, long long per, long long rows, long long m, int L,
-                           long long t, const float* scales, int aggregate, float* grad_table,
-                           void* stream) {
-  Walk wk;
-  const int err = make_walk(n, per, rows, m, L, t, scales, wk);
+// K9.  x01 [n, 3] and grad_out [n, L*2] (the upstream gradient, row p at
+// grad_out + 2 * p * g_row: a slice of a wider gradient is read in place)
+// are device memory, as is grad_table [L, t_cap, 2], which must be zero-filled (or hold
+// a gradient to add to) and is accumulated atomically; scales, strides,
+// sizes and use_hash are host arrays of L entries (csrc/hash_corners.cuh).
+// level_major != 0 walks [L, n] (level-major), else [n, L]; merge != 0 merges
+// each warp's equal corners before the atomics.  Returns the cudaError_t of
+// the launch.
+int sorted_encode_backward(const float* x01, const float* grad_out, long long g_row,
+                           long long n, int L,
+                           int t_cap, const float* scales, const uint32_t* strides,
+                           const uint32_t* sizes, const int* use_hash, int level_major,
+                           int merge, float* grad_table, void* stream) {
+  Levels lv;
+  const int err = hashgrid::make_levels(L, t_cap, scales, strides, sizes, use_hash, lv);
   if (err != 0) return err;
+  const long long n_pad = (n + 31) / 32 * 32;
+  if (n < 1 || n_pad >= (1LL << 31) || (long long)L * t_cap >= (1LL << 31) || g_row < L)
+    return (int)cudaErrorInvalidValue;
+  const long long threads = (level_major ? n_pad : n) * L;
+  const dim3 grid((unsigned)((threads + kThreads - 1) / kThreads));
   const float2* g = reinterpret_cast<const float2*>(grad_out);
-  const int2* pr = reinterpret_cast<const int2*>(pairs);
   float2* gt = reinterpret_cast<float2*>(grad_table);
-  if (aggregate)
-    sorted_bwd_kernel<true><<<grid_of(wk), kThreads, 0, (cudaStream_t)stream>>>(x01, g, pr, wk, gt);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (level_major)
+    sorted_bwd_kernel<true><<<grid, kThreads, 0, st>>>(x01, g, g_row, (int)n, (int)n_pad, lv,
+                                                        merge, gt);
   else
-    sorted_bwd_kernel<false><<<grid_of(wk), kThreads, 0, (cudaStream_t)stream>>>(x01, g, pr, wk, gt);
+    sorted_bwd_kernel<false><<<grid, kThreads, 0, st>>>(x01, g, g_row, (int)n, (int)n_pad, lv,
+                                                         merge, gt);
   return (int)cudaGetLastError();
 }
 

@@ -323,7 +323,9 @@ int radix_sort_config(int n, int dbits, long long* out) {
 // K5.  pairs [g, n, 2] int32 (key, payload) and scratch (the same size) are
 // device memory, as is ints (g * radix_sort_config's out[3] int32).  Sorts
 // each row of pairs in place, ascending and stable by the low
-// passes * dbits bits of the key (passes even, passes * dbits <= 32).
+// passes * dbits bits of the key (passes even, passes * dbits <= 32).  The
+// rows are the grid's y axis, so g <= 65,535 a call: ops/sort_kernel.py
+// sorts a taller array in blocks of rows, one call each.
 // Returns the first failing cudaError_t of the launches (0 on success).
 int radix_sort_pairs(int* pairs, int* scratch, int* ints, int g, int n, int dbits, int passes,
                      void* stream) {

@@ -18,27 +18,28 @@ are not carried over.  Neither is its slab geometry (``r_pad``, ``block``,
 ``lattice_flops_estimate``): a direct gather has no slab to size, and no
 corner to drop.
 
-On CUDA tensors ``lattice_encode`` is ``LatticeEncode``, a
-``torch.autograd.Function``:
-  * the forward computes each big level's base keys with torch integer ops
-    (as the reference's XLA prep does, :317-350), sorts them with K5 (one
-    [Lb, N_pad] radix sort on the keys' 20 bits at 2^19, the point index as
-    payload, pads at key 2^31-1 sorting last and dropped), and launches K6,
-    which walks the points in key order and gathers their corners;
-  * the backward launches K7 on the forward's order, kept in ``ctx``, so
-    the reference's unsort (:699) and gradient permutation (:736) have no
-    counterpart.
-The sort buys locality, not correctness: K6/K7 give the same result in any
-order (``csrc/hash_lattice.cu`` says why the order matters on the card).  CPU
-tensors take the plain version, ``lattice_encode_plain``, under autograd.
+The engine's own result is level-major, [Lb, N, 2]
+(``lattice_encode_levels``).  On CUDA tensors it is ``LatticeEncode``, a
+``torch.autograd.Function`` whose forward launches K6 and whose backward
+launches K7, both walking each level's points in their own order (no sort:
+``csrc/hash_lattice.cu`` says why); ``ctx`` keeps x01 alone.  CPU tensors
+take the plain version, ``lattice_encode_plain_levels``, under autograd.
 Nothing falls back from the card to the plain version.
+``lattice_encode_split`` joins the small levels' [N, Ls*2] and the big
+levels' [Lb, N, 2] into the [N, L*2] encoding in one copy
+(``assemble_split``); ``lattice_encode`` alone returns [N, Lb*2].
+
+The reference sorts each level's points by their base key before its TPU
+kernels (:317-350); ``lattice_keys``, ``lattice_sort_inputs`` and
+``lattice_sort_order`` keep those keys and that order (through K5 on CUDA
+tensors), off the encode's path.
 
 Layout: the big table is [Lb, t_r64 * 64, 2] f32, a plain reshape of the
 reference's packed [Lb, t_r64, 128] (entry e of level l sits there at
 [l, e >> 6, 2 * (e & 63) + c]); ``core/convert.py`` converts.
 
 ``LATTICE_FWD_LAUNCHES`` and ``LATTICE_BWD_LAUNCHES`` count K6 and K7's
-launches (K5's are ``sort_kernel.SORT_LAUNCHES``).
+launches.
 """
 
 from __future__ import annotations
@@ -63,7 +64,8 @@ LATTICE_BWD_LAUNCHES = 0
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
-_ARGS = [_P, _P, _P, _LL, _LL, ctypes.c_int, _LL, _P, _P, _P, _P, _P, _P, _P, _P]
+_ARGS = [_P, _P, _LL, ctypes.c_int, _LL, _P, _P, _P, _P, _P, _P, _P, _P]
+_BWD_ARGS = _ARGS[:2] + [_LL, _LL] + _ARGS[2:]
 
 
 def reset_launch_counts() -> None:
@@ -280,12 +282,12 @@ def corner_indices_weights(x01: torch.Tensor, spec: LatticeSpec):
     return torch.stack(idxs, -1), torch.stack(ws, -1)
 
 
-def lattice_encode_plain(x01: torch.Tensor, table_big: torch.Tensor,
-                         spec: LatticeSpec) -> torch.Tensor:
-    """x01 [N, 3] in [0, 1] -> [N, Lb*2] from the [Lb, T, 2] table, by
-    gathers, the corners summed in order (``lattice_encode_xla``);
-    differentiable in ``table_big``.  The kernels' yardstick of
-    correctness; runs on any device."""
+def lattice_encode_plain_levels(x01: torch.Tensor, table_big: torch.Tensor,
+                                spec: LatticeSpec) -> torch.Tensor:
+    """x01 [N, 3] in [0, 1] -> level-major [Lb, N, 2] from the [Lb, T, 2]
+    table, by gathers, the corners summed in order; differentiable in
+    ``table_big``.  The kernels' yardstick of correctness; runs on any
+    device."""
     n = x01.shape[0]
     lb, C = spec.n_big, spec.level_dim
     idx, w = corner_indices_weights(x01, spec)
@@ -293,7 +295,20 @@ def lattice_encode_plain(x01: torch.Tensor, table_big: torch.Tensor,
     for c in range(8):
         f = torch.gather(table_big, 1, idx[..., c:c + 1].expand(lb, n, C))
         out = out + w[..., c:c + 1] * f
-    return out.permute(1, 0, 2).reshape(n, lb * C)
+    return out
+
+
+def point_major(levels: torch.Tensor) -> torch.Tensor:
+    """[Lb, N, C] -> [N, Lb*C] (a copy)."""
+    lb, n, c = levels.shape
+    return levels.transpose(0, 1).reshape(n, lb * c)
+
+
+def lattice_encode_plain(x01: torch.Tensor, table_big: torch.Tensor,
+                         spec: LatticeSpec) -> torch.Tensor:
+    """x01 [N, 3] in [0, 1] -> [N, Lb*2]: ``lattice_encode_xla``'s result
+    and layout, from ``lattice_encode_plain_levels``."""
+    return point_major(lattice_encode_plain_levels(x01, table_big, spec))
 
 
 # ---------------------------------------------------------------------------
@@ -322,9 +337,10 @@ def lattice_sort_order(x01: torch.Tensor, spec: LatticeSpec) -> torch.Tensor:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("hash_lattice")
     if lib.lattice_encode_forward.argtypes is None:
+        lib.lattice_encode_forward.argtypes = _ARGS
+        lib.lattice_encode_backward.argtypes = _BWD_ARGS
         for fn in (lib.lattice_encode_forward, lib.lattice_encode_backward):
             fn.restype = ctypes.c_int
-            fn.argtypes = _ARGS
     return lib
 
 
@@ -353,7 +369,7 @@ def _level_args(spec: LatticeSpec) -> list:
     return hit[2]
 
 
-def _kernel_args(x01: torch.Tensor, order: torch.Tensor, spec: LatticeSpec):
+def _kernel_args(x01: torch.Tensor, spec: LatticeSpec):
     """Validate what both kernels share; returns (n, the C arguments after
     the second pointer)."""
     dev = x01.device
@@ -365,23 +381,19 @@ def _kernel_args(x01: torch.Tensor, order: torch.Tensor, spec: LatticeSpec):
         raise ValueError(f"the lattice kernels take 1..{MAX_LEVELS} big levels")
     n = x01.shape[0]
     _build.check_tensor(x01, "x01", (n, 3), torch.float32, dev)
-    if order.dim() != 2 or order.shape[0] != spec.n_big or order.shape[1] < n:
-        raise ValueError(f"order must be [{spec.n_big}, >= {n}], got {tuple(order.shape)}")
-    _build.check_tensor(order, "order", tuple(order.shape), torch.int32, dev)
     if n >= 2 ** 31 or spec.t_big > 2 ** 31:
         raise ValueError("point count or table size out of the kernels' range")
-    return n, [order.data_ptr(), n, order.shape[1], spec.n_big, spec.t_big] + _level_args(spec)
+    return n, [n, spec.n_big, spec.t_big] + _level_args(spec)
 
 
-def lattice_encode_forward(x01: torch.Tensor, table_big: torch.Tensor, spec: LatticeSpec,
-                           order: torch.Tensor) -> torch.Tensor:
-    """K6: [N, Lb*2] f32 features of the points x01 [N, 3], walked in the
-    given order (``lattice_sort_order``'s, or any permutation)."""
+def lattice_encode_forward(x01: torch.Tensor, table_big: torch.Tensor,
+                           spec: LatticeSpec) -> torch.Tensor:
+    """K6: the level-major [Lb, N, 2] f32 features of the points x01 [N, 3]."""
     global LATTICE_FWD_LAUNCHES
-    n, args = _kernel_args(x01, order, spec)
+    n, args = _kernel_args(x01, spec)
     _build.check_tensor(table_big, "table_big", (spec.n_big, spec.t_big, 2), torch.float32,
                         x01.device)
-    out = torch.empty((n, spec.n_big * 2), dtype=torch.float32, device=x01.device)
+    out = torch.empty((spec.n_big, n, 2), dtype=torch.float32, device=x01.device)
     if n == 0:
         return out
     rc = _lib().lattice_encode_forward(x01.data_ptr(), table_big.data_ptr(), *args,
@@ -393,21 +405,38 @@ def lattice_encode_forward(x01: torch.Tensor, table_big: torch.Tensor, spec: Lat
     return out
 
 
+def pairs_strided(g: torch.Tensor) -> bool:
+    """Whether K7 reads the [Lb, N, 2] f32 gradient ``g`` in place: each
+    (level, point) pair contiguous and 8-byte aligned, at any strides
+    between pairs (level-major, or autograd's transposed view of an
+    [N, L*2] gradient)."""
+    return (g.dim() == 3 and g.shape[2] == 2 and g.stride(2) == 1
+            and g.stride(0) % 2 == 0 and g.stride(1) % 2 == 0 and g.data_ptr() % 8 == 0)
+
+
 def lattice_encode_backward(x01: torch.Tensor, grad_out: torch.Tensor, spec: LatticeSpec,
-                            order: torch.Tensor, grad_table=None) -> torch.Tensor:
+                            grad_table=None) -> torch.Tensor:
     """K7: the [Lb, T, 2] f32 table gradient for the upstream gradient
-    grad_out [N, Lb*2].  The gradient is zero-filled here, or, when
-    ``grad_table`` is given, added into it."""
+    grad_out [Lb, N, 2], level-major or any view that ``pairs_strided``
+    accepts, read through its strides.  The gradient is zero-filled here, or,
+    when ``grad_table`` is given, added into it."""
     global LATTICE_BWD_LAUNCHES
-    n, args = _kernel_args(x01, order, spec)
-    _build.check_tensor(grad_out, "grad_out", (n, spec.n_big * 2), torch.float32, x01.device)
+    n, args = _kernel_args(x01, spec)
+    want = (spec.n_big, n, 2)
+    if grad_out.device != x01.device or grad_out.dtype != torch.float32:
+        raise ValueError(f"grad_out must be float32 on {x01.device}, got {grad_out.dtype} on "
+                         f"{grad_out.device}")
+    if tuple(grad_out.shape) != want or not pairs_strided(grad_out):
+        raise ValueError(f"grad_out must have shape {want} with contiguous, aligned pairs, got "
+                         f"shape {tuple(grad_out.shape)}, strides {grad_out.stride()}")
     shape = (spec.n_big, spec.t_big, 2)
     if grad_table is None:
         grad_table = torch.zeros(shape, dtype=torch.float32, device=x01.device)
     _build.check_tensor(grad_table, "grad_table", shape, torch.float32, x01.device)
     if n == 0:
         return grad_table
-    rc = _lib().lattice_encode_backward(x01.data_ptr(), grad_out.data_ptr(), *args,
+    rc = _lib().lattice_encode_backward(x01.data_ptr(), grad_out.data_ptr(),
+                                        grad_out.stride(0) // 2, grad_out.stride(1) // 2, *args,
                                         grad_table.data_ptr(),
                                         torch.cuda.current_stream(x01.device).cuda_stream)
     LATTICE_BWD_LAUNCHES += 1
@@ -417,48 +446,70 @@ def lattice_encode_backward(x01: torch.Tensor, grad_out: torch.Tensor, spec: Lat
 
 
 class LatticeEncode(torch.autograd.Function):
-    """Forward K5 then K6, backward K7 on the forward's order; the gradient
-    flows to the table only (the reference's custom VJP returns none for
-    x01)."""
+    """Forward K6, backward K7 on the upstream gradient as autograd hands
+    it (a transposed view, read in place; copied only when its pairs are
+    not contiguous); the gradient flows to the table only (the reference's
+    custom VJP returns none for x01)."""
 
     @staticmethod
     def forward(ctx, x01, table_big, spec):
         x01 = x01.contiguous()
-        order = lattice_sort_order(x01, spec)
-        ctx.save_for_backward(x01, order)
+        ctx.save_for_backward(x01)
         ctx.spec = spec
-        return lattice_encode_forward(x01, table_big, spec, order)
+        return lattice_encode_forward(x01, table_big, spec)
 
     @staticmethod
     def backward(ctx, grad_out):
-        x01, order = ctx.saved_tensors
-        return None, lattice_encode_backward(x01, grad_out.contiguous(), ctx.spec, order), None
+        (x01,) = ctx.saved_tensors
+        if not pairs_strided(grad_out):
+            grad_out = grad_out.contiguous()
+        return None, lattice_encode_backward(x01, grad_out, ctx.spec), None
 
 
-def lattice_encode(x01: torch.Tensor, table_big: torch.Tensor,
-                   spec: LatticeSpec) -> torch.Tensor:
-    """Big-group lattice encode: x01 [N, 3] in [0, 1] -> [N, Lb*2],
-    differentiable in table_big.  CUDA tensors launch K5, K6 (and K7 in the
-    backward); CPU tensors take the plain version; any other device
+def lattice_encode_levels(x01: torch.Tensor, table_big: torch.Tensor,
+                          spec: LatticeSpec) -> torch.Tensor:
+    """Big-group lattice encode, level-major: x01 [N, 3] in [0, 1] ->
+    [Lb, N, 2], differentiable in table_big.  CUDA tensors launch K6 (and K7
+    in the backward); CPU tensors take the plain version; any other device
     raises."""
     dev = table_big.device
     if dev.type == "cuda":
         return LatticeEncode.apply(x01, table_big, spec)
     if dev.type == "cpu":
-        return lattice_encode_plain(x01, table_big, spec)
+        return lattice_encode_plain_levels(x01, table_big, spec)
     raise ValueError(f"no lattice encoding for device {dev}")
+
+
+def lattice_encode(x01: torch.Tensor, table_big: torch.Tensor,
+                   spec: LatticeSpec) -> torch.Tensor:
+    """Big-group lattice encode: x01 [N, 3] in [0, 1] -> [N, Lb*2] (the
+    reference's layout), differentiable in table_big."""
+    return point_major(lattice_encode_levels(x01, table_big, spec))
+
+
+def assemble_split(small, big_levels: torch.Tensor) -> torch.Tensor:
+    """The small levels' [N, Ls*2] (or None) and the big levels' level-major
+    [Lb, N, 2] -> [N, (Ls + Lb)*2] in level order, in one copy (the
+    concatenation reads the big levels through a transposed view).  Its
+    backward hands the big levels a transposed view of the upstream
+    gradient, which K7 reads in place."""
+    lb, n, c = big_levels.shape
+    parts = [big_levels.transpose(0, 1)]
+    if small is not None:
+        parts.insert(0, small.reshape(n, small.shape[1] // c, c))
+    out = torch.cat(parts, 1)
+    return out.view(n, out.shape[1] * c)
 
 
 def lattice_encode_split(x01: torch.Tensor, tables, spec: LatticeSpec) -> torch.Tensor:
     """Small levels through the packed engine (xor hash, K3/K4 on the
-    card), big levels through the lattice engine; tables = (table_small or
-    None, table_big).  Returns [N, L*2] in level order."""
+    card), big levels through the lattice engine (K6/K7); tables =
+    (table_small or None, table_big).  Returns [N, L*2] in level order."""
     table_small, table_big = tables
-    parts = []
+    small = None
     if spec.split.small is not None:
-        parts.append(hash_encode(x01, table_small, spec.split.small))
-    parts.append(lattice_encode(x01, table_big, spec))
-    return parts[0] if len(parts) == 1 else torch.cat(parts, -1)
+        small = hash_encode(x01, table_small, spec.split.small)
+    return assemble_split(small, lattice_encode_levels(x01, table_big, spec))
 
 
 # ---------------------------------------------------------------------------

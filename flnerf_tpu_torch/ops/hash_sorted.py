@@ -1,7 +1,7 @@
 """The split of the hash levels into a small group (the packed engine, K3/K4)
 and a big group, and the sorted engine that encodes the big group with
-torch-ngp's xor hash, with its forward (K8) and table gradient (K9) as CUDA
-kernels.
+torch-ngp's xor hash, with its forward (K8, over sorted corner pairs) and
+table gradient (K9, from the points) as CUDA kernels.
 
 Port of ``flnerf_tpu/ops/hash_sorted.py``: the spec half (``SplitHashSpec``,
 ``_subset``, ``make_split_spec``, ``_big_packed_spec``), which the lattice
@@ -36,12 +36,17 @@ On CUDA tensors ``hash_encode_sorted`` is ``SortedEncode``, a
     pairs, one (chunk, level) row per thread-block cluster, recomputes each
     corner's weight from x01, stores ``w * feature`` into the corner's own
     slot in the cluster's shared memory, sums each point's 8 slots and
-    writes the [N, Lb*2] output once;
-  * the backward launches K9 on the forward's sorted pairs, kept in ``ctx``
-    as the reference keeps ``sidx``/``spay``: no second sort.
+    writes the [N, Lb*2] output once; the pairs are freed when the forward
+    returns;
+  * the backward launches K9, which needs no pairs: one thread per (point,
+    level) skips a zero upstream gradient, recomputes a live point's 8
+    corner entries and weights (``csrc/hash_corners.cuh``, the geometry
+    K3/K4 share) and adds w*g by float2 atomics, equal corners of a warp
+    merged first (``merge``); ``ctx`` keeps x01 alone, where the reference
+    keeps its sorted ``sidx``/``spay``.
 Point sets beyond ``POINT_CAP`` split into equal chunks, as the reference's
-do, and batch along the sort's rows: one K5, one K8 and one K9 launch per
-call, however many chunks.  CPU tensors take the plain version,
+do, and batch along the sort's rows: one K5 and one K8 launch per forward
+and one K9 launch per backward, however many chunks.  CPU tensors take the plain version,
 ``hash_kernel.hash_encode_plain`` on ``_big_packed_spec``, under autograd.
 Nothing falls back from the card to the plain version.
 
@@ -50,7 +55,9 @@ Layout: tables stay in the natural [L, T, 2] f32 layout (the small table
 [L, C, T/128, 128]; ``core/convert.py`` converts.
 
 ``SORTED_FWD_LAUNCHES`` and ``SORTED_BWD_LAUNCHES`` count K8 and K9's
-launches (K5's are ``sort_kernel.SORT_LAUNCHES``).
+launches (K5's are ``sort_kernel.SORT_LAUNCHES``).  ``BWD_LEVEL_MAJOR``
+is the grid shape K9 takes on the main path (chip_smoke.py phase 13 times
+both).
 """
 
 from __future__ import annotations
@@ -67,6 +74,7 @@ from flnerf_tpu_torch.ops.hash_kernel import (
     LANES,
     MAX_LEVELS,
     PackedHashSpec,
+    _level_args,
     hash_encode,
     hash_encode_plain,
     init_packed_table,
@@ -78,6 +86,7 @@ POINT_CAP = 1 << 14      # points per chunk (the reference's pid budget, :87)
 # slots (1 MB of float2) spread over its CTAs' shared memory, 128 KB each.
 CLUSTER = 8
 PAD_KEY = (1 << 31) - 1  # sorts after every real key
+BWD_LEVEL_MAJOR = False  # K9's grid on the main path: level fastest (PERF.md)
 _PRIME_Y, _PRIME_Z = 2654435761, 805459861   # gridencoder.cu:42
 _U32 = 0xFFFFFFFF
 
@@ -322,9 +331,11 @@ def sorted_pairs(x01: torch.Tensor, spec: SplitHashSpec) -> torch.Tensor:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("hash_sorted")
     if lib.sorted_encode_forward.argtypes is None:
-        head = [_P, _P, _P, _LL, _LL, _LL, _LL, ctypes.c_int, _LL, _P]
-        lib.sorted_encode_forward.argtypes = head + [ctypes.c_int, _P, _P]
-        lib.sorted_encode_backward.argtypes = head + [ctypes.c_int, _P, _P]
+        lib.sorted_encode_forward.argtypes = [_P, _P, _P, _LL, _LL, _LL, _LL, ctypes.c_int,
+                                              _LL, _P, ctypes.c_int, _P, _P]
+        lib.sorted_encode_backward.argtypes = [_P, _P, _LL, _LL, ctypes.c_int, ctypes.c_int,
+                                               _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                                               _P, _P]
         lib.sorted_forward_active_clusters.argtypes = [_LL]
         for fn in (lib.sorted_encode_forward, lib.sorted_encode_backward,
                    lib.sorted_forward_active_clusters):
@@ -358,28 +369,36 @@ def _scales_arg(spec: SplitHashSpec):
     return hit[2]
 
 
-def _kernel_args(x01: torch.Tensor, pairs: torch.Tensor, spec: SplitHashSpec):
-    """Validate what both kernels share; returns (n, the C arguments from
-    the point count to the scales)."""
+def _check_spec(x01: torch.Tensor, spec: SplitHashSpec) -> int:
+    """Validate what both kernels share; returns n."""
     dev = x01.device
     if dev.type != "cuda":
         raise ValueError(f"the sorted-engine kernels take CUDA tensors, got {dev}")
     if spec.big is None or spec.level_dim != 2:
         raise ValueError("the sorted-engine kernels take big levels of level_dim 2")
-    lb = spec.n_big
-    if not 1 <= lb <= MAX_LEVELS:
+    if not 1 <= spec.n_big <= MAX_LEVELS:
         raise ValueError(f"the sorted-engine kernels take 1..{MAX_LEVELS} big levels")
     n = x01.shape[0]
     _build.check_tensor(x01, "x01", (n, 3), torch.float32, dev)
+    if n >= 2 ** 31 - 32 or spec.n_big * spec.t_cap_big >= 2 ** 31:
+        raise ValueError("point count or table size out of the kernels' range")
+    return n
+
+
+def _kernel_args(x01: torch.Tensor, pairs: torch.Tensor, spec: SplitHashSpec):
+    """Validate K8's inputs; returns (n, the C arguments from the point
+    count to the scales)."""
+    n = _check_spec(x01, spec)
+    lb = spec.n_big
     if pairs.dim() != 3 or pairs.shape[2] != 2 or pairs.shape[0] % lb:
         raise ValueError(f"pairs must be [chunks * {lb}, M, 2], got {tuple(pairs.shape)}")
-    _build.check_tensor(pairs, "pairs", tuple(pairs.shape), torch.int32, dev)
+    _build.check_tensor(pairs, "pairs", tuple(pairs.shape), torch.int32, x01.device)
     rows, m = pairs.shape[0], pairs.shape[1]
     per = -(-n // (rows // lb))
     if m % 32 or m < 8 * per:
         raise ValueError(f"pairs rows of {m} slots do not hold {per} points of 8 corners "
                          "in whole warps")
-    if pairs.numel() >= 2 ** 62 or spec.t_cap_big >= 2 ** 31:
+    if pairs.numel() >= 2 ** 62:
         raise ValueError("point count or table size out of the kernels' range")
     return n, [n, per, rows, m, lb, spec.t_cap_big, _scales_arg(spec)]
 
@@ -414,25 +433,44 @@ def sorted_encode_forward(x01: torch.Tensor, table_big: torch.Tensor, spec: Spli
     return out
 
 
+def rows_strided(g: torch.Tensor) -> bool:
+    """Whether K9 reads the [N, Lb*2] f32 gradient ``g`` in place: each row
+    contiguous and 8-byte aligned, rows at any even stride (a column slice of
+    the whole [N, L*2] gradient)."""
+    return (g.dim() == 2 and g.stride(1) == 1 and g.stride(0) % 2 == 0
+            and (g.shape[0] < 2 or g.stride(0) >= g.shape[1]) and g.data_ptr() % 8 == 0)
+
+
 def sorted_encode_backward(x01: torch.Tensor, grad_out: torch.Tensor, spec: SplitHashSpec,
-                           pairs: torch.Tensor, grad_table=None,
-                           aggregate: bool = True) -> torch.Tensor:
+                           grad_table=None, level_major: bool = BWD_LEVEL_MAJOR,
+                           merge: bool = True) -> torch.Tensor:
     """K9: the [Lb, t_cap_big, 2] f32 table gradient for the upstream
-    gradient grad_out [N, Lb*2].  The gradient is zero-filled here, or, when
-    ``grad_table`` is given, added into.  ``aggregate`` sums each warp's
-    runs of equal keys before one atomic add per run (what the sort buys);
-    without it every corner adds its own."""
+    gradient grad_out [N, Lb*2], from the points (no pairs).  grad_out may
+    be a column slice of a wider gradient (``rows_strided``): K9 reads it in
+    place.  The gradient is zero-filled here, or, when ``grad_table`` is
+    given, added into.
+    ``level_major`` walks the (point, level) threads level by level instead
+    of level fastest; ``merge`` sums each warp's equal corners before one
+    atomic add per group, where without it every live corner adds its own."""
     global SORTED_BWD_LAUNCHES
-    n, args = _kernel_args(x01, pairs, spec)
-    _build.check_tensor(grad_out, "grad_out", (n, spec.n_big * 2), torch.float32, x01.device)
+    n = _check_spec(x01, spec)
+    want = (n, spec.n_big * 2)
+    if grad_out.device != x01.device or grad_out.dtype != torch.float32:
+        raise ValueError(f"grad_out must be float32 on {x01.device}, got {grad_out.dtype} on "
+                         f"{grad_out.device}")
+    if tuple(grad_out.shape) != want or not rows_strided(grad_out):
+        raise ValueError(f"grad_out must have shape {want} with contiguous, aligned rows, got "
+                         f"shape {tuple(grad_out.shape)}, strides {grad_out.stride()}")
     shape = (spec.n_big, spec.t_cap_big, 2)
     if grad_table is None:
         grad_table = torch.zeros(shape, dtype=torch.float32, device=x01.device)
     _build.check_tensor(grad_table, "grad_table", shape, torch.float32, x01.device)
     if n == 0:
         return grad_table
-    rc = _lib().sorted_encode_backward(x01.data_ptr(), grad_out.data_ptr(), pairs.data_ptr(),
-                                       *args, int(aggregate), grad_table.data_ptr(),
+    row = max(grad_out.stride(0), grad_out.shape[1]) // 2     # a one-row gradient's stride is free
+    rc = _lib().sorted_encode_backward(x01.data_ptr(), grad_out.data_ptr(), row, n, spec.n_big,
+                                       spec.t_cap_big, *_level_args(_big_packed_spec(spec)),
+                                       int(level_major), int(merge), grad_table.data_ptr(),
                                        torch.cuda.current_stream(x01.device).cuda_stream)
     SORTED_BWD_LAUNCHES += 1
     if rc != 0:
@@ -441,22 +479,23 @@ def sorted_encode_backward(x01: torch.Tensor, grad_out: torch.Tensor, spec: Spli
 
 
 class SortedEncode(torch.autograd.Function):
-    """Forward K5 then K8, backward K9 on the forward's sorted pairs; the
-    gradient flows to the table only (the reference's custom VJP returns
-    none for x01)."""
+    """Forward K5 then K8 (the pairs freed on return), backward K9 from the
+    points, on the upstream gradient's columns in place; the gradient flows
+    to the table only (the reference's custom VJP returns none for x01)."""
 
     @staticmethod
     def forward(ctx, x01, table_big, spec):
         x01 = x01.contiguous()
-        pairs = sorted_pairs(x01, spec)
-        ctx.save_for_backward(x01, pairs)
+        ctx.save_for_backward(x01)
         ctx.spec = spec
-        return sorted_encode_forward(x01, table_big, spec, pairs)
+        return sorted_encode_forward(x01, table_big, spec, sorted_pairs(x01, spec))
 
     @staticmethod
     def backward(ctx, grad_out):
-        x01, pairs = ctx.saved_tensors
-        return None, sorted_encode_backward(x01, grad_out.contiguous(), ctx.spec, pairs), None
+        (x01,) = ctx.saved_tensors
+        if not rows_strided(grad_out):
+            grad_out = grad_out.contiguous()
+        return None, sorted_encode_backward(x01, grad_out, ctx.spec), None
 
 
 def hash_encode_sorted(x01: torch.Tensor, table_big: torch.Tensor,

@@ -17,8 +17,11 @@ which sorts (key, payload) pairs in place.  With one payload the pair
 carries it; with none or several, the pair carries the position and the
 payloads are gathered through the sorted positions.  ``sort_pairs_`` is that
 in-place sort for callers that build the pairs themselves (the sorted hash
-engine).  CPU tensors take the plain version, a stable torch sort and a
-gather.  ``SORT_LAUNCHES`` counts the kernel's launches.
+engine).  The kernel's rows are its grid's y axis, at most
+``MAX_GRID_ROWS`` a launch, so the wrapper sorts a taller array in blocks
+of rows (``row_blocks``), one launch each.  CPU tensors take the plain
+version, a stable torch sort and a gather.  ``SORT_LAUNCHES`` counts the
+wrapper's calls that launch the kernel.
 
 ``key_bits`` states how many low bits of the keys the sort reads (31 by
 default: any non-negative int32 key).  A caller whose real keys are all
@@ -39,6 +42,7 @@ LANES = 128
 MAX_N = 1 << 30
 KEY_BITS = 31            # any non-negative int32 key
 MAX_DIGIT_BITS = 10      # the kernel's largest digit (1024 counters a warp)
+MAX_GRID_ROWS = 65535    # rows a launch: the grid's y axis (csrc/radix_sort.cu)
 
 SORT_LAUNCHES = 0
 
@@ -122,6 +126,26 @@ def sort_config(n: int, key_bits: int = KEY_BITS) -> dict:
             "smem_bytes": out[2], "scratch_ints": out[3]}
 
 
+def row_blocks(g: int):
+    """(first row, rows) of each launch that sorts g rows: consecutive
+    blocks of at most ``MAX_GRID_ROWS``."""
+    return [(r, min(MAX_GRID_ROWS, g - r)) for r in range(0, int(g), MAX_GRID_ROWS)]
+
+
+def _launch_rows(lib, pairs_ptr: int, scratch_ptr: int, ints_ptr: int, g: int, n: int,
+                 cfg: dict, stream: int) -> None:
+    """K5 on g rows of n pairs at ``pairs_ptr``, one launch per row block;
+    the blocks run one after another on the stream, so they share the int32
+    scratch of one block.  Raises on the first failed launch."""
+    for r0, rows in row_blocks(g):
+        off = r0 * n * 8                                  # bytes: n int2 pairs a row
+        rc = lib.radix_sort_pairs(pairs_ptr + off, scratch_ptr + off, ints_ptr, rows, n,
+                                  cfg["digit_bits"], cfg["passes"], stream)
+        if rc != 0:
+            raise RuntimeError(f"radix_sort_pairs launch failed on rows {r0}..{r0 + rows}: "
+                               f"cudaError {rc}")
+
+
 def sort_pairs_(pairs: torch.Tensor, key_bits: int = KEY_BITS) -> torch.Tensor:
     """K5 in place on CUDA (key, payload) pairs, ``[..., N, 2]`` int32 and
     contiguous (one int2 each), keys non-negative and, below ``KEY_BITS``,
@@ -140,13 +164,11 @@ def sort_pairs_(pairs: torch.Tensor, key_bits: int = KEY_BITS) -> torch.Tensor:
     g = pairs.numel() // (2 * n)
     cfg = sort_config(n, key_bits)
     scratch = torch.empty_like(pairs)
-    ints = torch.empty(g * cfg["scratch_ints"], dtype=torch.int32, device=pairs.device)
-    rc = _lib().radix_sort_pairs(pairs.data_ptr(), scratch.data_ptr(), ints.data_ptr(), g, n,
-                                 cfg["digit_bits"], cfg["passes"],
-                                 torch.cuda.current_stream(pairs.device).cuda_stream)
+    ints = torch.empty(min(g, MAX_GRID_ROWS) * cfg["scratch_ints"], dtype=torch.int32,
+                       device=pairs.device)
     SORT_LAUNCHES += 1
-    if rc != 0:
-        raise RuntimeError(f"radix_sort_pairs launch failed: cudaError {rc}")
+    _launch_rows(_lib(), pairs.data_ptr(), scratch.data_ptr(), ints.data_ptr(), g, n, cfg,
+                 torch.cuda.current_stream(pairs.device).cuda_stream)
     return pairs
 
 

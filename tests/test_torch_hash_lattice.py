@@ -155,6 +155,79 @@ def test_split_encode_matches_reference():
     np.testing.assert_allclose(got.numpy(), want, atol=1e-6)
 
 
+def _split_tables(spec, seed):
+    """(small [Ls, t_cap, 2], its reference packing [Ls, 2, t_r, 128], big
+    [Lb, T, 2], its reference packing [Lb, t_r64, 128])."""
+    small = spec.split.small
+    ts = np.random.default_rng(seed).uniform(-1, 1, (small.num_levels, small.t_cap, 2)).astype(
+        np.float32)
+    ts_packed = np.ascontiguousarray(ts.transpose(0, 2, 1)).reshape(
+        small.num_levels, 2, small.t_r, 128)
+    tb, tb_packed = _table_big(spec, seed=seed + 1)
+    return ts, ts_packed, tb, tb_packed
+
+
+@pytest.mark.parametrize("kw", [FULL, SMALL], ids=["full", "small"])
+def test_assembly_of_the_level_major_big_levels_matches_reference_split(kw):
+    """The engine's big levels are level-major, [Lb, N, 2]; joined with the
+    small levels' [N, Ls*2] they give the reference's [N, L*2] split encode
+    (lattice_encode_split, use_kernels=False), and transposed alone its
+    big-level columns."""
+    spec, ref = _specs(kw)
+    ts, ts_packed, tb, tb_packed = _split_tables(spec, 20)
+    x = _points("clustered", n=1024, seed=21)
+    want = np.asarray(ref_hl.lattice_encode_split(
+        jnp.asarray(x), (jnp.asarray(ts_packed), jnp.asarray(tb_packed)), ref,
+        use_kernels=False))
+    xt = torch.from_numpy(x)
+    small = hk.hash_encode_plain(xt, torch.from_numpy(ts), spec.split.small)
+    big = hl.lattice_encode_plain_levels(xt, torch.from_numpy(tb), spec)
+    assert big.shape == (spec.n_big, x.shape[0], 2)
+    np.testing.assert_allclose(hl.assemble_split(small, big).numpy(), want, atol=1e-6)
+    np.testing.assert_allclose(hl.point_major(big).numpy(), want[:, small.shape[1]:],
+                               atol=1e-6)
+
+
+def test_split_gradients_through_the_assembly_match_jax_grad():
+    """Both tables' gradients through the assembly (its backward hands the
+    big levels a transposed view of the upstream gradient) against jax.grad
+    of the reference's split encode."""
+    spec, ref = _specs(FULL)
+    ts, ts_packed, tb, tb_packed = _split_tables(spec, 22)
+    x = _points("uniform", n=1024, seed=23)
+    g = np.random.default_rng(24).standard_normal((x.shape[0], spec.output_dim)).astype(
+        np.float32)
+    gs_w, gb_w = jax.grad(lambda a, b: jnp.sum(ref_hl.lattice_encode_split(
+        jnp.asarray(x), (a, b), ref, use_kernels=False) * g), argnums=(0, 1))(
+        jnp.asarray(ts_packed), jnp.asarray(tb_packed))
+    a, b = torch.from_numpy(ts).requires_grad_(True), torch.from_numpy(tb).requires_grad_(True)
+    gs, gb = torch.autograd.grad(hl.lattice_encode_split(torch.from_numpy(x), (a, b), spec),
+                                 [a, b], torch.from_numpy(g))
+    gs_w = np.asarray(gs_w).reshape(ts.shape[0], 2, -1).transpose(0, 2, 1)
+    for got, want in ((gs, gs_w), (gb, np.asarray(gb_w).reshape(gb.shape))):
+        scale = float(np.abs(want).max())
+        assert scale > 0
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("n_small", [0, 2])
+def test_assembly_is_one_copy_with_the_transposed_gradient(n_small):
+    """assemble_split on arbitrary tensors: level order, and a backward that
+    hands each part its own columns (the big part transposed back)."""
+    n, lb = 37, 5
+    big = torch.randn((lb, n, 2), requires_grad=True)
+    small = torch.randn((n, 2 * n_small), requires_grad=True) if n_small else None
+    out = hl.assemble_split(small, big)
+    assert out.shape == (n, 2 * (n_small + lb)) and out.is_contiguous()
+    want = hl.point_major(big) if small is None else torch.cat([small, hl.point_major(big)], 1)
+    assert torch.equal(out, want)
+    g = torch.randn_like(out)
+    grads = torch.autograd.grad(out, [big] + ([small] if small is not None else []), g)
+    assert torch.equal(grads[0], g[:, 2 * n_small:].view(n, lb, 2).transpose(0, 1))
+    if small is not None:
+        assert torch.equal(grads[1], g[:, :2 * n_small])
+
+
 @pytest.mark.parametrize("kw", [FULL, SMALL], ids=["full", "small"])
 def test_base_keys_and_sort_order(kw):
     """The base keys equal the reference's sort keys (:317-339); the order

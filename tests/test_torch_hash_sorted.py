@@ -331,3 +331,99 @@ def test_cpu_dispatch_runs_the_plain_version_without_launching():
     assert (hs.SORTED_FWD_LAUNCHES, hs.SORTED_BWD_LAUNCHES, sk.SORT_LAUNCHES,
             hk.HASH_FWD_LAUNCHES, hk.HASH_BWD_LAUNCHES) == before
     assert float(tb.grad.abs().sum()) > 0 and float(ts.grad.abs().sum()) > 0
+
+
+def _k9_model(x01, grad_out, spec, level_major):
+    """K9's walk in torch (csrc/hash_sorted.cu sorted_bwd_kernel): one
+    thread per (point, level) in the kernel's grid order (level fastest, or
+    level-major over the points padded to whole warps), cut into 32-lane
+    warps; per corner, the live lanes of a warp whose (level, entry) agree
+    form one group, and the group's summed w*g is one add.  A dead lane (a
+    zero upstream gradient, or a padding thread) keys itself apart and adds
+    nothing.  Returns (gradient [Lb, t_cap_big, 2], adds made)."""
+    lb, n, t = spec.n_big, x01.shape[0], spec.t_cap_big
+    idx, w = hk.corner_indices_weights(x01, hs._big_packed_spec(spec))
+    idx, w = idx.view(lb, n, 8), w.view(lb, n, 8)
+    if level_major:
+        n_pad = -(-n // 32) * 32
+        p = torch.arange(n_pad).repeat(lb)
+        lvl = torch.arange(lb).repeat_interleave(n_pad)
+    else:
+        p = torch.arange(n).repeat_interleave(lb)
+        lvl = torch.arange(lb).repeat(n)
+    tail = -p.numel() % 32                       # the last warp's missing threads
+    p = torch.cat([p, torch.full((tail,), n)])
+    lvl = torch.cat([lvl, torch.zeros(tail, dtype=torch.long)])
+    inside = p < n
+    pc = p.clamp(max=n - 1)
+    g = grad_out.view(n, lb, 2)[pc, lvl] * inside[:, None]
+    live = (g != 0).any(-1)
+    lane = torch.arange(p.numel()) % 32
+    warp = torch.arange(p.numel()) // 32
+    out = torch.zeros((lb * t, 2))
+    adds = 0
+    for c in range(8):
+        entry = lvl * t + idx[lvl, pc, c]
+        key = torch.where(live, entry, -1 - lane)
+        v = w[lvl, pc, c, None] * g
+        _, gid = torch.unique(torch.stack([warp, key], 1), dim=0, return_inverse=True)
+        sums = torch.zeros((int(gid.max()) + 1, 2)).index_add_(0, gid, v)
+        g_entry = torch.zeros(sums.shape[0], dtype=torch.long).scatter_(0, gid, entry)
+        g_live = torch.zeros(sums.shape[0], dtype=torch.bool).scatter_(0, gid, live)
+        add = g_live & (sums != 0).any(-1)
+        out.index_add_(0, g_entry[add], sums[add])
+        adds += int(add.sum())
+    return out.view(lb, t, 2), adds
+
+
+def _rays(rng, n_rays=48, samples=96):
+    """Ray-ordered points, as a train batch holds them: each ray's samples
+    consecutive, marching through the unit cube."""
+    o = rng.uniform(0.2, 0.8, (n_rays, 1, 3))
+    d = rng.normal(size=(n_rays, 1, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t = np.linspace(0.0, 0.35, samples)[None, :, None]
+    return np.clip(o + t * d, 0.0, 1.0).reshape(-1, 3).astype(np.float32)
+
+
+@pytest.mark.parametrize("level_major", [False, True], ids=["level_fastest", "level_major"])
+@pytest.mark.parametrize("kind", ["rays", "clustered", "zero"])
+def test_k9_warp_merge_equals_index_add_and_the_plain_gradient(kind, level_major):
+    """The warp merge changes how many atomics K9 issues, not their sum: the
+    model of its walk equals one index_add_ per corner and the plain
+    version's autograd gradient (f32 sums in another order: 1e-5 of the
+    largest entry), issues at most one add per live corner, and, on
+    ray-ordered points walked level-major, merges the coarse levels' shared
+    corners.  A zero gradient gives an exact zero and no add."""
+    spec = hs.make_split_spec(**FULL)
+    rng = np.random.default_rng(40)
+    x = _rays(rng) if kind == "rays" else np.concatenate(
+        [_two_slabs(rng, 3000), _three_clusters(rng)[0]])
+    n, lb = x.shape[0], spec.n_big
+    grad = rng.standard_normal((n, 2 * lb)).astype(np.float32)
+    # most points dead, as on the 2^19 train step: whole rays of a batch
+    dead = rng.random(48) < 0.85 if kind == "rays" else rng.random(n) < 0.85
+    grad.reshape(dead.shape[0], -1)[dead] = 0.0
+    if kind == "zero":
+        grad[:] = 0.0
+    xt, gt = torch.from_numpy(x), torch.from_numpy(grad)
+    got, adds = _k9_model(xt, gt, spec, level_major)
+    idx, w = hk.corner_indices_weights(xt, hs._big_packed_spec(spec))
+    terms = w.view(lb, n, 8, 1) * gt.view(n, lb, 2).transpose(0, 1)[:, :, None]
+    entries = idx.view(lb, n, 8) + torch.arange(lb)[:, None, None] * spec.t_cap_big
+    want = torch.zeros((lb * spec.t_cap_big, 2)).index_add_(
+        0, entries.reshape(-1), terms.reshape(-1, 2)).view(got.shape)
+    live_corners = int((terms != 0).any(-1).sum())
+    tp = torch.zeros((lb, spec.t_cap_big, 2), requires_grad=True)
+    (plain,) = torch.autograd.grad(hk.hash_encode_plain(xt, tp, hs._big_packed_spec(spec)),
+                                   [tp], gt)
+    if kind == "zero":
+        assert float(got.abs().max()) == 0.0 and adds == 0
+        return
+    scale = float(want.abs().max())
+    assert scale > 0
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+    assert float((got - plain).abs().max()) <= 1e-5 * scale
+    assert adds <= live_corners
+    if kind == "rays" and level_major:
+        assert adds < 0.9 * live_corners

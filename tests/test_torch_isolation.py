@@ -3,6 +3,7 @@ JAX nor the reference package, and its entry points run on the card or
 raise."""
 
 import ast
+import inspect
 import os
 import subprocess
 import sys
@@ -113,14 +114,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     assert (hash_kernel.HASH_FWD_LAUNCHES, hash_kernel.HASH_BWD_LAUNCHES) == before
     lspec = hash_lattice.make_lattice_spec(num_levels=6, log2_hashmap_size=16,
                                            desired_resolution=512)
-    order = hash_lattice.lattice_sort_order(x, lspec)
     tb = torch.zeros((lspec.n_big, lspec.t_big, 2))
     before = (hash_lattice.LATTICE_FWD_LAUNCHES, hash_lattice.LATTICE_BWD_LAUNCHES,
               sort_kernel.SORT_LAUNCHES)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        hash_lattice.lattice_encode_forward(x, tb, lspec, order)
+        hash_lattice.lattice_encode_forward(x, tb, lspec)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        hash_lattice.lattice_encode_backward(x, torch.zeros((4, 2 * lspec.n_big)), lspec, order)
+        hash_lattice.lattice_encode_backward(x, torch.zeros((lspec.n_big, 4, 2)), lspec)
     with pytest.raises(ValueError, match="CUDA tensors"):
         sort_kernel.bitonic_sort_kernel(torch.zeros(128, dtype=torch.int32))
     assert (hash_lattice.LATTICE_FWD_LAUNCHES, hash_lattice.LATTICE_BWD_LAUNCHES,
@@ -134,7 +134,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         hash_sorted.sorted_encode_forward(x, tb, sspec, pairs)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        hash_sorted.sorted_encode_backward(x, torch.zeros((4, 2 * sspec.n_big)), sspec, pairs)
+        hash_sorted.sorted_encode_backward(x, torch.zeros((4, 2 * sspec.n_big)), sspec)
     with pytest.raises(ValueError, match="CUDA tensors"):
         sort_kernel.sort_pairs_(pairs.clone())
     assert (hash_sorted.SORTED_FWD_LAUNCHES, hash_sorted.SORTED_BWD_LAUNCHES,
@@ -151,4 +151,31 @@ def test_failed_build_raises(monkeypatch, tmp_path):
         _build.build_all()
     assert _build.sources() == ["hash_encode", "hash_lattice", "hash_sorted", "radix_sort",
                                "voxel_cuvol"]
+    assert _build.headers() == ["hash_corners"]
     assert np.all([not f.endswith(".so") for f in os.listdir(tmp_path)])
+
+
+def test_an_edited_header_rebuilds_its_kernels(monkeypatch, tmp_path):
+    """A library's name hashes its source and every shared header
+    (csrc/*.cuh), so a kernel built against an older header is not loaded."""
+    import shutil
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    before = {n: _build.library_path(n) for n in _build.sources()}
+    with open(csrc / "hash_corners.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {n: _build.library_path(n) for n in _build.sources()}
+    assert all(before[n] != after[n] for n in before)
+    for name in ("hash_encode", "hash_sorted"):      # the kernels that include it
+        with open(csrc / f"{name}.cu") as f:
+            assert '#include "hash_corners.cuh"' in f.read()
+
+
+def test_the_sorted_backward_keeps_no_pairs():
+    """SortedEncode's backward reads x01 alone (K9 recomputes the corners):
+    its source saves no pairs for it."""
+    src = inspect.getsource(hash_sorted.SortedEncode)
+    assert "ctx.save_for_backward(x01)" in src and "pairs" not in src.split("def backward")[1]
+    src = inspect.getsource(hash_lattice.LatticeEncode)
+    assert "ctx.save_for_backward(x01)" in src and "sort" not in src.split("def forward")[1]

@@ -1,10 +1,11 @@
-"""The lattice-engine CUDA kernels K5 (the radix sort of
-flnerf_tpu_torch/ops/csrc/radix_sort.cu), K6 (forward) and K7 (table
-gradient) of flnerf_tpu_torch/ops/csrc/hash_lattice.cu against their plain
-versions (ops/sort_kernel.py bitonic_sort_plain, a stable torch.sort and a
-gather, which K5 equals exactly; ops/hash_lattice.py lattice_encode_plain
-with autograd) on the card.  Skips without a CUDA device: the kernels have
-no CPU mode.
+"""The lattice-engine CUDA kernels K6 (forward) and K7 (table gradient) of
+flnerf_tpu_torch/ops/csrc/hash_lattice.cu, and the radix sort K5 of
+flnerf_tpu_torch/ops/csrc/radix_sort.cu on the reference's base keys and
+beyond the grid's 65,535 rows, against their plain versions
+(ops/hash_lattice.py lattice_encode_plain_levels with autograd;
+ops/sort_kernel.py bitonic_sort_plain, a stable torch.sort and a gather,
+which K5 equals exactly) on the card.  Skips without a CUDA device: the
+kernels have no CPU mode.
 
 This file imports no JAX, so it also runs on a machine without it:
 
@@ -49,6 +50,25 @@ def test_sort_matches_plain_version_on_card(cuda, shape, n_values, variant):
     # both sorts are stable: equal keys and payloads, position by position
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1 << 16, 2 * 65535 + 3])
+def test_sort_beyond_the_grid_rows_equals_the_stable_sort(cuda, rows):
+    """K5 on [rows, 128] keys with payloads, more rows than the grid's y
+    axis holds: launched in blocks of 65,535 rows, equal to the stable sort."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    keys = torch.randint(0, 1 << 12, (rows, 128), generator=g, device=cuda, dtype=torch.int32)
+    keys[-1] = 7                                          # a row of equal keys, in the last block
+    pay = torch.randint(-2 ** 31, 2 ** 31 - 1, (rows, 128), generator=g, device=cuda,
+                        dtype=torch.int32)
+    before = sk.SORT_LAUNCHES
+    got = sk.bitonic_sort(keys, pay)
+    torch.cuda.synchronize()
+    assert sk.SORT_LAUNCHES == before + 1
+    want_k, order = torch.sort(keys, dim=-1, stable=True)
+    assert torch.equal(got[0], want_k)
+    assert torch.equal(got[1], torch.gather(pay, -1, order))
 
 
 def _radix_keys(kind, shape, g, cuda):
@@ -110,8 +130,12 @@ def _inputs(device, spec, n, seed=0, clustered=False):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kw,n,clustered", [(FULL, 20000, False), (FULL, 8192, True),
-                                            (SMALL, 777, False)])
+                                            (FULL, 1 << 16, False), (SMALL, 777, False)],
+                         ids=["ragged", "two_slabs", "refresh_chunk", "small"])
 def test_kernels_match_plain_version_on_card(cuda, kw, n, clustered):
+    """K6 within 1e-6 of the largest plain output and K7 within 1e-4 of the
+    largest plain gradient entry, through the autograd Function (no sort:
+    K5 is not launched) and through the kernels' own wrappers."""
     spec = hl.make_lattice_spec(**kw)
     x, table, grad = _inputs(cuda, spec, n, clustered=clustered)
     before = hl.LATTICE_FWD_LAUNCHES, hl.LATTICE_BWD_LAUNCHES, sk.SORT_LAUNCHES
@@ -120,7 +144,7 @@ def test_kernels_match_plain_version_on_card(cuda, kw, n, clustered):
     (g_k,) = torch.autograd.grad(out_k, [t_k], grad)
     torch.cuda.synchronize()
     assert (hl.LATTICE_FWD_LAUNCHES, hl.LATTICE_BWD_LAUNCHES, sk.SORT_LAUNCHES) == (
-        before[0] + 1, before[1] + 1, before[2] + 1)
+        before[0] + 1, before[1] + 1, before[2])
     t_p = table.clone().requires_grad_(True)
     out_p = hl.lattice_encode_plain(x, t_p, spec)
     (g_p,) = torch.autograd.grad(out_p, [t_p], grad)
@@ -129,15 +153,47 @@ def test_kernels_match_plain_version_on_card(cuda, kw, n, clustered):
     out_k, out_p = out_k.detach(), out_p.detach()
     assert float((out_k - out_p).abs().max()) <= 1e-6 * float(out_p.abs().max())
     assert float((g_k - g_p).abs().max()) <= 1e-4 * float(g_p.abs().max())
-    # the result does not depend on the walk's order
-    ident = torch.arange(n, dtype=torch.int32, device=cuda).expand(spec.n_big, n).contiguous()
-    torch.testing.assert_close(hl.lattice_encode_forward(x, table, spec, ident), out_k,
-                               rtol=0, atol=0)
-    g_i = hl.lattice_encode_backward(x, grad, spec, ident)
-    assert float((g_i - g_p).abs().max()) <= 1e-4 * float(g_p.abs().max())
+    # the wrappers' own layout: level-major output, level-major gradient
+    levels = hl.lattice_encode_forward(x, table, spec)
+    assert levels.shape == (spec.n_big, n, 2)
+    torch.testing.assert_close(hl.point_major(levels), out_k, rtol=0, atol=0)
+    view = grad.view(n, spec.n_big, 2).transpose(0, 1)     # autograd's layout
+    for g_up in (view, view.contiguous()):                  # read in place, or level-major
+        g_l = hl.lattice_encode_backward(x, g_up, spec)
+        assert float((g_l - g_p).abs().max()) <= 1e-4 * float(g_p.abs().max())
     for l in range(spec.n_big):   # padding past a dense level's size receives nothing
         pad = g_k[l, int(spec.split.big.sizes[l]):]
         assert pad.numel() == 0 or float(pad.abs().max()) == 0.0
+    # a zero upstream gradient adds exactly nothing
+    zero = hl.lattice_encode_backward(x, torch.zeros((spec.n_big, n, 2), device=cuda), spec)
+    assert float(zero.abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_split_encode_on_card_matches_the_plain_assembly(cuda):
+    """The [N, L*2] split encode on the card (K3 for the small levels, K6
+    for the big ones, joined in one copy; K4 and K7 in the backward, no K5)
+    against the same tables on the CPU."""
+    spec = hl.make_lattice_spec(**FULL)
+    ts, tb = hl.init_lattice_tables(spec, torch.Generator(device=cuda).manual_seed(4), cuda)
+    ts, tb = (t.mul(1e4).requires_grad_(True) for t in (ts, tb))
+    x = torch.rand((5000, 3), device=cuda)
+    grad = torch.randn((5000, spec.output_dim), device=cuda)
+    before = (hk.HASH_FWD_LAUNCHES, hk.HASH_BWD_LAUNCHES, hl.LATTICE_FWD_LAUNCHES,
+              hl.LATTICE_BWD_LAUNCHES, sk.SORT_LAUNCHES)
+    out = hl.lattice_encode_split(x, (ts, tb), spec)
+    g_s, g_b = torch.autograd.grad(out, [ts, tb], grad)
+    torch.cuda.synchronize()
+    assert (hk.HASH_FWD_LAUNCHES, hk.HASH_BWD_LAUNCHES, hl.LATTICE_FWD_LAUNCHES,
+            hl.LATTICE_BWD_LAUNCHES, sk.SORT_LAUNCHES) == tuple(
+                b + d for b, d in zip(before, (1, 1, 1, 1, 0)))
+    c_s, c_b = (t.detach().cpu().requires_grad_(True) for t in (ts, tb))
+    want = hl.lattice_encode_split(x.cpu(), (c_s, c_b), spec)
+    w_s, w_b = torch.autograd.grad(want, [c_s, c_b], grad.cpu())
+    assert out.shape == want.shape == (5000, spec.output_dim)
+    assert float((out.cpu() - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    for got, exp in ((g_s, w_s), (g_b, w_b)):
+        assert float((got.cpu() - exp).abs().max()) <= 1e-4 * float(exp.abs().max())
 
 
 @pytest.mark.cuda
@@ -157,24 +213,28 @@ def test_sort_order_walks_keys_in_order(cuda):
 def test_kernel_wrappers_check_their_inputs(cuda):
     spec = hl.make_lattice_spec(**SMALL)
     x, table, grad = _inputs(cuda, spec, 64)
-    order = hl.lattice_sort_order(x, spec)
     with pytest.raises(ValueError, match="dtype"):
-        hl.lattice_encode_forward(x, table.double(), spec, order)
+        hl.lattice_encode_forward(x, table.double(), spec)
     with pytest.raises(ValueError, match="shape"):
-        hl.lattice_encode_forward(x, table[:2].contiguous(), spec, order)
-    with pytest.raises(ValueError, match="order"):
-        hl.lattice_encode_forward(x, table, spec, order[:, :10])
-    with pytest.raises(ValueError, match="dtype"):
-        hl.lattice_encode_backward(x, grad, spec, order.long())
-    assert hl.lattice_encode_forward(x[:0], table, spec, order).shape == (0, 2 * spec.n_big)
+        hl.lattice_encode_forward(x, table[:2].contiguous(), spec)
+    with pytest.raises(ValueError, match="shape"):        # [N, Lb*2] is not K7's layout
+        hl.lattice_encode_backward(x, grad, spec)
+    with pytest.raises(ValueError, match="float32"):
+        hl.lattice_encode_backward(x, grad.view(64, -1, 2).transpose(0, 1).double(), spec)
+    split = grad.view(64, -1, 2).permute(2, 1, 0).contiguous().permute(1, 2, 0)
+    with pytest.raises(ValueError, match="pairs"):       # each pair's two values apart
+        hl.lattice_encode_backward(x, split, spec)
+    assert not hl.pairs_strided(split) and hl.pairs_strided(grad.view(64, -1, 2).transpose(0, 1))
+    assert hl.lattice_encode_forward(x[:0], table, spec).shape == (spec.n_big, 0, 2)
     with pytest.raises(ValueError, match="power of two"):
         sk.bitonic_sort(torch.zeros(100, dtype=torch.int32, device=cuda))
 
 
 @pytest.mark.cuda
 def test_lattice_field_on_card_matches_its_plain_twin(cuda):
-    """The full-width 2^19 field (bf16 MLPs) on the card through K3-K7
-    against the same weights on the CPU through the plain versions."""
+    """The full-width 2^19 field (bf16 MLPs) on the card through K3, K4, K6
+    and K7 (no sort) against the same weights on the CPU through the plain
+    versions."""
     cfg = NGPConfig(bound=2.0, log2_hashmap_size=19)
     field = NGPField(cfg, torch.bfloat16, torch.Generator(device=cuda).manual_seed(0), cuda)
     with torch.no_grad():
@@ -185,8 +245,8 @@ def test_lattice_field_on_card_matches_its_plain_twin(cuda):
     x = (torch.rand((4096, 3), device=cuda) * 4 - 2)
     before = hk.HASH_FWD_LAUNCHES, sk.SORT_LAUNCHES, hl.LATTICE_FWD_LAUNCHES
     s_k, geo_k = field.density(x)
-    assert (hk.HASH_FWD_LAUNCHES, sk.SORT_LAUNCHES, hl.LATTICE_FWD_LAUNCHES) == tuple(
-        b + 1 for b in before)
+    assert (hk.HASH_FWD_LAUNCHES, sk.SORT_LAUNCHES, hl.LATTICE_FWD_LAUNCHES) == (
+        before[0] + 1, before[1], before[2] + 1)
     s_p, geo_p = cpu.density(x.cpu())
     # bf16 hidden activations: a one-ulp flip moves an output by ~2^-8
     torch.testing.assert_close(geo_k.cpu(), geo_p, rtol=2e-2, atol=2e-2)

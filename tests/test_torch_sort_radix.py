@@ -152,3 +152,46 @@ def test_engine_orders_equal_the_digit_schedule_on_their_width(engine):
         pairs = hs.sort_inputs(x, spec)
         got = _digit_sort(pairs[..., 0], pairs[..., 1], sk.key_bits_for(spec.t_cap_big))
         assert torch.equal(torch.stack(got, -1), hs.sorted_pairs(x, spec))
+
+
+class _StubLib:
+    """Stands in for K5's library: records each launch's pointers and
+    rows, and fails the launch numbered ``fail_at``."""
+
+    def __init__(self, fail_at=None):
+        self.calls, self.fail_at = [], fail_at
+
+    def radix_sort_pairs(self, pairs, scratch, ints, g, n, dbits, passes, stream):
+        self.calls.append((pairs, scratch, ints, g, n, dbits, passes, stream))
+        return 700 if len(self.calls) == self.fail_at else 0
+
+
+@pytest.mark.parametrize("g,want", [(1, [(0, 1)]), (65535, [(0, 65535)]),
+                                    (65536, [(0, 65535), (65535, 1)]),
+                                    (2 * 65535 + 3, [(0, 65535), (65535, 65535), (131070, 3)])])
+def test_row_blocks_fit_the_grid(g, want):
+    """The kernel's rows are its grid's y axis (at most 65,535): a taller
+    sort is cut into consecutive blocks that cover every row once."""
+    assert sk.row_blocks(g) == want
+    assert all(rows <= sk.MAX_GRID_ROWS for _, rows in want)
+
+
+@pytest.mark.parametrize("g", [3, 65536, 200000])
+def test_the_wrapper_launches_each_row_block(g):
+    """One launch per block: its pairs and scratch pointers advance by the
+    block's first row (n int2 pairs, 8 bytes each, a row), the int32
+    scratch is shared, and the rows add up to g."""
+    stub, n, cfg = _StubLib(), 128, {"digit_bits": 10, "passes": 2}
+    sk._launch_rows(stub, 4096, 1 << 40, 64, g, n, cfg, 77)
+    got = [((c[0] - 4096) // (n * 8), c[3]) for c in stub.calls]
+    assert got == sk.row_blocks(g)
+    assert all(c[1] - (1 << 40) == c[0] - 4096 for c in stub.calls)
+    assert all(c[2] == 64 and c[4:] == (n, 10, 2, 77) for c in stub.calls)
+    assert sum(rows for _, rows in got) == g
+
+
+def test_a_failed_row_block_raises():
+    stub = _StubLib(fail_at=2)
+    with pytest.raises(RuntimeError, match="rows 65535..70000: cudaError 700"):
+        sk._launch_rows(stub, 0, 0, 0, 70000, 256, {"digit_bits": 8, "passes": 4}, 0)
+    assert len(stub.calls) == 2

@@ -1,5 +1,5 @@
 """The sorted-engine CUDA kernels K8 (forward, one (chunk, level) row per
-thread-block cluster) and K9 (table gradient) of
+thread-block cluster) and K9 (table gradient from the points, no pairs) of
 flnerf_tpu_torch/ops/csrc/hash_sorted.cu, with the radix sort K5 on the
 engine's own pairs, against their plain versions (ops/hash_kernel.py
 hash_encode_plain on the big levels' packed spec with autograd,
@@ -79,15 +79,18 @@ def _close(got, want, rel):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kw,kind,n", [(FULL, "uniform", 20000), (FULL, "slabs", 8192),
-                                       (GAP, "slabs", 512), (GAP, "clusters", 1824),
-                                       (SMALL, "uniform", 777)],
-                         ids=["full", "full_slabs", "two_slabs", "three_clusters", "small"])
+                                       (FULL, "uniform", 1 << 16), (GAP, "slabs", 512),
+                                       (GAP, "clusters", 1824), (SMALL, "uniform", 777)],
+                         ids=["full", "full_slabs", "refresh_chunk", "two_slabs",
+                              "three_clusters", "small"])
 def test_kernels_match_plain_version_on_card(cuda, kw, kind, n):
     spec = hs.make_split_spec(**kw)
     x, table, grad = _inputs(cuda, spec, kind, n)
     before = hs.SORTED_FWD_LAUNCHES, hs.SORTED_BWD_LAUNCHES, sk.SORT_LAUNCHES
     t_k = table.clone().requires_grad_(True)
     out_k = hs.hash_encode_sorted(x, t_k, spec)
+    # the backward keeps x01 alone: the forward's pairs are freed
+    assert [tuple(t.shape) for t in out_k.grad_fn.saved_tensors] == [(n, 3)]
     (g_k,) = torch.autograd.grad(out_k, [t_k], grad)
     torch.cuda.synchronize()
     assert (hs.SORTED_FWD_LAUNCHES, hs.SORTED_BWD_LAUNCHES, sk.SORT_LAUNCHES) == (
@@ -95,13 +98,22 @@ def test_kernels_match_plain_version_on_card(cuda, kw, kind, n):
     out_p, g_p = _plain(x, table, grad, spec)
     _close(out_k.detach(), out_p, 1e-6)
     _close(g_k, g_p, 1e-4)
-    # any order of the pairs gives the same function; so does K9 without
-    # the warp aggregation
+    # any order of the pairs gives the same function; K9 gives it on either
+    # grid and without the warp merge, and exactly zero on a zero gradient
     pairs = hs.sort_inputs(x, spec)
     _close(hs.sorted_encode_forward(x, table, spec, pairs), out_p, 1e-6)
-    for pr in (pairs, hs.sorted_pairs(x, spec)):
-        for agg in (True, False):
-            _close(hs.sorted_encode_backward(x, grad, spec, pr, aggregate=agg), g_p, 1e-4)
+    for level_major in (False, True):
+        for merge in (True, False):
+            _close(hs.sorted_encode_backward(x, grad, spec, level_major=level_major,
+                                             merge=merge), g_p, 1e-4)
+            zero = hs.sorted_encode_backward(x, torch.zeros_like(grad), spec,
+                                             level_major=level_major, merge=merge)
+            assert float(zero.abs().max()) == 0.0
+    # the columns of a wider gradient (the split encode's), read in place
+    wide = torch.zeros((n, 2 * spec.n_big + 4), device=cuda)
+    wide[:, 4:] = grad
+    assert hs.rows_strided(wide[:, 4:]) and not wide[:, 4:].is_contiguous()
+    _close(hs.sorted_encode_backward(x, wide[:, 4:], spec), g_p, 1e-4)
     for l in range(spec.n_big):   # padding past a dense level's size receives nothing
         pad = g_k[l, int(spec.big.sizes[l]):]
         assert pad.numel() == 0 or float(pad.abs().max()) == 0.0
@@ -195,7 +207,7 @@ def test_backward_accumulates_into_a_given_gradient(cuda):
     x, table, grad = _inputs(cuda, spec, "uniform", 3000, seed=2)
     pairs = hs.sorted_pairs(x, spec)
     base = torch.randn((spec.n_big, spec.t_cap_big, 2), device=cuda)
-    acc = hs.sorted_encode_backward(x, grad, spec, pairs, grad_table=base.clone())
+    acc = hs.sorted_encode_backward(x, grad, spec, grad_table=base.clone())
     _, g_p = _plain(x, table, grad, spec)
     _close(acc - base, g_p, 1e-4)
     out = hs.sorted_encode_forward(x, table, spec, pairs, out=torch.ones((3000, 2 * spec.n_big),
@@ -215,8 +227,12 @@ def test_kernel_wrappers_check_their_inputs(cuda):
         hs.sorted_encode_forward(x, table[:2].contiguous(), spec, pairs)
     with pytest.raises(ValueError, match="pairs"):
         hs.sorted_encode_forward(x, table, spec, pairs[:, :16].contiguous())
-    with pytest.raises(ValueError, match="dtype"):
-        hs.sorted_encode_backward(x, grad, spec, pairs.long())
+    with pytest.raises(ValueError, match="float32"):
+        hs.sorted_encode_backward(x, grad.double(), spec)
+    with pytest.raises(ValueError, match="rows"):         # rows not contiguous
+        hs.sorted_encode_backward(x, grad.t().contiguous().t(), spec)
+    with pytest.raises(ValueError, match="shape"):
+        hs.sorted_encode_backward(x, grad[:, :4].contiguous(), spec)
     with pytest.raises(ValueError, match="contiguous"):
         sk.sort_pairs_(pairs.transpose(0, 1))
 
@@ -224,7 +240,7 @@ def test_kernel_wrappers_check_their_inputs(cuda):
 @pytest.mark.cuda
 def test_sorted_field_on_card_matches_its_plain_twin(cuda):
     """The full-width 2^19 field on the sorted engine (bf16 MLPs) on the
-    card through K3/K4 and K5/K8/K9 against the same weights on the CPU
+    card through K3/K4 and K5/K8 against the same weights on the CPU
     through the plain versions."""
     cfg = NGPConfig(bound=2.0, log2_hashmap_size=19, hash_engine="sorted")
     field = NGPField(cfg, torch.bfloat16, torch.Generator(device=cuda).manual_seed(0), cuda)
