@@ -49,7 +49,17 @@ Phases (any failure raises, and the script exits non-zero):
   7. K3, K4's body (its gradient zero-filled outside the timed loop; the
      zero-fill timed apart; on the train loss's gradient, and on the dense
      one) and the plain version by CUDA events on phase 5's batch, beside
-     the least time the card could take;
+     the least time the card could take; K3 and K4 held against the plain
+     version on 65,536 points in 4 level-0 cells (contention) with a dense
+     and a zero gradient, on the train batch with a dense gradient as a
+     column slice of a wider one (read in place) and with a zero gradient
+     (K4 exactly zero), and on 1000, 1 and 0 points; the
+     K3/K4 probe (tools/hash_probe.py: the replaced kernels, K3 without
+     its gathers, with a load for every corner and walking a tile level by
+     level, K4 with levels 0-1 or 0 accumulated in shared memory by 33-264
+     CTAs, with and without the merge, by CUDA events and by the
+     profiler's device time) on the train batch and on the clustered
+     points, with its findings;
   8. the lattice engine's kernels, K6 (forward) and K7 (table gradient),
      against their plain versions (ops/hash_lattice.py
      lattice_encode_plain_levels, and lattice_encode_plain with autograd)
@@ -57,7 +67,10 @@ Phases (any failure raises, and the script exits non-zero):
      --log2_hashmap_size 19` (2 small levels on K3/K4, 14 big ones on a
      [14, 2^19, 2] table) after 256 steps: the kept points of its next batch
      with the train loss's gradient, a dense random one and a zero one, a
-     65,536-point refresh chunk and 65,536 points in two z-slabs; K5 (the
+     65,536-point refresh chunk and 65,536 points in two z-slabs; K3 and
+     K4 on the 2 small levels of the same inputs, K4 on the train and a
+     dense gradient's first 4 columns read in place (as the split encode
+     hands them over) and on a zero one; K5 (the
      radix sort, no longer on this path) on the reference's base keys of
      each, through both variants and on 31 bits, and on [65,536, 128] keys,
      beyond the grid's 65,535 rows, exactly equal to ops/sort_kernel.py
@@ -75,7 +88,9 @@ Phases (any failure raises, and the script exits non-zero):
      the gradient's level-major copy; K6's stripped variants
      (tools/lattice_probe.py: no gather, no store, the [p, l] store and the
      sorted walk of the kernel it replaced) and the base keys and K5 a
-     sorted walk would need, with the finding;
+     sorted walk would need, with the finding; K3 and K4 on the small
+     levels (the train gradient's columns in place, and a dense one) with
+     their plain versions and bounds, and the K3/K4 probe on them;
  11. the sorted engine's kernels, K5 on the engine's own (corner entry,
      slot) pairs (exactly the stable sort, on the engine's key width and on
      31 bits), K8 (forward) and K9 (table gradient, from the points, on both
@@ -162,10 +177,11 @@ CLUSTER_POINTS = 1 << 10   # points in each small cluster of phase 11's three-cl
 # geometry (14) and w * g (2), its run sums not counted
 K8_FLOPS = 8 * 18
 K9_FLOPS = 8 * 16
-# The replaced designs' figures (the sorted K6/K7 walks, the pair-walking
-# K9; PERF.md section 6, on "NVIDIA H100 80GB HBM3, 700.00 W"), printed
-# beside this run's
-BEFORE = {"K6": "0.336 ms sorted, 0.390 point order", "K7 dense": "0.985 ms",
+# The replaced designs' figures (K3/K4 before their tiles and paired
+# loads, the sorted K6/K7 walks, the pair-walking K9; PERF.md section 6, on
+# "NVIDIA H100 80GB HBM3, 700.00 W"), printed beside this run's
+BEFORE = {"K3": "0.1758 ms", "K4 dense": "1.155 ms", "K4 train": "0.060 ms",
+          "K6": "0.336 ms sorted, 0.390 point order", "K7 dense": "0.985 ms",
        "K7 train": "0.224 ms", "lattice step": "6.85 ms", "K9 dense": "0.667 ms",
        "K9 train": "0.387 ms", "sorted step": "10.67 ms",
        "peak": {"lattice": "3.85 GB", "sorted": "5.19 GB"}}
@@ -460,6 +476,56 @@ def autograd_view(g_big, n_small):
     return full[:, n_small:].transpose(0, 1)
 
 
+def hold_hash_kernels(spec, table, cases, tag):
+    """K3 and K4 against the plain version on each (name, x01, upstream
+    gradient as K4 is handed it) case: K3 within 1e-5 of the largest
+    output, K4 within 1e-4 of the largest entry, and exactly zero on a zero
+    gradient.  Returns (K3's, K4's) largest error."""
+    import torch
+    from flnerf_tpu_torch.ops import hash_kernel as hk
+    k3_err = k4_err = 0.0
+    for name, xx, g_up in cases:
+        n = xx.shape[0]
+        with torch.no_grad():
+            out_k = hk.hash_encode_forward(xx, table, spec)
+            out_p = hk.hash_encode_plain(xx, table, spec)
+        grad_k = hk.hash_encode_backward(xx, g_up, spec)
+        grad_p = torch.zeros_like(table)
+        if n:
+            tp = table.clone().requires_grad_(True)
+            (grad_p,) = torch.autograd.grad(hk.hash_encode_plain(xx, tp, spec), [tp], g_up)
+        torch.cuda.synchronize()
+        e3 = float((out_k - out_p).abs().max()) if n else 0.0
+        s3 = float(out_p.abs().max()) if n else 0.0
+        e4, s4 = float((grad_k - grad_p).abs().max()), float(grad_p.abs().max())
+        zero = not bool(g_up.any())
+        live = float((g_up != 0).any(-1).float().mean()) if n else 0.0
+        print(f"[{tag}] K3/K4 on {name} ({n} points, nonzero gradient at {live:.4f} of them, "
+              f"gradient strides {tuple(g_up.stride())}): "
+              f"K3 max_err {e3:.3e} (largest output {s3:.4e}), K4 max_err {e4:.3e} (largest "
+              f"entry {s4:.4e}{', a zero gradient' if zero else ''})", flush=True)
+        check(tuple(out_k.shape) == (n, spec.output_dim) and bool(torch.isfinite(out_k).all()),
+              f"K3 output of shape {tuple(out_k.shape)} not finite or misshapen ({name})")
+        check(e3 <= 1e-5 * s3, f"K3 differs from the plain version by {e3} > 1e-5 * {s3} ({name})")
+        if zero:
+            check(not bool(grad_k.any()), f"K4 is not exactly zero on a zero gradient ({name})")
+        else:
+            check(s4 > 0 and e4 <= 1e-4 * s4,
+                  f"K4 differs from the plain version by {e4} > 1e-4 * {s4} ({name})")
+        k3_err, k4_err = max(k3_err, e3), max(k4_err, e4)
+    return k3_err, k4_err
+
+
+def print_probe(tag, what, ms, gnames):
+    """The hash probe's times and its finding for each gradient."""
+    from flnerf_tpu_torch.tools import hash_probe
+    print(f"[{tag}] K3/K4 probe (flnerf_tpu_torch/tools/hash_probe.py) on {what}, ms by "
+          f"events / device ms: " + "; ".join(f"{k} {ev:.4f} / {dt:.4f}"
+                                              for k, (ev, dt) in ms.items()), flush=True)
+    for g in gnames:
+        print(f"[{tag}] finding, {what}, {hash_probe.finding(ms, g)}", flush=True)
+
+
 def lattice_phases(dev, to_dev):
     """Phases 8-10, the hash-NGP path at 2^19 (the lattice engine: K3, K4,
     K6, K7; K5 is gated on its keys but no longer on the path).  Returns
@@ -560,6 +626,21 @@ def lattice_phases(dev, to_dev):
         k7_err = max(k7_err, err)
     g_dense = grads[1][2]
     del grad_k, grad_p, tp, grads
+    # K3 and K4 on the small levels, K4 on the gradient as the split
+    # encode's assembly hands it over: the first 2 * n_small columns of the
+    # whole upstream gradient, read in place
+    small_spec = spec.split.small
+    table_small = trainer.field.table_small.detach().clone()
+    g_small = g_seen[:, :2 * n_small]
+    g_small_dense = torch.randn((x_batch.shape[0], g_seen.shape[1]), generator=gen,
+                                device=dev)[:, :2 * n_small]
+    hold_hash_kernels(small_spec, table_small, [
+        ("the train batch's small levels, the train gradient's columns", x_batch, g_small),
+        ("the train batch's small levels, a dense gradient's columns", x_batch, g_small_dense),
+        ("the train batch's small levels, a zero gradient", x_batch, torch.zeros_like(g_small)),
+    ] + [(f"the {name}'s small levels, a dense gradient", xx,
+          torch.randn((xx.shape[0], 2 * n_small), generator=gen, device=dev))
+         for name, xx in inputs.items() if name != "train batch"], "phase 8")
 
     # ---- phase 9: the lattice main path, through the CLI on the card ----
     for mod in (hk, hl, sk, vk):
@@ -694,6 +775,43 @@ def lattice_phases(dev, to_dev):
           f"{'sorted' if sorted_fwd < ms['K6'] else 'point'} order is faster; launches per "
           f"train step K5 {launches['K5'] / steps:.4f}, K6 {launches['K6'] / steps:.4f}, "
           f"K7 {launches['K7'] / steps:.4f}", flush=True)
+
+    # K3 and K4 on the small levels (phase 7's measure, on this batch)
+    from flnerf_tpu_torch.tools import hash_probe
+    ms_small = hash_probe.probe(x_batch, table_small, small_spec,
+                                {"train": g_small, "dense": g_small_dense})
+    with torch.no_grad():
+        k3s_plain_ms = cuda_ms(lambda: hk.hash_encode_plain(x_batch, table_small, small_spec), 5)
+    tp = table_small.clone().requires_grad_(True)
+    out_g = hk.hash_encode_plain(x_batch, tp, small_spec)
+    k4s_plain_ms = cuda_ms(lambda: torch.autograd.grad(out_g, [tp], g_small,
+                                                       retain_graph=True), 5)
+    del out_g, tp
+    ls = n_small
+    sidx, _ = hk.corner_indices_weights(x_batch, small_spec)
+    slvl = torch.arange(ls, device=dev)[:, None] * small_spec.t_cap
+    s_touched = int((sidx + slvl).unique().numel())
+    s_live = (g_small != 0).any(-1)
+    s_live_pts = int(s_live.sum())
+    s_touched_live = int((sidx.reshape(ls, n_pts, 8)[:, s_live].reshape(ls, -1)
+                          + slvl).unique().numel())
+    del sidx
+    sb = {"K3": bound_of(n_pts * 12 + n_pts * ls * 8 + s_touched * 8, n_pts * ls * K3_FLOPS),
+          "K4 train": bound_of(n_pts * 12 + n_pts * ls * 8 + s_touched_live * 16,
+                               s_live_pts * ls * K4_FLOPS),
+          "K4 dense": bound_of(n_pts * 12 + n_pts * ls * 8 + s_touched * 16,
+                               n_pts * ls * K4_FLOPS)}
+    print(f"[phase 10] small levels: {n_pts} points x {ls} levels, {s_touched} distinct "
+          f"entries touched ({s_touched_live} by the {s_live_pts} points with a gradient); "
+          f"K3 {ms_small['K3'][0]:.4f} ms by events, "
+          f"{ms_small['K3'][1]:.4f} device (plain {k3s_plain_ms:.3f} ms, bound "
+          f"{sb['K3'][0]:.4f} ms by {sb['K3'][1]}); K4 body on the train gradient's columns in "
+          f"place {ms_small['K4 train'][0]:.4f} ms by events, {ms_small['K4 train'][1]:.4f} "
+          f"device (plain backward {k4s_plain_ms:.3f} ms, bound {sb['K4 train'][0]:.4f} ms by "
+          f"{sb['K4 train'][1]}), on a dense gradient's columns {ms_small['K4 dense'][0]:.4f} "
+          f"ms by events, {ms_small['K4 dense'][1]:.4f} device (bound "
+          f"{sb['K4 dense'][0]:.4f} ms by {sb['K4 dense'][1]})", flush=True)
+    print_probe("phase 10", "the 2^19 small levels", ms_small, ("train", "dense"))
 
     src = "flnerf_tpu_torch/ops/csrc/hash_lattice.cu"
     return res["psnr"], k5_err, [
@@ -1227,39 +1345,15 @@ def main():
     x_refresh = refresh_chunk(trainer, gen)
     # a dense N(0, 1) upstream gradient: every point adds its atomics
     g_dense = torch.randn((x_batch.shape[0], spec.output_dim), generator=gen, device=dev)
-    k3_err, k3_rel = 0.0, 0.0
-    for name, xx in (("train batch", x_batch), ("refresh chunk", x_refresh)):
-        with torch.no_grad():
-            out_k = hk.hash_encode_forward(xx, table, spec)
-            out_p = hk.hash_encode_plain(xx, table, spec)
-        torch.cuda.synchronize()
-        err, scale = float((out_k - out_p).abs().max()), float(out_p.abs().max())
-        print(f"[phase 5] K3 on the {name} {tuple(xx.shape)}: max_err {err:.3e} "
-              f"(largest output {scale:.4f})", flush=True)
-        check(bool(torch.isfinite(out_k).all()), f"K3 output not finite ({name})")
-        check(err <= 1e-5 * scale, f"K3 differs from the plain version by {err} > "
-                                   f"1e-5 * {scale} ({name})")
-        k3_err, k3_rel = max(k3_err, err), max(k3_rel, err / scale)
-    del out_k, out_p
-    k4_err = 0.0
-    for name, g_up in (("train gradient", g_train), ("dense gradient", g_dense)):
-        grad_k = hk.hash_encode_backward(x_batch, g_up, spec)
-        tp = table.clone().requires_grad_(True)
-        (grad_p,) = torch.autograd.grad(hk.hash_encode_plain(x_batch, tp, spec), [tp], g_up)
-        torch.cuda.synchronize()
-        err, scale = float((grad_k - grad_p).abs().max()), float(grad_p.abs().max())
-        live = float((g_up != 0).any(-1).float().mean())
-        print(f"[phase 5] K4 on the train batch, {name} (nonzero at {live:.4f} of the "
-              f"points): max_err {err:.3e} (largest entry {scale:.4e})", flush=True)
-        # on the plateau the train gradient may be zero at every point (dead
-        # sigma-net ReLUs); then K4 must give exactly zero too
-        check((scale > 0 or name == "train gradient") and err <= 1e-4 * scale,
-              f"K4 differs from the plain version by {err} > 1e-4 * {scale} ({name})")
-        k4_err = max(k4_err, err)
+    k3_err, k4_err = hold_hash_kernels(spec, table, [
+        ("the train batch, the train gradient", x_batch, g_train),
+        ("the train batch, a dense gradient", x_batch, g_dense),
+        ("the refresh chunk, a dense gradient", x_refresh,
+         torch.randn((x_refresh.shape[0], spec.output_dim), generator=gen, device=dev))],
+        "phase 5")
     print(f"[phase 5] table after {NGP_WINDOW} steps: max |entry| "
           f"{float(table.abs().max()):.4f}, mean |entry| {float(table.abs().mean()):.3e}",
           flush=True)
-    del grad_k, grad_p, tp
 
     # ---- phase 6: the NGP main path, through the CLI on the card ----
     from flnerf_tpu_torch.cli import main_nerf
@@ -1368,14 +1462,40 @@ def main():
     print(f"[phase 7] train batch: {n_pts} points x {L2} levels, {touched} distinct table "
           f"entries touched ({touched_live} by the {live_pts} points with a gradient); L2 "
           f"gather volume {n_pts * L2 * 8 * 8 / 1e6:.1f} MB (8 corners x 8 B per point and "
-          f"level); K3 {k3_ms:.4f} ms (plain {k3_plain_ms:.3f} ms, bound "
-          f"{bounds['K3'][0]:.4f} ms by {bounds['K3'][1]}); K4 body on the dense gradient "
-          f"{k4_dense_ms:.4f} ms (plain backward {k4_dense_plain_ms:.3f} ms, bound "
-          f"{bounds['K4'][0]:.4f} ms by {bounds['K4'][1]}), on the train gradient "
-          f"{k4_ms:.4f} ms (plain backward {k4_plain_ms:.3f} ms, bound "
+          f"level); K3 {k3_ms:.4f} ms (before: {BEFORE['K3']}; plain {k3_plain_ms:.3f} ms, "
+          f"bound {bounds['K3'][0]:.4f} ms by {bounds['K3'][1]}); K4 body on the dense "
+          f"gradient {k4_dense_ms:.4f} ms (before: {BEFORE['K4 dense']}; plain backward "
+          f"{k4_dense_plain_ms:.3f} ms, bound {bounds['K4'][0]:.4f} ms by {bounds['K4'][1]}), "
+          f"on the train gradient {k4_ms:.4f} ms (before: {BEFORE['K4 train']}; plain "
+          f"backward {k4_plain_ms:.3f} ms, bound "
           f"{bounds['K4 train'][0]:.4f} ms by {bounds['K4 train'][1]}); K4's zero-fill "
           f"{k4_zero_ms:.4f} ms (bound {zero_bound:.4f} ms); launches per train step K3 "
           f"{h_fwd / steps_ngp:.4f}, K4 {h_bwd / steps_ngp:.4f}", flush=True)
+
+    # K3 and K4 held on a contention input (every point in a few level-0
+    # cells), a non-contiguous gradient (a column slice, read in place),
+    # zero gradients, a ragged last tile, one point and none
+    from flnerf_tpu_torch.tools import hash_probe
+    x_cl = hash_probe.clustered(REFRESH_CHUNK, gen, dev)
+    g_cl = torch.randn((x_cl.shape[0], spec.output_dim), generator=gen, device=dev)
+    g_wide = torch.randn((n_pts, spec.output_dim + 8), generator=gen, device=dev)
+    g_zero = torch.zeros_like(g_dense)
+    e3, e4 = hold_hash_kernels(spec, table, [
+        ("clustered points (4 level-0 cells), a dense gradient", x_cl, g_cl),
+        ("clustered points, a zero gradient", x_cl, torch.zeros_like(g_cl)),
+        ("the train batch, a dense gradient as a column slice", x_batch,
+         g_wide[:, 4:4 + spec.output_dim]),
+        ("the train batch, a zero gradient", x_batch, g_zero),
+        ("a ragged last tile (1000 points)", x_batch[:1000], g_dense[:1000]),
+        ("one point", x_batch[:1], g_dense[:1]),
+        ("no point", x_batch[:0], g_dense[:0])], "phase 7")
+    k3_err, k4_err = max(k3_err, e3), max(k4_err, e4)
+    print_probe("phase 7", "the 2^15 train batch", hash_probe.probe(
+        x_batch, table, spec, {"train": g_train, "dense": g_dense, "zero": g_zero}),
+        ("train", "dense", "zero"))
+    print_probe("phase 7", "the clustered points", hash_probe.probe(
+        x_cl, table, spec, {"clustered": g_cl}), ("clustered",))
+    del x_cl, g_cl, g_wide, g_zero
 
     src = "flnerf_tpu_torch/ops/csrc/voxel_cuvol.cu"
     hsrc = "flnerf_tpu_torch/ops/csrc/hash_encode.cu"

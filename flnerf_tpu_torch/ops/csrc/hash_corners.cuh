@@ -3,7 +3,8 @@
 // gradient (csrc/hash_sorted.cu: K9): per level, the 8 trilinear corners of
 // pos = x01*scale + 0.5, each indexed densely (x + S*(y + S*z)) or by
 // torch-ngp's xor hash (x ^ y*P1 ^ z*P2, gridencoder.cu:55-70), modulo the
-// level's size, with their weights.  The plain versions are
+// level's size, with their weights; and the warp merge of equal corners
+// that K4 and K9 apply before their atomic adds.  The plain versions are
 // flnerf_tpu_torch/ops/hash_kernel.py corner_indices_weights and, for the
 // sorted engine's big levels, ops/hash_sorted.py corner_keys.
 //
@@ -67,6 +68,38 @@ __device__ __forceinline__ void atomic_add2(float2* addr, float2 v) {
   atomicAdd(&addr->x, v.x);
   atomicAdd(&addr->y, v.y);
 #endif
+}
+
+// The mask of this warp's lanes below this lane.
+__device__ __forceinline__ unsigned lanemask_lt() {
+  unsigned m;
+  asm("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
+  return m;
+}
+
+// Sums v over the lanes of `peers` (this lane's group, from match.any) onto
+// the group's lowest lane, which is told so by `lead`.  Each round a lane
+// adds the value of the next remaining peer above it, then the peers of odd
+// rank drop out; log2 of the group's size rounds, none for a group of one.
+// Every lane of the warp takes part (the shuffles are full-warp).
+__device__ __forceinline__ float2 sum_peers(unsigned peers, float2 v, bool& lead) {
+  const unsigned full = 0xffffffffu;
+  unsigned rank = __popc(peers & lanemask_lt());
+  lead = rank == 0;
+  unsigned above = peers & ~(lanemask_lt() | (1u << (threadIdx.x & 31)));
+  while (__any_sync(full, above != 0)) {
+    const int next = __ffs(above);   // 1 + the next peer's lane, 0 if none
+    const int src = next ? next - 1 : (int)(threadIdx.x & 31);
+    const float ox = __shfl_sync(full, v.x, src);
+    const float oy = __shfl_sync(full, v.y, src);
+    if (next) {
+      v.x += ox;
+      v.y += oy;
+    }
+    above &= ~__ballot_sync(full, rank & 1);
+    rank >>= 1;
+  }
+  return v;
 }
 
 // The host arrays of L levels -> Levels; cudaErrorInvalidValue for L

@@ -10,94 +10,215 @@
 // of gridencoder.cu:55-70, summed with their weights into [N, L*C]; and the
 // gradient of that sum with respect to the table.  None of the TPU
 // machinery is carried over: the one-hot MXU matmuls exist there only
-// because TPU gather and scatter are slow (hash_pallas.py:3-20).  Here a
-// gather is a load and a scatter is an atomic add.  The plain version is
+// because TPU gather and scatter are slow (hash_pallas.py:3-20), and the
+// TPU kernel's per-level VMEM accumulator (acc_ref, :185) has no
+// counterpart: its Hopper form, the coarse levels' gradient summed in
+// shared memory by a few CTAs and flushed with one atomic per touched
+// entry, measured slower than the warp merge below on every input
+// (flnerf_tpu_torch/tools/hash_probe.py, PERF.md).  The plain version is
 // flnerf_tpu_torch/ops/hash_kernel.py hash_encode_plain.
 //
 // Layout: the table is [L, T_cap, 2] f32, the natural layout
 // hash_encode_xla gathers from (hash_pallas.py:366); entry t of level l is
-// one 8-byte float2.  x01 is [N, 3] f32 in [0, 1]; the output and the
-// upstream gradient are [N, L*2] f32.
+// one 8-byte float2.  x01 is [N, 3] f32 in [0, 1]; the output is [N, L*2]
+// f32; the upstream gradient is [N, L*2] f32 rows at any even stride (the
+// 2^19 engines hand the small levels a column slice of the whole gradient,
+// read in place).  The corner geometry (csrc/hash_corners.cuh
+// level_corners, shared with the sorted engine's K9) does the position
+// arithmetic with __fmul_rn/__fadd_rn, so that no FMA contraction moves a
+// point into another cell than the plain version's.
 //
-// Design: one thread per (point, level), level fastest, so a warp covers 2
-// points x 16 levels: it reads the points' coordinates once (broadcast) and
-// writes (K3) or reads (K4) 256 contiguous bytes of [N, L*2].  Each thread
-// computes its level's 8 corner indices and weights in registers (the
-// reference's corner_indices_weights, fused; csrc/hash_corners.cuh, which
-// the sorted engine's K9 shares), then:
-//   K3 gathers the 8 corners as one float2 load each and sums them;
-//   K4 adds w*g into the zero-filled gradient with one float2 atomicAdd per
-//      corner (per-component atomic, Hopper, global memory), and skips a
-//      point whose upstream gradient is zero (masked samples), which adds
-//      exactly nothing.
-// The arithmetic of the position is __fmul_rn/__fadd_rn so that no FMA
-// contraction moves a point into another cell than the plain version's
-// separate torch multiply and add.
+// What bounds them on this card.  The bytes that must move are x01, the
+// [N, L*2] output or gradient and the touched table entries: ~55 MB at
+// 2^15 (16 levels x 393,216 points), 0.017 ms at 3.35 TB/s.  What the card
+// pays instead:
+// - K3: 8 scattered 8-byte corner reads per (point, level), 50 M at that
+//   shape, each a 32-byte sector from L2 (the 4.2 MB table stays in the
+//   50 MB L2): ~1.6 GB of L2 traffic; and the corner geometry (per lane
+//   another level's parameters, 8 integer modulos), which overlaps the
+//   loads: without its loads K3 keeps ~3/4 of its time (the probe).
+// - K4: the atomics, above all on the dense coarse levels (17^3 and 25^3
+//   cells), where the samples of a ray land on the same corners.
 //
-// What bounds it on this card: the gathers.  At the NGP train step's shape
-// (393,216 points x 16 levels x 8 corners = 50.3 M corner reads or atomics)
-// the 4.2 MB table stays in the 50 MB L2, so device memory sees only x01,
-// the 50.3 MB output (K3) or upstream gradient (K4) and the table once; the
-// L2 sees 50.3 M scattered 8-byte accesses, one 32-byte sector each.  The
-// dense coarse levels (level 0 has 17^3 entries) make K4's atomics collide
-// heavily.  Not done yet: shared-memory aggregation of the coarse levels'
-// gradients, warp-level merging of equal indices.
+// K3 (hash_fwd_kernel): one thread per (point, level), level fastest, so a
+// warp covers 2 points x 16 levels and writes 256 contiguous bytes of the
+// output.  At a hashed level of 2^k entries the x-neighbour corners of an
+// even cell x are the two halves of one aligned 16-byte pair (x + 1 = x ^
+// 1 flips bit 0 of the hash), which one load fetches: a quarter fewer L2
+// requests there.  Where no level is hashed (the 2^19 engines' two small
+// levels) the branch is compiled out.  A walk of a tile level by level (a
+// warp takes 32 ray neighbours through every level and stores its rows
+// through shared memory) shares coarse sectors within a gather but
+// measured slower on the train batch; the probe keeps it.
+//
+// K4 (hash_bwd_tile_kernel): a CTA takes a tile of kTile consecutive
+// points (the kept samples are ray-major, 96 to a ray: ~1.3 rays).  It
+// stages the tile's gradient rows in shared memory (16-byte loads where
+// the rows allow, read in place through the row stride), lists the tile's
+// live points (a nonzero gradient at any level) in order and leaves if
+// there is none, so a dead point costs its gradient's bytes alone; it then
+// stages x01, and a warp takes 32 consecutive live points of one level.
+// Per corner the warp merges lanes with equal entries (__match_any_sync,
+// shuffle sums onto the lowest lane; csrc/hash_corners.cuh sum_peers) and
+// the leader issues one global float2 atomic per distinct entry.  Ray
+// neighbours share the coarse levels' cells, so the merge removes most of
+// the contention there.  A zero gradient adds nothing anywhere: the result
+// stays exactly zero.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "hash_corners.cuh"   // Levels, level_corners, atomic_add2, make_levels
+#include "hash_corners.cuh"   // Levels, level_corners, atomic_add2, sum_peers, make_levels
 
 namespace {
 
 using hashgrid::Levels;
 using hashgrid::atomic_add2;
+using hashgrid::lanemask_lt;
 using hashgrid::level_corners;
 using hashgrid::make_levels;
+using hashgrid::sum_peers;
 
-constexpr int kThreads = 256;
+constexpr int kTile = 128;            // K4: points a CTA
+constexpr int kThreads = 256;         // threads a CTA
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
 
+// A shared tile row of `cols` float2, padded to an odd count: the same
+// column of 16 consecutive rows then falls in 16 distinct bank pairs.
+__host__ __device__ constexpr int padded(int cols) { return cols | 1; }
+
+__device__ __forceinline__ bool nonzero(float2 v) { return v.x != 0.f || v.y != 0.f; }
+
+// The table entries a and b of corners c and c + 1, which differ in x
+// only.  At a hashed level of 2^k entries an even cell x has x + 1 = x ^ 1,
+// so a and b differ in bit 0 alone: the two halves of one aligned 16-byte
+// pair, which one load fetches.  The dense levels' tables are small and
+// stay in L1, where the branch costs more than the second load saves, so
+// `pair` is false there.
+__device__ __forceinline__ void load_pair(const float2* __restrict__ tab, uint32_t a,
+                                          uint32_t b, bool pair, float2& fa, float2& fb) {
+  if (pair && (a ^ b) == 1u) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(tab + (a & ~1u)));
+    const float2 lo = make_float2(v.x, v.y), hi = make_float2(v.z, v.w);
+    fa = (a & 1u) ? hi : lo;
+    fb = (a & 1u) ? lo : hi;
+  } else {
+    fa = __ldg(tab + a);
+    fb = __ldg(tab + b);
+  }
+}
+
+// kPair: some level is hashed (else the pair branch is compiled out).
+template <bool kPair>
 __global__ void __launch_bounds__(kThreads)
-hash_fwd_kernel(const float* __restrict__ x01, const float2* __restrict__ table,
-                int64_t n, Levels lv, float2* __restrict__ out) {
-  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+hash_fwd_kernel(const float* __restrict__ x01, const float2* __restrict__ table, int64_t n,
+                Levels lv, float2* __restrict__ out) {
+  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;   // (point, level), level fastest
   if (i >= n * lv.L) return;
   const int64_t p = i / lv.L;
   const int l = (int)(i - p * lv.L);
-  const float x[3] = {x01[p * 3], x01[p * 3 + 1], x01[p * 3 + 2]};
+  const float* xp = x01 + p * 3;
+  const float x[3] = {__ldg(xp), __ldg(xp + 1), __ldg(xp + 2)};
   uint32_t idx[8];
   float w[8];
   level_corners(x, lv, l, idx, w);
   const float2* tab = table + (int64_t)l * lv.t_cap;
+  const bool pair = kPair && lv.use_hash[l] != 0;
+  float2 f[8];
+#pragma unroll
+  for (int c = 0; c < 8; c += 2) load_pair(tab, idx[c], idx[c + 1], pair, f[c], f[c + 1]);
   float2 acc = make_float2(0.f, 0.f);
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const float2 f = __ldg(tab + idx[c]);
-    acc.x = __fadd_rn(acc.x, __fmul_rn(w[c], f.x));
-    acc.y = __fadd_rn(acc.y, __fmul_rn(w[c], f.y));
+  for (int c = 0; c < 8; ++c) {   // corner order, as the plain version sums
+    acc.x = __fadd_rn(acc.x, __fmul_rn(w[c], f[c].x));
+    acc.y = __fadd_rn(acc.y, __fmul_rn(w[c], f[c].y));
   }
-  out[i] = acc;   // [N, L, 2] == [N, L*2]
+  out[i] = acc;   // [N, L, 2] == [N, L*2]: a warp writes 256 contiguous bytes
 }
 
+// K4: one CTA a tile.
 __global__ void __launch_bounds__(kThreads)
-hash_bwd_kernel(const float* __restrict__ x01, const float2* __restrict__ grad_out,
-                int64_t n, Levels lv, float2* __restrict__ grad_table) {
-  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n * lv.L) return;
-  const float2 g = grad_out[i];
-  if (g.x == 0.f && g.y == 0.f) return;   // adds exactly nothing
-  const int64_t p = i / lv.L;
-  const int l = (int)(i - p * lv.L);
-  const float x[3] = {x01[p * 3], x01[p * 3 + 1], x01[p * 3 + 2]};
-  uint32_t idx[8];
-  float w[8];
-  level_corners(x, lv, l, idx, w);
-  float2* gt = grad_table + (int64_t)l * lv.t_cap;
+hash_bwd_tile_kernel(const float* __restrict__ x01, const float2* __restrict__ grad,
+                     int64_t g_row, int64_t n, Levels lv, int vec,
+                     float2* __restrict__ grad_table) {
+  extern __shared__ float2 gs[];     // [kTile][padded(L)]
+  __shared__ float xs[kTile * 3];
+  __shared__ int live_list[kTile];
+  __shared__ int warp_live[kTile / 32];
+  const int L = lv.L, s = padded(L);
+  const int64_t p0 = (int64_t)blockIdx.x * kTile;
+  const int np = (int)(n - p0 < kTile ? n - p0 : kTile);
+  const float2* g0 = grad + p0 * g_row;
+  if (vec) {   // L even, rows 16-byte aligned
+    const int h = L / 2;
+    for (int j = threadIdx.x; j < np * h; j += kThreads) {
+      const int r = j / h, c = 2 * (j - r * h);
+      const float4 v = __ldg(reinterpret_cast<const float4*>(g0 + r * g_row + c));
+      gs[r * s + c] = make_float2(v.x, v.y);
+      gs[r * s + c + 1] = make_float2(v.z, v.w);
+    }
+  } else {
+    for (int j = threadIdx.x; j < np * L; j += kThreads) {
+      const int r = j / L, c = j - r * L;
+      gs[r * s + c] = __ldg(g0 + r * g_row + c);
+    }
+  }
+  __syncthreads();
+
+  // the tile's live points, in order
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  bool live = false;
+  if (threadIdx.x < np)
+    for (int l = 0; l < L; ++l) live |= nonzero(gs[threadIdx.x * s + l]);
+  int rank = 0;
+  if (warp < kTile / 32) {
+    const unsigned b = __ballot_sync(kFull, live);
+    if (lane == 0) warp_live[warp] = __popc(b);
+    rank = __popc(b & lanemask_lt());
+  }
+  __syncthreads();
+  int n_live = 0, before = 0;
+  for (int w = 0; w < kTile / 32; ++w) {
+    before += w < warp ? warp_live[w] : 0;
+    n_live += warp_live[w];
+  }
+  if (n_live == 0) return;   // the whole CTA: a dead tile reads no x01
+  if (live) live_list[before + rank] = threadIdx.x;
+  for (int j = threadIdx.x; j < np * 3; j += kThreads) xs[j] = __ldg(x01 + p0 * 3 + j);
+  __syncthreads();
+
+  const int groups = (n_live + 31) >> 5;
+  for (int task = warp; task < groups * L; task += kWarps) {   // level-major
+    const int l = task / groups;
+    const int i = (task - l * groups) * 32 + lane;
+    const int p = i < n_live ? live_list[i] : -1;
+    const float2 g = p >= 0 ? gs[p * s + l] : make_float2(0.f, 0.f);
+    const bool on = nonzero(g);
+    if (!__any_sync(kFull, on)) continue;
+    uint32_t idx[8] = {};
+    float w[8] = {};
+    if (on) {
+      const float x[3] = {xs[p * 3], xs[p * 3 + 1], xs[p * 3 + 2]};
+      level_corners(x, lv, l, idx, w);
+    }
+    float2* gt = grad_table + (int64_t)l * lv.t_cap;
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    atomic_add2(gt + idx[c], make_float2(__fmul_rn(w[c], g.x), __fmul_rn(w[c], g.y)));
+    for (int c = 0; c < 8; ++c) {
+      float2 v = on ? make_float2(__fmul_rn(w[c], g.x), __fmul_rn(w[c], g.y))
+                    : make_float2(0.f, 0.f);
+      bool lead;
+      const int key = on ? (int)idx[c] : -1 - lane;   // a dead lane keys itself apart
+      v = sum_peers(__match_any_sync(kFull, key), v, lead);
+      if (lead && nonzero(v)) atomic_add2(gt + idx[c], v);
+    }
   }
 }
+
+// Dynamic shared memory in bytes of K4's gradient tile: at most 33 KB (32
+// levels), within what a block takes without an opt-in beside its 2 KB of
+// static arrays.
+int tile_smem(int L) { return kTile * padded(L) * (int)sizeof(float2); }
 
 }  // namespace
 
@@ -113,29 +234,35 @@ int hash_encode_forward(const float* x01, const float* table, long long n, int L
   Levels lv;
   const int err = make_levels(L, t_cap, scales, strides, sizes, use_hash, lv);
   if (err != 0) return err;
-  const int64_t threads = (int64_t)n * L;
-  const dim3 grid((unsigned)((threads + kThreads - 1) / kThreads));
-  hash_fwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  bool hashed = false;
+  for (int l = 0; l < L; ++l) hashed |= use_hash[l] != 0;
+  const dim3 grid((unsigned)((n * L + kThreads - 1) / kThreads));
+  const auto kernel = hashed ? hash_fwd_kernel<true> : hash_fwd_kernel<false>;
+  kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       x01, reinterpret_cast<const float2*>(table), (int64_t)n, lv,
       reinterpret_cast<float2*>(out));
   return (int)cudaGetLastError();
 }
 
-// K4.  grad_out [n, L*2] is the upstream gradient; grad_table [L, t_cap, 2]
-// must be zero-filled (or hold a gradient to add to) and is accumulated
+// K4.  grad_out holds the upstream gradient's rows, [n, L*2] f32 with row
+// p at grad_out + 2 * p * g_row (g_row >= L float2; a column slice of a
+// wider gradient is read in place); grad_table [L, t_cap, 2] must be
+// zero-filled (or hold a gradient to add to) and is accumulated
 // atomically.
-int hash_encode_backward(const float* x01, const float* grad_out, long long n, int L,
-                         int t_cap, const float* scales, const uint32_t* strides,
-                         const uint32_t* sizes, const int* use_hash,
+int hash_encode_backward(const float* x01, const float* grad_out, long long g_row,
+                         long long n, int L, int t_cap, const float* scales,
+                         const uint32_t* strides, const uint32_t* sizes, const int* use_hash,
                          float* grad_table, void* stream) {
   Levels lv;
   const int err = make_levels(L, t_cap, scales, strides, sizes, use_hash, lv);
   if (err != 0) return err;
-  const int64_t threads = (int64_t)n * L;
-  const dim3 grid((unsigned)((threads + kThreads - 1) / kThreads));
-  hash_bwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      x01, reinterpret_cast<const float2*>(grad_out), (int64_t)n, lv,
-      reinterpret_cast<float2*>(grad_table));
+  if (n < 1 || g_row < L) return (int)cudaErrorInvalidValue;
+  const float2* g = reinterpret_cast<const float2*>(grad_out);
+  const int vec = L % 2 == 0 && g_row % 2 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  const dim3 grid((unsigned)((n + kTile - 1) / kTile));
+  hash_bwd_tile_kernel<<<grid, kThreads, tile_smem(L), (cudaStream_t)stream>>>(
+      x01, g, (int64_t)g_row, (int64_t)n, lv, vec, reinterpret_cast<float2*>(grad_table));
   return (int)cudaGetLastError();
 }
 

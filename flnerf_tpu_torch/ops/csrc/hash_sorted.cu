@@ -92,6 +92,7 @@ using hashgrid::kMaxLevels;
 using hashgrid::Levels;
 using hashgrid::atomic_add2;
 using hashgrid::level_corners;
+using hashgrid::sum_peers;
 
 constexpr int kThreads = 256;       // K9: threads a block
 constexpr int kUnroll = 4;          // K8: pairs a thread walks at once
@@ -212,37 +213,6 @@ sorted_fwd_kernel(const float* __restrict__ x01, const float2* __restrict__ tabl
     }
     *o = a;
   }
-}
-
-__device__ __forceinline__ unsigned lanemask_lt() {
-  unsigned m;
-  asm("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
-  return m;
-}
-
-// Sums v over the lanes of `peers` (this lane's group, from match.any) onto
-// the group's lowest lane, which is told so by `lead`.  Each round a lane
-// adds the value of the next remaining peer above it, then the peers of odd
-// rank drop out; log2 of the group's size rounds, none for a group of one.
-// Every lane of the warp takes part (the shuffles are full-warp).
-__device__ __forceinline__ float2 sum_peers(unsigned peers, float2 v, bool& lead) {
-  const unsigned full = 0xffffffffu;
-  unsigned rank = __popc(peers & lanemask_lt());
-  lead = rank == 0;
-  unsigned above = peers & ~(lanemask_lt() | (1u << (threadIdx.x & 31)));
-  while (__any_sync(full, above != 0)) {
-    const int next = __ffs(above);   // 1 + the next peer's lane, 0 if none
-    const int src = next ? next - 1 : (int)(threadIdx.x & 31);
-    const float ox = __shfl_sync(full, v.x, src);
-    const float oy = __shfl_sync(full, v.y, src);
-    if (next) {
-      v.x += ox;
-      v.y += oy;
-    }
-    above &= ~__ballot_sync(full, rank & 1);
-    rank >>= 1;
-  }
-  return v;
 }
 
 template <bool kLevelMajor>

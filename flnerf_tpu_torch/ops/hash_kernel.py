@@ -5,7 +5,10 @@ Port of ``flnerf_tpu/ops/hash_pallas.py``.  The TPU kernels there
 (``_fwd_kernel`` and ``_bwd_kernel``, one-hot MXU matmuls against a
 lane-partitioned bf16 table) become the hand-written CUDA kernels of
 ``csrc/hash_encode.cu``: K3 (forward: corner indices, weights, gathers and
-the corner sum, fused) and K4 (the table gradient by atomic adds).
+the corner sum, fused; the two x-neighbour corners of a 16-byte pair
+loaded at once) and K4 (the table gradient: a tile's gradient rows staged
+in shared memory, its dead points dropped, the equal corners of a warp's
+32 points merged before the atomic adds).
 ``hash_encode`` dispatches by device: on CUDA tensors it is
 ``HashEncode``, a ``torch.autograd.Function`` whose forward launches K3 and
 whose backward launches K4; on CPU tensors the plain version,
@@ -40,13 +43,15 @@ from flnerf_tpu_torch.ops.hash_encoding import (
 )
 
 LANES = 128
-MAX_LEVELS = 32        # csrc/hash_encode.cu kMaxLevels
+MAX_LEVELS = 32        # csrc/hash_corners.cuh kMaxLevels
 
 HASH_FWD_LAUNCHES = 0
 HASH_BWD_LAUNCHES = 0
 
 _P = ctypes.c_void_p
-_ARGS = [_P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P]
+_LL, _I = ctypes.c_longlong, ctypes.c_int
+_FWD_ARGS = [_P, _P, _LL, _I, _I, _P, _P, _P, _P, _P, _P]
+_BWD_ARGS = [_P, _P, _LL, _LL, _I, _I, _P, _P, _P, _P, _P, _P]
 
 
 class PackedHashSpec(NamedTuple):
@@ -151,13 +156,18 @@ def hash_encode_plain(x01: torch.Tensor, table: torch.Tensor,
 # The kernels' wrappers
 # ---------------------------------------------------------------------------
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("hash_encode")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C signatures of a library built from csrc/hash_encode.cu."""
     if lib.hash_encode_forward.argtypes is None:
-        for fn in (lib.hash_encode_forward, lib.hash_encode_backward):
+        for fn, args in ((lib.hash_encode_forward, _FWD_ARGS),
+                         (lib.hash_encode_backward, _BWD_ARGS)):
             fn.restype = ctypes.c_int
-            fn.argtypes = _ARGS
+            fn.argtypes = args
     return lib
+
+
+def _lib() -> ctypes.CDLL:
+    return bind(_build.load("hash_encode"))
 
 
 def _level_args(spec: PackedHashSpec) -> list:
@@ -209,23 +219,46 @@ def hash_encode_forward(x01: torch.Tensor, table: torch.Tensor,
     return out
 
 
+def rows_strided(g: torch.Tensor) -> bool:
+    """Whether K4 (and the sorted engine's K9) reads the [N, C] f32 gradient
+    ``g`` in place: each row contiguous and 8-byte aligned, rows at any even
+    stride (a column slice of the whole [N, L*2] gradient)."""
+    return (g.dim() == 2 and g.stride(1) == 1 and g.stride(0) % 2 == 0
+            and (g.shape[0] < 2 or g.stride(0) >= g.shape[1]) and g.data_ptr() % 8 == 0)
+
+
+def launch_backward(lib: ctypes.CDLL, x01: torch.Tensor, grad_out: torch.Tensor, args: list,
+                    grad_table: torch.Tensor) -> int:
+    """One call of ``hash_encode_backward`` in ``lib`` on checked tensors
+    (n >= 1; ``args`` from ``_kernel_args``); returns its cudaError_t."""
+    row = max(grad_out.stride(0), grad_out.shape[1]) // 2    # a one-row gradient's stride is free
+    return lib.hash_encode_backward(x01.data_ptr(), grad_out.data_ptr(), row, *args,
+                                    grad_table.data_ptr(),
+                                    torch.cuda.current_stream(x01.device).cuda_stream)
+
+
 def hash_encode_backward(x01: torch.Tensor, grad_out: torch.Tensor,
                          spec: PackedHashSpec, grad_table=None) -> torch.Tensor:
     """K4: the [L, T_cap, 2] f32 table gradient for the upstream gradient
-    grad_out [N, L*2].  The gradient is zero-filled here, or, when
-    ``grad_table`` is given, added into it."""
+    grad_out [N, L*2], which may be a column slice of a wider gradient
+    (``rows_strided``): K4 reads it in place.  The gradient is zero-filled
+    here, or, when ``grad_table`` is given, added into it."""
     global HASH_BWD_LAUNCHES
     n, args = _kernel_args(x01, spec)
-    _build.check_tensor(grad_out, "grad_out", (n, spec.output_dim), torch.float32, x01.device)
+    want = (n, spec.output_dim)
+    if grad_out.device != x01.device or grad_out.dtype != torch.float32:
+        raise ValueError(f"grad_out must be float32 on {x01.device}, got {grad_out.dtype} on "
+                         f"{grad_out.device}")
+    if tuple(grad_out.shape) != want or not rows_strided(grad_out):
+        raise ValueError(f"grad_out must have shape {want} with contiguous, aligned rows, got "
+                         f"shape {tuple(grad_out.shape)}, strides {grad_out.stride()}")
     shape = (spec.num_levels, spec.t_cap, 2)
     if grad_table is None:
         grad_table = torch.zeros(shape, dtype=torch.float32, device=x01.device)
     _build.check_tensor(grad_table, "grad_table", shape, torch.float32, x01.device)
     if n == 0:
         return grad_table
-    rc = _lib().hash_encode_backward(x01.data_ptr(), grad_out.data_ptr(), *args,
-                                     grad_table.data_ptr(),
-                                     torch.cuda.current_stream(x01.device).cuda_stream)
+    rc = launch_backward(_lib(), x01, grad_out, args, grad_table)
     HASH_BWD_LAUNCHES += 1
     if rc != 0:
         raise RuntimeError(f"hash_encode_backward launch failed: cudaError {rc}")
@@ -233,8 +266,9 @@ def hash_encode_backward(x01: torch.Tensor, grad_out: torch.Tensor,
 
 
 class HashEncode(torch.autograd.Function):
-    """Forward K3, backward K4; the gradient flows to the table only (the
-    reference's custom VJP returns none for x01)."""
+    """Forward K3, backward K4 on the upstream gradient's rows in place (the
+    2^19 engines hand the small levels a column slice); the gradient flows
+    to the table only (the reference's custom VJP returns none for x01)."""
 
     @staticmethod
     def forward(ctx, x01, table, spec):
@@ -246,7 +280,9 @@ class HashEncode(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         (x01,) = ctx.saved_tensors
-        return None, hash_encode_backward(x01, grad_out.contiguous(), ctx.spec), None
+        if not rows_strided(grad_out):
+            grad_out = grad_out.contiguous()
+        return None, hash_encode_backward(x01, grad_out, ctx.spec), None
 
 
 def hash_encode(x01: torch.Tensor, table: torch.Tensor,

@@ -78,6 +78,7 @@ from flnerf_tpu_torch.ops.hash_kernel import (
     hash_encode,
     hash_encode_plain,
     init_packed_table,
+    rows_strided,
 )
 from flnerf_tpu_torch.ops.sort_kernel import bitonic_sort_plain, key_bits_for, sort_pairs_
 
@@ -431,14 +432,6 @@ def sorted_encode_forward(x01: torch.Tensor, table_big: torch.Tensor, spec: Spli
     if rc != 0:
         raise RuntimeError(f"sorted_encode_forward launch failed: cudaError {rc}")
     return out
-
-
-def rows_strided(g: torch.Tensor) -> bool:
-    """Whether K9 reads the [N, Lb*2] f32 gradient ``g`` in place: each row
-    contiguous and 8-byte aligned, rows at any even stride (a column slice of
-    the whole [N, L*2] gradient)."""
-    return (g.dim() == 2 and g.stride(1) == 1 and g.stride(0) % 2 == 0
-            and (g.shape[0] < 2 or g.stride(0) >= g.shape[1]) and g.data_ptr() % 8 == 0)
 
 
 def sorted_encode_backward(x01: torch.Tensor, grad_out: torch.Tensor, spec: SplitHashSpec,
