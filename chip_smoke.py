@@ -14,7 +14,10 @@ Phases (any failure raises, and the script exits non-zero):
      first training batch (5000 rays from the quadtree budgeter over the
      synthetic scene's 48x48 train views, grid radius 1.2, in the trainer's
      ray order on the card, built as cli/opt.py builds them); K1 also on one
-     48x48 test view (2304 rays, the eval render's one chunk);
+     48x48 test view (2304 rays, the eval render's one chunk); K1 (its
+     occupancy built by its wrapper) bitwise equal to the kernel it replaced
+     (tools/voxel_probe.py) on both, at sigma_thresh 1e-8, 0.5 and 0 (no
+     skip);
   3. the main path: cli/opt.py main on the synthetic scene at 256^3 for 3
      epochs on the card (syn.json's first-stage width: SH degree 3, batch
      5000, 1792 steps), with the launch counters set to 0 just before and
@@ -22,10 +25,19 @@ Phases (any failure raises, and the script exits non-zero):
      3b. a profiled rerun (2 epochs, no checkpoints): where the device time
      goes;
      3c. train rays/s over epochs 2-10 of a 10-epoch run (no checkpoints);
-  4. K1, K2's kernel body (its gradients zero-filled outside the timed
-     loop; the zero-fill timed apart) and the plain version, by CUDA events
-     on phase 2's training batch, beside the least time the card could take
-     for the same work; then K1/K2 on batches in the budgeter's shuffled
+  4. K1 (the occupancy build included, as the main path calls it), K2's
+     kernel body (its gradients zero-filled outside the timed loop; the
+     zero-fill timed apart) and the plain version, by CUDA events on phase
+     2's training batch, beside the least time the card could take for the
+     same work (K1's with the skip, and for every sample); on the phase-2
+     sphere grid and on the grid phase 3c trained, the share of 8^3 blocks
+     marked, of marched samples skipped, gated and kept, the longest ray's
+     steps and those in marked blocks, and the K1 probe
+     (tools/voxel_probe.py: K1, without the skip, without density first,
+     with 1 and 4 steps a pass, with its rays spread over the SMs, the
+     replaced kernel, each bitwise equal to it, and the occupancy build, by
+     events and device time) beside K2 in the same run; then K1/K2 on
+     batches in the budgeter's shuffled
      order against the trainer's coherence order (morton, 64-ray blocks) at
      48x48 and 800x800 train views, and on one eval chunk of a test view in
      raster against morton order;
@@ -56,7 +68,8 @@ Phases (any failure raises, and the script exits non-zero):
      (K4 exactly zero), and on 1000, 1 and 0 points; the
      K3/K4 probe (tools/hash_probe.py: the replaced kernels, K3 without
      its gathers, with a load for every corner and walking a tile level by
-     level, K4 with levels 0-1 or 0 accumulated in shared memory by 33-264
+     level, K4's own body before K7 came to share its tile skeleton, K4
+     with levels 0-1 or 0 accumulated in shared memory by 33-264
      CTAs, with and without the merge, by CUDA events and by the
      profiler's device time) on the train batch and on the clustered
      points, with its findings;
@@ -79,8 +92,8 @@ Phases (any failure raises, and the script exits non-zero):
      --iters 512` with the counters set to 0 just before and read just
      after: K3 == K6 == steps + refresh chunks + eval chunks, K4 == K7 ==
      steps, no K5 and no cuvol launch; the loss falls; a finite test PSNR;
-     peak memory; train rays/s over steps 257-512; a 64-step profile and
-     its device time a step;
+     peak memory; train rays/s over steps 257-512; a 64-step profile, its
+     device time a step and K7's device time in it;
  10. K6 and K7's body (in the points' own order; K7 on autograd's view of
      the gradient and on a level-major copy) and their plain versions, by
      CUDA events on phase 8's batch, beside the replaced designs' times and
@@ -88,7 +101,10 @@ Phases (any failure raises, and the script exits non-zero):
      the gradient's level-major copy; K6's stripped variants
      (tools/lattice_probe.py: no gather, no store, the [p, l] store and the
      sorted walk of the kernel it replaced) and the base keys and K5 a
-     sorted walk would need, with the finding; K3 and K4 on the small
+     sorted walk would need, with the finding; K7's variants (the same
+     probe: the replaced kernel, the tile without the warp merge, tiles of
+     128 and 256 points) on the train, dense and level-major gradients, by
+     events and device time; K3 and K4 on the small
      levels (the train gradient's columns in place, and a dense one) with
      their plain versions and bounds, and the K3/K4 probe on them;
  11. the sorted engine's kernels, K5 on the engine's own (corner entry,
@@ -152,6 +168,9 @@ SCENE_RADIUS = 1.2         # cli/opt.py's grid radius for the synthetic scene
 # corner (448) and the transmittance gradient (30)
 FWD_FLOPS_PER_SAMPLE = 542
 BWD_FLOPS_PER_SAMPLE = 542 + 448 + 30
+# K1's density pass for a sample the gate drops: position (6), trilinear
+# weights (19), 8 density multiply-adds (16)
+DENSITY_FLOPS_PER_SAMPLE = 41
 
 NGP_ITERS = 512            # 32 chunks of 16 steps: 16 full, 16 partial refreshes
 NGP_WINDOW = 256           # steps per fit of the rays/s window
@@ -180,11 +199,11 @@ K9_FLOPS = 8 * 16
 # The replaced designs' figures (K3/K4 before their tiles and paired
 # loads, the sorted K6/K7 walks, the pair-walking K9; PERF.md section 6, on
 # "NVIDIA H100 80GB HBM3, 700.00 W"), printed beside this run's
-BEFORE = {"K3": "0.1758 ms", "K4 dense": "1.155 ms", "K4 train": "0.060 ms",
-          "K6": "0.336 ms sorted, 0.390 point order", "K7 dense": "0.985 ms",
-       "K7 train": "0.224 ms", "lattice step": "6.85 ms", "K9 dense": "0.667 ms",
-       "K9 train": "0.387 ms", "sorted step": "10.67 ms",
-       "peak": {"lattice": "3.85 GB", "sorted": "5.19 GB"}}
+BEFORE = {"K1": "1.335 ms", "K3": "0.1758 ms", "K4 dense": "1.155 ms", "K4 train": "0.060 ms",
+          "K6": "0.336 ms sorted, 0.390 point order", "K7 dense": "1.260 ms",
+          "K7 train": "0.189 ms", "K7 profile": "13.9 ms (64 launches)",
+          "lattice step": "5.135 ms", "K9 dense": "0.667 ms", "K9 train": "0.387 ms",
+          "sorted step": "10.67 ms", "peak": {"lattice": "3.85 GB", "sorted": "5.19 GB"}}
 
 
 def check(cond, msg):
@@ -346,6 +365,24 @@ def work_counts(grid, cfg, o, d):
     cells = torch.cat(cells).unique()
     n_alive = int(grid.alive.reshape(-1)[cells].sum())
     return n_samples, int(cells.numel()), n_alive
+
+
+def hold_k1_bitwise(grid, cfg, o, d, what):
+    """K1 through its wrapper (the occupancy built before the launch) is
+    equal, bit for bit, to the kernel it replaced (kept by
+    tools/voxel_probe.py) on these rays."""
+    import torch
+    from flnerf_tpu_torch.ops import voxel_kernel as vk
+    from flnerf_tpu_torch.tools import voxel_probe
+    ray_in = vk.ray_inputs(cfg, o, d)
+    new = vk.cuvol_forward(*grid, *ray_in, cfg)
+    old = torch.full_like(new, float("nan"))
+    voxel_probe.launch(voxel_probe.REPLACED, grid, ray_in, cfg, None, old)
+    torch.cuda.synchronize()
+    bad = int((new != old).any(-1).sum())
+    print(f"[phase 2] K1 against the replaced K1 on {what} (sigma_thresh {cfg.sigma_thresh}): "
+          f"{bad} of {o.shape[0]} rays differ in any bit", flush=True)
+    check(bad == 0, f"K1 is not bitwise equal to the replaced K1 ({what})")
 
 
 def upstream_grad(out, gt):
@@ -699,9 +736,16 @@ def lattice_phases(dev, to_dev):
           f"{dev_ms / NGP_PROFILE_STEPS:.3f} ms of device time a step (before: "
           f"{BEFORE['lattice step']}); top kernels by device time:")
     for e in dev_events[:14] + [e for e in dev_events[14:]
-                                if "hash_" in e.key or "lattice" in e.key or "radix" in e.key]:
+                                if "hash_" in e.key or "lattice" in e.key or "radix" in e.key
+                                or "tile_bwd" in e.key]:
         print(f"[phase 9]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
               f"{e.key[:90]}")
+    k7_prof = [e for e in dev_events if "LatticeGeo" in e.key]
+    k7_prof_ms = sum(e.self_device_time_total for e in k7_prof) / 1e3
+    k7_prof_n = sum(e.count for e in k7_prof)
+    print(f"[phase 9] K7 in the profile: {k7_prof_ms:.3f} ms of device time in {k7_prof_n} "
+          f"launches, {k7_prof_ms / max(k7_prof_n, 1):.4f} ms a launch (before: "
+          f"{BEFORE['K7 profile']})", flush=True)
     lat_tmp.cleanup()
 
     # ---- phase 10: K6 and K7 times on phase 8's batch, and what sets K6's ----
@@ -723,7 +767,13 @@ def lattice_phases(dev, to_dev):
     small = torch.zeros((n_pts, 2 * n_small), device=dev)
     big = torch.empty((lb, n_pts, 2), device=dev)
     asm_ms = cuda_ms(lambda: hl.assemble_split(small, big), 20)
-    del small, big, g_train_c
+    del small, big
+    # K7 and its variants (tools/lattice_probe.py: the replaced kernel, the
+    # tile without the merge, tiles of 64 and 256 points) by events and
+    # device time, on the same gradients
+    k7_probe = lattice_probe.probe_backward(x_batch, spec, {
+        "train": g_train_v, "dense": g_dense_v, "train level-major": g_train_c})
+    del g_train_c
     with torch.no_grad():
         k6_plain_ms = cuda_ms(lambda: hl.lattice_encode_plain_levels(x_batch, table, spec), 5)
     tp = table.clone().requires_grad_(True)
@@ -768,6 +818,12 @@ def lattice_phases(dev, to_dev):
           f"{zero_ms:.4f} ms; split assembly {asm_ms:.4f} ms", flush=True)
     print("[phase 10] K6 probe (flnerf_tpu_torch/tools/lattice_probe.py) on this batch: " +
           "; ".join(f"{k} {v:.4f} ms" for k, v in probe_ms.items()), flush=True)
+    print("[phase 10] K7 probe (flnerf_tpu_torch/tools/lattice_probe.py) on this batch, ms by "
+          "events / device ms: " + "; ".join(f"{k} {ev:.4f} / {dt:.4f}"
+                                             for k, (ev, dt) in k7_probe.items()), flush=True)
+    for gname in ("train", "dense", "train level-major"):
+        print(f"[phase 10] finding, K7, {lattice_probe.finding_backward(k7_probe, gname)}",
+              flush=True)
     sorted_fwd = keys_ms + k5_ms + probe_ms["sorted order, [l, p] store"]
     print(f"[phase 10] finding: {lattice_probe.finding(probe_ms)}; the sort it would need: "
           f"base keys {keys_ms:.4f} ms + K5 {k5_ms:.4f} ms, so a sorted forward takes "
@@ -1212,6 +1268,11 @@ def main():
     print(f"[phase 2] {eo.shape[0]}-ray test view: K1 max_err per channel {eval_errs}",
           flush=True)
     check_fwd(eval_errs, "test view")
+    for what, (ho, hd), hcfg in (
+            ("the training batch", (o, d), cfg), ("the test view", (eo, ed), cfg),
+            ("the training batch", (o, d), cfg._replace(sigma_thresh=0.5)),
+            ("the training batch, no skip", (o, d), cfg._replace(sigma_thresh=0.0))):
+        hold_k1_bitwise(grid, hcfg, ho, hd, what)
     k1_err = max(float((out_k - out_p).abs().max()), max(eval_errs.values()))
     k2_err = max(g_err.values())
     del out_k, out_p, gd_k, gs_k, gd_p, gs_p
@@ -1266,8 +1327,10 @@ def main():
 
     # ---- phase 3c: train rays/s over a longer window (epochs 2-10) ----
     with tempfile.TemporaryDirectory() as tmp:
-        hist = opt.main(["synthetic", "-t", tmp, "--reso", reso_arg, "--n_epochs", "10",
-                         "--tune_nosave"])["history"]
+        res10 = opt.main(["synthetic", "-t", tmp, "--reso", reso_arg, "--n_epochs", "10",
+                          "--tune_nosave"])
+    hist, trained = res10["history"], res10["grid"]
+    del res10
     window = hist[1:]
     rates = [h["rays"] / h["epoch_s"] for h in window]
     win_rays = sum(h["rays"] for h in window)
@@ -1300,18 +1363,53 @@ def main():
     k1_bytes = n_alive * 4 * 28 + n_cells + ray_bytes + BATCH * 32
     k2_bytes = k1_bytes + BATCH * 32 + n_alive * 4 * 28
     bounds = {}
-    for name, nbytes, flops in (("K1", k1_bytes, n_samples * FWD_FLOPS_PER_SAMPLE),
+    for name, nbytes, flops in (("K1 every sample", k1_bytes, n_samples * FWD_FLOPS_PER_SAMPLE),
                                 ("K2", k2_bytes, n_samples * BWD_FLOPS_PER_SAMPLE)):
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
-        bounds[name] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+        bounds[name] = bound_of(nbytes, flops)
     zero_bound = grid.density.numel() * 4 * 28 / HBM_BYTES_PER_S * 1e3
+    # K1 with the skip and the gate: what this data needs is each touched
+    # cell's alive byte and density where a sample lies in a marked block,
+    # the SH only of the touched cells alive with density > 0, the
+    # occupancy once, the per-ray inputs and the output; a kept sample's
+    # full arithmetic, a gated one's density pass
+    from flnerf_tpu_torch.tools import voxel_probe
+    k1_stats, k1_probe = {}, {}
+    for gname, g in (("the phase-2 sphere grid", grid),
+                     ("the main path's grid after phase 3c's 10 epochs", trained)):
+        c = voxel_probe.sample_counts(g, cfg, o, d)
+        pm = voxel_probe.probe(g, cfg, o, d)
+        k2_same = kernel_ms(g, cfg, o, d, gt)[1]
+        occ_bytes = math.prod(vk.occupancy_shape(cfg.reso))
+        sb = bound_of(c["touched_cells"] * 5 + c["sh_cells"] * 4 * 27 + occ_bytes + ray_bytes
+                      + BATCH * 32, c["kept"] * FWD_FLOPS_PER_SAMPLE
+                      + c["gated"] * DENSITY_FLOPS_PER_SAMPLE)
+        k1_stats[gname], k1_probe[gname] = (c, sb), pm
+        left = 1.0 - c["skipped"] / c["samples"]
+        print(f"[phase 4] K1 on {gname}: {100 * c['marked_blocks']:.2f}% of the 8^3 blocks "
+              f"marked; of {c['samples']} marched samples {100 * c['skipped'] / c['samples']:.2f}% "
+              f"skipped (in unmarked blocks), {100 * c['gated'] / c['samples']:.2f}% gated (in "
+              f"marked blocks, sigma < sigma_thresh), {100 * c['kept'] / c['samples']:.2f}% kept; "
+              f"{100 * left:.2f}% left in marked blocks; the longest ray marches {c['longest_steps']} "
+              f"steps, {c['longest_marked_steps']} of them in marked blocks; "
+              f"{c['touched_cells']} touched cells, {c['sh_cells']} alive with density > 0",
+              flush=True)
+        print(f"[phase 4] K1 probe (flnerf_tpu_torch/tools/voxel_probe.py) on {gname}, ms by "
+              f"events / device ms: " + "; ".join(f"{k} {ev:.4f} / {dt:.4f}"
+                                                  for k, (ev, dt) in pm.items()), flush=True)
+        print(f"[phase 4] finding, {gname}: {voxel_probe.finding(pm)}; K1's bound with the skip "
+              f"{sb[0]:.4f} ms by {sb[1]}; K2 body in the same run {k2_same:.4f} ms", flush=True)
+    bounds["K1"] = k1_stats["the phase-2 sphere grid"][1]
     print(f"[phase 4] training batch: {n_samples} marched samples, {n_cells} distinct corner "
-          f"cells ({n_alive} alive); K1 {k1_ms:.4f} ms (plain {plain_fwd_ms:.3f} ms, bound "
-          f"{bounds['K1'][0]:.4f} ms); K2 body {k2_ms:.4f} ms (plain backward "
-          f"{plain_bwd_ms:.3f} ms, bound {bounds['K2'][0]:.4f} ms); K2's zero-fill of the "
+          f"cells ({n_alive} alive); K1 {k1_ms:.4f} ms through its wrapper, the occupancy build "
+          f"included (before: {BEFORE['K1']}; plain {plain_fwd_ms:.3f} ms, bound "
+          f"{bounds['K1'][0]:.4f} ms by {bounds['K1'][1]} with the skip, "
+          f"{bounds['K1 every sample'][0]:.4f} ms by {bounds['K1 every sample'][1]} for every "
+          f"sample); K2 body {k2_ms:.4f} ms (plain backward {plain_bwd_ms:.3f} ms, bound "
+          f"{bounds['K2'][0]:.4f} ms); K2's zero-fill of the "
           f"dense gradients {zero_ms:.4f} ms (bound {zero_bound:.4f} ms); K1 launches per "
           f"train step {fwd_launches / steps:.3f} ({fwd_launches - bwd_launches} of "
           f"{fwd_launches} are the test renders)", flush=True)
+    del trained
 
     # ray order: the budgeter's shuffle against the trainer's coherence
     # order (train batches), raster against morton order (eval chunks)

@@ -229,7 +229,8 @@ def main(argv=None):
     print(f"test PSNR {psnr:.3f} SSIM {ssim:.4f} ({mins:.1f} min)")
     with open(os.path.join(args.train_dir, "test_psnr.txt"), "w") as f:
         f.write(f"{psnr}\n")
-    return {"psnr": psnr, "ssim": ssim, "mins": mins, "history": trainer.history}
+    return {"psnr": psnr, "ssim": ssim, "mins": mins, "history": trainer.history,
+            "grid": trainer.state.grid}
 
 
 if __name__ == "__main__":

@@ -165,14 +165,15 @@ def grid_ray_setup(cfg: VoxelGridConfig, rays_o: torch.Tensor,
 
 
 def voxel_render_rays(grid: VoxelGrid, rays_o: torch.Tensor,
-                      rays_d: torch.Tensor, cfg: VoxelGridConfig):
+                      rays_d: torch.Tensor, cfg: VoxelGridConfig, keep=None):
     """Volume-render [N] rays against the grid (cuvol, closed-form SH).
 
     Returns rgb [N,3], depth [N], acc [N], weights [N, max_steps] and log_t
     [N], the final log-transmittance (channel 4 of the kernels' output).
     The march runs only over the steps some ray of the batch can reach:
     every later sample is masked in the reference too, and contributes
-    exactly nothing."""
+    exactly nothing.  ``keep`` ([N, max_steps] bool), when given, masks the
+    samples outside it the same way (the kernel's skipped steps)."""
     check_supported(cfg)
     n = rays_o.shape[0]
     origins, dirs, tmin, tmax, delta_scale, viewdirs = grid_ray_setup(
@@ -184,6 +185,8 @@ def voxel_render_rays(grid: VoxelGrid, rays_o: torch.Tensor,
     valid = ts <= tmax[:, None]
     s = max(int(valid.any(0).sum()), 1)   # each ray's valid steps are a prefix
     ts, valid = ts[:, :s], valid[:, :s]
+    if keep is not None:
+        valid = valid & keep[:, :s]
 
     pos = origins[:, None, :] + ts[..., None] * dirs[:, None, :]       # [N, S, 3]
     sigma, shv = trilinear_sample(grid, pos, cfg)                      # [N,S],[N,S,27]

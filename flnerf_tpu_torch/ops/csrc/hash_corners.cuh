@@ -3,8 +3,11 @@
 // gradient (csrc/hash_sorted.cu: K9): per level, the 8 trilinear corners of
 // pos = x01*scale + 0.5, each indexed densely (x + S*(y + S*z)) or by
 // torch-ngp's xor hash (x ^ y*P1 ^ z*P2, gridencoder.cu:55-70), modulo the
-// level's size, with their weights; and the warp merge of equal corners
-// that K4 and K9 apply before their atomic adds.  The plain versions are
+// level's size, with their weights; the warp merge of equal corners that
+// K4, K7 and K9 apply before their atomic adds; and the tile skeleton of
+// the table gradients K4 and K7 (tile_bwd_kernel, a template over the
+// corner geometry: the packed one here, the lattice hash's in
+// csrc/hash_lattice.cu).  The plain versions are
 // flnerf_tpu_torch/ops/hash_kernel.py corner_indices_weights and, for the
 // sorted engine's big levels, ops/hash_sorted.py corner_keys.
 //
@@ -100,6 +103,163 @@ __device__ __forceinline__ float2 sum_peers(unsigned peers, float2 v, bool& lead
     rank >>= 1;
   }
   return v;
+}
+
+// The packed table's geometry for tile_bwd_kernel: level l's entries are
+// row l of the [L, t_cap, 2] table.
+struct PackedGeo {
+  Levels lv;
+  __device__ __forceinline__ int levels() const { return lv.L; }
+  __device__ __forceinline__ int64_t entries() const { return lv.t_cap; }
+  __device__ __forceinline__ void corners(const float x[3], int l, uint32_t idx[8],
+                                          float w[8]) const {
+    level_corners(x, lv, l, idx, w);
+  }
+};
+
+// ---- the tile skeleton of the table gradients K4 and K7 ----
+//
+// A CTA takes a tile of kTile consecutive points (the kept samples are
+// ray-major, 96 to a ray: a 128-point tile is ~1.3 rays).  It stages the
+// tile's upstream gradient rows in shared memory, read in place through
+// the gradient's strides: element (point p, level l) is the float2 at
+// grad[p * g_point + l * g_level].  With g_level == 1 (rows: K4's [N, L*2]
+// gradient, or K7's column slice of the whole [N, L_all*2] one) a thread
+// reads whole rows, in 16-byte loads where `vec` allows; otherwise
+// (level-major, g_point == 1) the points run fastest.  The CTA lists the
+// tile's live points (a nonzero gradient at any level) in order and leaves
+// if there is none, so a dead point costs its gradient's bytes alone; it
+// then stages x01, and a warp takes 32 consecutive live points of one level
+// (the tasks are level-major: the warps of a CTA sweep a level together).
+// With kMerge, per corner the warp merges lanes whose entries agree
+// (match.any, sum_peers) and the group's lowest lane issues one global
+// float2 atomic; ray neighbours share the coarse levels' cells, so the
+// merge removes most of the contention there.  A zero gradient adds
+// nothing anywhere: the result stays exactly zero.
+//
+// Geo gives levels(), entries() (the table's row length) and corners(x, l,
+// idx, w): PackedGeo above, LatticeGeo in csrc/hash_lattice.cu.
+
+constexpr int kTileThreads = 256;
+
+__device__ __forceinline__ bool nonzero(float2 v) { return v.x != 0.f || v.y != 0.f; }
+
+// A shared tile row of `cols` float2, padded to an odd count: the same
+// column of 16 consecutive rows then falls in 16 distinct bank pairs.
+__host__ __device__ constexpr int padded(int cols) { return cols | 1; }
+
+template <class Geo, int kTile, bool kMerge>
+__global__ void __launch_bounds__(kTileThreads)
+tile_bwd_kernel(const float* __restrict__ x01, const float2* __restrict__ grad,
+                int64_t g_point, int64_t g_level, int64_t n, Geo geo, int vec,
+                float2* __restrict__ grad_table) {
+  static_assert(kTile % 32 == 0 && kTile <= kTileThreads, "a thread a point when listing");
+  constexpr int kWarps = kTileThreads / 32;
+  constexpr unsigned kFull = 0xffffffffu;
+  extern __shared__ float2 gs[];     // [kTile][padded(L)]
+  __shared__ float xs[kTile * 3];
+  __shared__ int live_list[kTile];
+  __shared__ int warp_live[kTile / 32];
+  const int L = geo.levels(), s = padded(L);
+  const int64_t p0 = (int64_t)blockIdx.x * kTile;
+  const int np = (int)(n - p0 < kTile ? n - p0 : kTile);
+  const float2* g0 = grad + p0 * g_point;
+  if (g_level != 1) {   // level-major: the points run fastest
+    for (int j = threadIdx.x; j < np * L; j += kTileThreads) {
+      const int c = j / np, r = j - c * np;
+      gs[r * s + c] = __ldg(g0 + r * g_point + c * g_level);
+    }
+  } else if (vec) {     // rows, L even, 16-byte aligned
+    const int h = L / 2;
+    for (int j = threadIdx.x; j < np * h; j += kTileThreads) {
+      const int r = j / h, c = 2 * (j - r * h);
+      const float4 v = __ldg(reinterpret_cast<const float4*>(g0 + r * g_point + c));
+      gs[r * s + c] = make_float2(v.x, v.y);
+      gs[r * s + c + 1] = make_float2(v.z, v.w);
+    }
+  } else {
+    for (int j = threadIdx.x; j < np * L; j += kTileThreads) {
+      const int r = j / L, c = j - r * L;
+      gs[r * s + c] = __ldg(g0 + r * g_point + c);
+    }
+  }
+  __syncthreads();
+
+  // the tile's live points, in order
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  bool live = false;
+  if (threadIdx.x < np)
+    for (int l = 0; l < L; ++l) live |= nonzero(gs[threadIdx.x * s + l]);
+  int rank = 0;
+  if (warp < kTile / 32) {
+    const unsigned b = __ballot_sync(kFull, live);
+    if (lane == 0) warp_live[warp] = __popc(b);
+    rank = __popc(b & lanemask_lt());
+  }
+  __syncthreads();
+  int n_live = 0, before = 0;
+  for (int w = 0; w < kTile / 32; ++w) {
+    before += w < warp ? warp_live[w] : 0;
+    n_live += warp_live[w];
+  }
+  if (n_live == 0) return;   // the whole CTA: a dead tile reads no x01
+  if (live) live_list[before + rank] = threadIdx.x;
+  for (int j = threadIdx.x; j < np * 3; j += kTileThreads) xs[j] = __ldg(x01 + p0 * 3 + j);
+  __syncthreads();
+
+  const int groups = (n_live + 31) >> 5;
+  for (int task = warp; task < groups * L; task += kWarps) {   // level-major
+    const int l = task / groups;
+    const int i = (task - l * groups) * 32 + lane;
+    const int p = i < n_live ? live_list[i] : -1;
+    const float2 g = p >= 0 ? gs[p * s + l] : make_float2(0.f, 0.f);
+    const bool on = nonzero(g);
+    if (!__any_sync(kFull, on)) continue;
+    uint32_t idx[8] = {};
+    float w[8] = {};
+    if (on) {
+      const float x[3] = {xs[p * 3], xs[p * 3 + 1], xs[p * 3 + 2]};
+      geo.corners(x, l, idx, w);
+    }
+    float2* gt = grad_table + (int64_t)l * geo.entries();
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      float2 v = on ? make_float2(__fmul_rn(w[c], g.x), __fmul_rn(w[c], g.y))
+                    : make_float2(0.f, 0.f);
+      if (kMerge) {
+        bool lead;
+        const int key = on ? (int)idx[c] : -1 - lane;   // a dead lane keys itself apart
+        v = sum_peers(__match_any_sync(kFull, key), v, lead);
+        if (lead && nonzero(v)) atomic_add2(gt + idx[c], v);
+      } else if (on && nonzero(v)) {
+        atomic_add2(gt + idx[c], v);
+      }
+    }
+  }
+}
+
+// Launches tile_bwd_kernel on n >= 1 points of L levels (L the geometry's
+// level count); returns the cudaError_t of the launch.  The dynamic shared
+// memory, kTile * padded(L) float2, is at most 66 KB (256 points, 32
+// levels) beside up to 4 KB of static arrays; past 32 KB of it the opt-in
+// beyond a block's default 48 KB is set here (128-point tiles never need
+// it: 33 KB at 32 levels).
+template <class Geo, int kTile = 128, bool kMerge = true>
+int launch_tile_bwd(const float* x01, const float2* grad, int64_t g_point, int64_t g_level,
+                    int64_t n, int L, const Geo& geo, float2* grad_table,
+                    cudaStream_t stream) {
+  const int smem = kTile * padded(L) * (int)sizeof(float2);
+  if (smem > 34 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(tile_bwd_kernel<Geo, kTile, kMerge>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int vec = g_level == 1 && L % 2 == 0 && g_point % 2 == 0 &&
+                  reinterpret_cast<uintptr_t>(grad) % 16 == 0;
+  const dim3 grid((unsigned)((n + kTile - 1) / kTile));
+  tile_bwd_kernel<Geo, kTile, kMerge><<<grid, kTileThreads, smem, stream>>>(
+      x01, grad, g_point, g_level, n, geo, vec, grad_table);
+  return (int)cudaGetLastError();
 }
 
 // The host arrays of L levels -> Levels; cudaErrorInvalidValue for L

@@ -51,16 +51,17 @@
 // through shared memory) shares coarse sectors within a gather but
 // measured slower on the train batch; the probe keeps it.
 //
-// K4 (hash_bwd_tile_kernel): a CTA takes a tile of kTile consecutive
-// points (the kept samples are ray-major, 96 to a ray: ~1.3 rays).  It
-// stages the tile's gradient rows in shared memory (16-byte loads where
-// the rows allow, read in place through the row stride), lists the tile's
-// live points (a nonzero gradient at any level) in order and leaves if
-// there is none, so a dead point costs its gradient's bytes alone; it then
-// stages x01, and a warp takes 32 consecutive live points of one level.
-// Per corner the warp merges lanes with equal entries (__match_any_sync,
-// shuffle sums onto the lowest lane; csrc/hash_corners.cuh sum_peers) and
-// the leader issues one global float2 atomic per distinct entry.  Ray
+// K4 (csrc/hash_corners.cuh tile_bwd_kernel on PackedGeo, the skeleton it
+// shares with the lattice engine's K7): a CTA takes a tile of 128
+// consecutive points (the kept samples are ray-major, 96 to a ray: ~1.3
+// rays).  It stages the tile's gradient rows in shared memory (16-byte
+// loads where the rows allow, read in place through the row stride), lists
+// the tile's live points (a nonzero gradient at any level) in order and
+// leaves if there is none, so a dead point costs its gradient's bytes
+// alone; it then stages x01, and a warp takes 32 consecutive live points of
+// one level.  Per corner the warp merges lanes with equal entries
+// (__match_any_sync, shuffle sums onto the lowest lane; sum_peers) and the
+// leader issues one global float2 atomic per distinct entry.  Ray
 // neighbours share the coarse levels' cells, so the merge removes most of
 // the contention there.  A zero gradient adds nothing anywhere: the result
 // stays exactly zero.
@@ -68,27 +69,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "hash_corners.cuh"   // Levels, level_corners, atomic_add2, sum_peers, make_levels
+#include "hash_corners.cuh"   // Levels, level_corners, make_levels, PackedGeo, launch_tile_bwd
 
 namespace {
 
 using hashgrid::Levels;
-using hashgrid::atomic_add2;
-using hashgrid::lanemask_lt;
 using hashgrid::level_corners;
 using hashgrid::make_levels;
-using hashgrid::sum_peers;
 
-constexpr int kTile = 128;            // K4: points a CTA
-constexpr int kThreads = 256;         // threads a CTA
-constexpr int kWarps = kThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
-
-// A shared tile row of `cols` float2, padded to an odd count: the same
-// column of 16 consecutive rows then falls in 16 distinct bank pairs.
-__host__ __device__ constexpr int padded(int cols) { return cols | 1; }
-
-__device__ __forceinline__ bool nonzero(float2 v) { return v.x != 0.f || v.y != 0.f; }
+constexpr int kThreads = 256;         // K3: threads a CTA
 
 // The table entries a and b of corners c and c + 1, which differ in x
 // only.  At a hashed level of 2^k entries an even cell x has x + 1 = x ^ 1,
@@ -137,89 +126,6 @@ hash_fwd_kernel(const float* __restrict__ x01, const float2* __restrict__ table,
   out[i] = acc;   // [N, L, 2] == [N, L*2]: a warp writes 256 contiguous bytes
 }
 
-// K4: one CTA a tile.
-__global__ void __launch_bounds__(kThreads)
-hash_bwd_tile_kernel(const float* __restrict__ x01, const float2* __restrict__ grad,
-                     int64_t g_row, int64_t n, Levels lv, int vec,
-                     float2* __restrict__ grad_table) {
-  extern __shared__ float2 gs[];     // [kTile][padded(L)]
-  __shared__ float xs[kTile * 3];
-  __shared__ int live_list[kTile];
-  __shared__ int warp_live[kTile / 32];
-  const int L = lv.L, s = padded(L);
-  const int64_t p0 = (int64_t)blockIdx.x * kTile;
-  const int np = (int)(n - p0 < kTile ? n - p0 : kTile);
-  const float2* g0 = grad + p0 * g_row;
-  if (vec) {   // L even, rows 16-byte aligned
-    const int h = L / 2;
-    for (int j = threadIdx.x; j < np * h; j += kThreads) {
-      const int r = j / h, c = 2 * (j - r * h);
-      const float4 v = __ldg(reinterpret_cast<const float4*>(g0 + r * g_row + c));
-      gs[r * s + c] = make_float2(v.x, v.y);
-      gs[r * s + c + 1] = make_float2(v.z, v.w);
-    }
-  } else {
-    for (int j = threadIdx.x; j < np * L; j += kThreads) {
-      const int r = j / L, c = j - r * L;
-      gs[r * s + c] = __ldg(g0 + r * g_row + c);
-    }
-  }
-  __syncthreads();
-
-  // the tile's live points, in order
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  bool live = false;
-  if (threadIdx.x < np)
-    for (int l = 0; l < L; ++l) live |= nonzero(gs[threadIdx.x * s + l]);
-  int rank = 0;
-  if (warp < kTile / 32) {
-    const unsigned b = __ballot_sync(kFull, live);
-    if (lane == 0) warp_live[warp] = __popc(b);
-    rank = __popc(b & lanemask_lt());
-  }
-  __syncthreads();
-  int n_live = 0, before = 0;
-  for (int w = 0; w < kTile / 32; ++w) {
-    before += w < warp ? warp_live[w] : 0;
-    n_live += warp_live[w];
-  }
-  if (n_live == 0) return;   // the whole CTA: a dead tile reads no x01
-  if (live) live_list[before + rank] = threadIdx.x;
-  for (int j = threadIdx.x; j < np * 3; j += kThreads) xs[j] = __ldg(x01 + p0 * 3 + j);
-  __syncthreads();
-
-  const int groups = (n_live + 31) >> 5;
-  for (int task = warp; task < groups * L; task += kWarps) {   // level-major
-    const int l = task / groups;
-    const int i = (task - l * groups) * 32 + lane;
-    const int p = i < n_live ? live_list[i] : -1;
-    const float2 g = p >= 0 ? gs[p * s + l] : make_float2(0.f, 0.f);
-    const bool on = nonzero(g);
-    if (!__any_sync(kFull, on)) continue;
-    uint32_t idx[8] = {};
-    float w[8] = {};
-    if (on) {
-      const float x[3] = {xs[p * 3], xs[p * 3 + 1], xs[p * 3 + 2]};
-      level_corners(x, lv, l, idx, w);
-    }
-    float2* gt = grad_table + (int64_t)l * lv.t_cap;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      float2 v = on ? make_float2(__fmul_rn(w[c], g.x), __fmul_rn(w[c], g.y))
-                    : make_float2(0.f, 0.f);
-      bool lead;
-      const int key = on ? (int)idx[c] : -1 - lane;   // a dead lane keys itself apart
-      v = sum_peers(__match_any_sync(kFull, key), v, lead);
-      if (lead && nonzero(v)) atomic_add2(gt + idx[c], v);
-    }
-  }
-}
-
-// Dynamic shared memory in bytes of K4's gradient tile: at most 33 KB (32
-// levels), within what a block takes without an opt-in beside its 2 KB of
-// static arrays.
-int tile_smem(int L) { return kTile * padded(L) * (int)sizeof(float2); }
-
 }  // namespace
 
 extern "C" {
@@ -258,12 +164,9 @@ int hash_encode_backward(const float* x01, const float* grad_out, long long g_ro
   const int err = make_levels(L, t_cap, scales, strides, sizes, use_hash, lv);
   if (err != 0) return err;
   if (n < 1 || g_row < L) return (int)cudaErrorInvalidValue;
-  const float2* g = reinterpret_cast<const float2*>(grad_out);
-  const int vec = L % 2 == 0 && g_row % 2 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0;
-  const dim3 grid((unsigned)((n + kTile - 1) / kTile));
-  hash_bwd_tile_kernel<<<grid, kThreads, tile_smem(L), (cudaStream_t)stream>>>(
-      x01, g, (int64_t)g_row, (int64_t)n, lv, vec, reinterpret_cast<float2*>(grad_table));
-  return (int)cudaGetLastError();
+  return hashgrid::launch_tile_bwd(x01, reinterpret_cast<const float2*>(grad_out),
+                                   (int64_t)g_row, 1, (int64_t)n, L, hashgrid::PackedGeo{lv},
+                                   reinterpret_cast<float2*>(grad_table), (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -28,45 +28,53 @@
 // view of the [N, L_all*2] gradient, which then needs no copy.
 //
 // Both walk the points in their own order (ray order for a train batch,
-// grid order for a refresh chunk: neighbouring points are near in space).
-// A thread reads its point's x01 (12 bytes), computes the cell, the base
-// key, the 8 corner indices and weights in registers (__fmul_rn/__fadd_rn,
-// so no FMA contraction moves a point into another cell than the plain
-// version's separate multiply and add), then
+// grid order for a refresh chunk: neighbouring points are near in space),
+// and compute a point's cell, base key, 8 corner indices and weights in
+// registers from its x01 (12 bytes), with __fmul_rn/__fadd_rn, so that no
+// FMA contraction moves a point into another cell than the plain version's
+// separate multiply and add.
 //   K6, one thread per (level, point), the level on the grid's y axis and
 //      the point on x (the blocks of level l are issued before those of
 //      level l + 1; a warp walks 32 consecutive points of one level), gathers
 //      the 8 corners as one float2 load each, sums them in corner order, and
 //      stores the float2 at [l, p]: the warp's 256 contiguous bytes, whole
-//      sectors;
-//   K7, one thread per (point, level), level fastest (as K3/K4 and K9), reads
-//      the upstream gradient at [l, p]: from autograd's transposed view a
-//      warp reads ~2 rows of the [N, L_all*2] gradient, coalesced, and a
-//      point whose gradient is zero (most of a train step's) leaves with all
-//      its levels at once; it returns if its gradient is zero (adds exactly
-//      nothing), and adds w*g into the zero-filled gradient with one float2
-//      atomicAdd per corner.  On the same view K6's level-major walk reads
-//      32 rows a warp: it took 0.244 ms on a train step's gradient against
-//      this walk's 0.189, and 1.00 against 1.26 ms on a dense one; the main
-//      path's gradient is the train step's (PERF.md).
-// What bounds them on this card: the gathers.  At the 2^19 train step
-// (393,216 points x 14 levels x 8 corners = 44 M accesses) the 58.7 MB big
-// table does not fit in the 50 MB L2; one level's slice (4.2 MB at 2^19)
-// does, and K6's level-major grid keeps about one level's slice hot at a
-// time (K7 touches only the live points' slices, all levels at once, as K4
-// and K9 do).  A fine hashed level's corners are 8 scattered 32-byte sectors for
-// 8 useful bytes each; neighbouring points share the coarse levels'
-// sectors.  The design takes the sort by base key off the path: it bought
-// shared sectors at the price of scattered x01 reads and [p, l] stores, and
-// cost more than it saved (PERF.md, chip_smoke.py phase 10).
+//      sectors.
+//   K7 is K4's tile on the lattice geometry (csrc/hash_corners.cuh
+//      tile_bwd_kernel on LatticeGeo): a CTA stages 64 consecutive points'
+//      gradient rows in shared memory, read in place through the strides
+//      (on the main path autograd's column slice of the [N, L_all*2]
+//      gradient: rows of 14 float2 at a stride of 16, in 16-byte loads),
+//      lists the live points (nonzero at any big level) and leaves a dead
+//      tile before it reads x01; a warp then takes 32 consecutive live
+//      points of one level, merges the lanes whose corner entries agree
+//      (match.any and shuffle sums onto the lowest lane) and adds w*g into
+//      the gradient with one float2 atomicAdd per distinct entry.  The
+//      kernel it replaced, one thread per (point, level) with 8 atomics a
+//      live thread and no merge, is kept by tools/lattice_probe.py.
+// What bounds them on this card: the gathers and the atomics.  At the 2^19
+// train step (393,216 points x 14 levels x 8 corners = 44 M accesses) the
+// 58.7 MB big table does not fit in the 50 MB L2; one level's slice (4.2
+// MB at 2^19) does, and K6's level-major grid keeps about one level's slice
+// hot at a time.  A fine hashed level's corners are 8 scattered 32-byte
+// sectors for 8 useful bytes each; neighbouring points share the coarse
+// levels' sectors.  K7's train gradient is live at ~11% of the points: the
+// tile reads the dead points' gradient rows and nothing else, and the merge
+// takes the ray neighbours' shared coarse corners off the L2's atomic
+// units; what is left is one atomic per distinct (level, entry) of a warp.
+// The design takes the sort by base key off the path: it bought shared
+// sectors at the price of scattered x01 reads and [p, l] stores, and cost
+// more than it saved (PERF.md, chip_smoke.py phase 10).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hash_corners.cuh"   // launch_tile_bwd: K7's tile skeleton, shared with K4
 
 namespace {
 
 constexpr int kMaxLevels = 32;
 constexpr int kThreads = 256;
+constexpr int kTileK7 = 64;   // K7's points a CTA (tools/lattice_probe.py times 64-256)
 
 struct Lattice {
   float scale[kMaxLevels];
@@ -133,33 +141,18 @@ lattice_fwd_kernel(const float* __restrict__ x01, const float2* __restrict__ tab
   out[(int64_t)l * n + p] = acc;   // [L, N, 2]
 }
 
-__global__ void __launch_bounds__(kThreads)
-lattice_bwd_kernel(const float* __restrict__ x01, const float2* __restrict__ grad_out,
-                   int64_t g_level, int64_t g_point, int n, Lattice lv,
-                   float2* __restrict__ grad_table) {
-  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= (int64_t)n * lv.L) return;
-  const int p = (int)(i / lv.L);
-  const int l = (int)(i - (int64_t)p * lv.L);
-  const float2 g = grad_out[l * g_level + p * g_point];   // [L, N, 2] by its strides
-  if (g.x == 0.f && g.y == 0.f) return;   // adds exactly nothing
-  const float* xp = x01 + (int64_t)p * 3;
-  const float x[3] = {__ldg(xp), __ldg(xp + 1), __ldg(xp + 2)};
-  uint32_t idx[8];
-  float w[8];
-  lattice_corners(x, lv, l, idx, w);
-  float2* gt = grad_table + (int64_t)l * lv.t;
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const float2 v = make_float2(__fmul_rn(w[c], g.x), __fmul_rn(w[c], g.y));
-#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
-    atomicAdd(gt + idx[c], v);   // per-component atomic (sm_90, global)
-#else
-    atomicAdd(&gt[idx[c]].x, v.x);
-    atomicAdd(&gt[idx[c]].y, v.y);
-#endif
+// The lattice hash's geometry for the tile skeleton of K7
+// (csrc/hash_corners.cuh tile_bwd_kernel): level l's entries are row l of
+// the [L, t, 2] big table.
+struct LatticeGeo {
+  Lattice lv;
+  __device__ __forceinline__ int levels() const { return lv.L; }
+  __device__ __forceinline__ int64_t entries() const { return lv.t; }
+  __device__ __forceinline__ void corners(const float x[3], int l, uint32_t idx[8],
+                                          float w[8]) const {
+    lattice_corners(x, lv, l, idx, w);
   }
-}
+};
 
 int make_lattice(int L, long long t, const float* scales, const uint32_t* mult,
                  const uint32_t* offs, const uint32_t* strides, const uint32_t* masks,
@@ -217,11 +210,10 @@ int lattice_encode_backward(const float* x01, const float* grad_out, long long g
   const int err = make_lattice(L, t, scales, mult, offs, strides, masks, use_hash, lv);
   if (err != 0) return err;
   if (n < 1 || n >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((n * L + kThreads - 1) / kThreads));   // [n, L], level fastest
-  lattice_bwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      x01, reinterpret_cast<const float2*>(grad_out), (int64_t)g_level, (int64_t)g_point,
-      (int)n, lv, reinterpret_cast<float2*>(grad_table));
-  return (int)cudaGetLastError();
+  return hashgrid::launch_tile_bwd<LatticeGeo, kTileK7>(
+      x01, reinterpret_cast<const float2*>(grad_out), (int64_t)g_point, (int64_t)g_level,
+      (int64_t)n, L, LatticeGeo{lv}, reinterpret_cast<float2*>(grad_table),
+      (cudaStream_t)stream);
 }
 
 }  // extern "C"

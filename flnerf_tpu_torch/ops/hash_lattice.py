@@ -21,8 +21,10 @@ corner to drop.
 The engine's own result is level-major, [Lb, N, 2]
 (``lattice_encode_levels``).  On CUDA tensors it is ``LatticeEncode``, a
 ``torch.autograd.Function`` whose forward launches K6 and whose backward
-launches K7, both walking each level's points in their own order (no sort:
-``csrc/hash_lattice.cu`` says why); ``ctx`` keeps x01 alone.  CPU tensors
+launches K7, both walking the points in their own order (no sort:
+``csrc/hash_lattice.cu`` says why; K7 in tiles of 128 points that drop
+their dead points and merge a warp's equal corners); ``ctx`` keeps x01
+alone.  CPU tensors
 take the plain version, ``lattice_encode_plain_levels``, under autograd.
 Nothing falls back from the card to the plain version.
 ``lattice_encode_split`` joins the small levels' [N, Ls*2] and the big

@@ -6,6 +6,17 @@ of ``csrc/voxel_cuvol.cu``: K1 (forward) and K2 (backward), one warp per
 ray.  ``render_rays_fused`` is a ``torch.autograd.Function`` whose forward
 launches K1 and whose backward launches K2.
 
+K1 skips empty space, as the TPU kernel does (``occupancy_mip``): before
+each launch ``skip_occupancy`` builds, in plain torch ops over the grid, an
+occupancy of 8^3 blocks of floor cells (``occupancy_blocks``), and K1 jumps
+over the steps whose floor cell lies in an unmarked block.  The skip is
+exact: such a step's corners are all dead or <= 0, so its sigma fails the
+gate whenever ``sigma_thresh > 0``; with ``sigma_thresh <= 0`` nothing is
+skipped.  ``skipped_steps``, ``leave_block`` and ``marched_steps`` are the
+plain versions of K1's skip predicate, step jump and march, in the device's
+f32 arithmetic; ``render_rays_skip_plain`` is the plain render with the
+skip.
+
 Dispatch: on CUDA tensors the kernels launch (or the wrapper raises); on CPU
 tensors the plain version, ``models/voxel_sh.voxel_render_rays``, runs and
 autograd gives its backward.  Nothing falls back from the card to the plain
@@ -51,7 +62,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("voxel_cuvol")
     if lib.cuvol_forward.argtypes is None:
         lib.cuvol_forward.restype = ctypes.c_int
-        lib.cuvol_forward.argtypes = _COMMON + [_P, _P]
+        lib.cuvol_forward.argtypes = _COMMON + [_P, _P, _P]
         lib.cuvol_backward.restype = ctypes.c_int
         lib.cuvol_backward.argtypes = _COMMON + [_P, _P, _P, _P, _P]
     return lib
@@ -89,13 +100,182 @@ def _common_args(density, sh, alive, origins, dirs, tmin, tmax, dscale, shmult,
             cfg.background_brightness]
 
 
+def occupancy_shape(reso) -> tuple:
+    """The block counts of K1's occupancy: 8^3 blocks of the floor cells
+    0 .. reso - 2 of each side."""
+    return tuple(max(1, -(-(r - 1) // 8)) for r in reso)
+
+
+def _pool_axis(occ: torch.Tensor, axis: int) -> torch.Tensor:
+    """Along ``axis``: block b of the floor cells 8b .. 8b+7 is marked when
+    any of the cells 8b .. 8b+8 is (a floor cell's corners reach one cell
+    past it); a last, partial block is padded with unmarked cells."""
+    r = occ.shape[axis]
+    (nb,) = occupancy_shape((r,))
+    if nb * 8 > r:
+        pad = list(occ.shape)
+        pad[axis] = nb * 8 - r
+        occ = torch.cat([occ, occ.new_zeros(pad)], axis)
+    shape = list(occ.shape)
+    blocks = occ.narrow(axis, 0, nb * 8).reshape(
+        shape[:axis] + [nb, 8] + shape[axis + 1:]).any(axis + 1)
+    every8 = [slice(None)] * occ.dim()
+    every8[axis] = slice(8, None, 8)
+    nxt = occ[tuple(every8)]          # the first cell of each next block, a view
+    blocks.narrow(axis, 0, nxt.shape[axis]).logical_or_(nxt)
+    return blocks
+
+
+def occupancy_blocks(density: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
+    """K1's occupancy, bool [ceil((X-1)/8), ceil((Y-1)/8), ceil((Z-1)/8)]:
+    8^3 blocks of floor cells (a sample's floor cell l is clipped to [0,
+    reso - 2]; its corners are l + {0,1}^3), block b marked when some floor
+    cell in it has a corner that is alive with density > 0.  So a sample
+    whose floor cell lies in an unmarked block sums non-negative weights
+    times non-positive densities: its sigma is <= 0 in f32.  Plain torch
+    ops over the grid, on its device (the TPU path builds its 8^3
+    ``occupancy_mip`` the same way, outside its kernel)."""
+    occ = alive & (density > 0)
+    for axis in range(3):
+        occ = _pool_axis(occ, axis)
+    return occ
+
+
+def skips(cfg: VoxelGridConfig) -> bool:
+    """Whether K1 may skip a step: not where ``sigma_thresh <= 0`` (a sigma
+    of 0 then passes the gate) or a side of the grid is under 2 cells."""
+    return cfg.sigma_thresh > 0 and min(cfg.reso) >= 2
+
+
+def skip_occupancy(density: torch.Tensor, alive: torch.Tensor, cfg: VoxelGridConfig):
+    """The occupancy K1 skips by, or None where it may skip nothing."""
+    return occupancy_blocks(density, alive).contiguous() if skips(cfg) else None
+
+
+def _floor_cells(origins, dirs, ts, cfg: VoxelGridConfig) -> torch.Tensor:
+    """The floor cells [..., 3] (int64) of the samples at ts [N, ...]:
+    position o + t*d (a multiply, then an add), clipped to [0, reso - 1],
+    its floor clipped to [0, reso - 2], as K1's axis_lerp computes them."""
+    extra = (None,) * (ts.dim() - 1)
+    o = origins[(slice(None),) + extra]
+    d = dirs[(slice(None),) + extra]
+    pos = o + ts[..., None] * d
+    hi = torch.tensor([r - 1.0 for r in cfg.reso], device=ts.device)
+    pos = torch.minimum(torch.clamp(pos, min=0.0), hi)
+    return torch.minimum(torch.clamp(torch.floor(pos), min=0.0), hi - 1.0).long()
+
+
+def _step_t(tmin, k, cfg: VoxelGridConfig):
+    """t_k = tmin + step * k in f32, as K1 and voxel_render_rays compute it."""
+    return tmin + cfg.step_size * k.to(torch.float32)
+
+
+def _marked(occ, cells) -> torch.Tensor:
+    b = cells // 8
+    return occ[b[..., 0], b[..., 1], b[..., 2]]
+
+
+def skipped_steps(occ, cfg: VoxelGridConfig, origins, dirs, tmin, tmax) -> torch.Tensor:
+    """K1's skip predicate, [N, max_steps] bool: the marched steps (t_j <=
+    tmax) whose floor cell lies in a block that ``occ`` leaves unmarked."""
+    steps = torch.arange(cfg.max_steps, device=origins.device)
+    ts = _step_t(tmin[:, None], steps[None, :], cfg)
+    return (ts <= tmax[:, None]) & ~_marked(occ, _floor_cells(origins, dirs, ts, cfg))
+
+
+def _out_of_block(k, blk, cfg, origins, dirs, tmin, tmax):
+    t = _step_t(tmin, k, cfg)
+    cells = _floor_cells(origins, dirs, t, cfg)
+    return (k >= cfg.max_steps) | (t > tmax) | (cells // 8 != blk).any(-1)
+
+
+def leave_block(blk, j, cfg: VoxelGridConfig, origins, dirs, tmin, tmax) -> torch.Tensor:
+    """K1's step jump (``csrc/voxel_cuvol.cu`` leave_block), one ray a row:
+    from step j [M] whose floor cell lies in block blk [M, 3], the first
+    later step whose floor cell lies in another block or that is past the
+    march.  The same f32 estimate from the block's planes, then the same
+    steps back and forth to the exact step."""
+    reso = torch.tensor(cfg.reso, device=j.device)
+    t_out = tmax.clone()
+    for a in range(3):
+        d, o, b = dirs[:, a], origins[:, a], blk[:, a]
+        up = (d > 0) & (8 * (b + 1) <= reso[a] - 2)
+        down = (d < 0) & (b > 0)
+        edge = torch.where(up, 8 * (b + 1), 8 * b).to(torch.float32)
+        t_a = (edge - o) / d
+        t_out = torch.where(up | down, torch.fmin(t_out, t_a), t_out)
+    e = torch.floor((t_out - tmin) / cfg.step_size) + 1.0
+    e = torch.fmin(torch.fmax(e, (j + 1).to(torch.float32)),
+                   torch.tensor(float(cfg.max_steps), device=j.device))
+    k = e.long()
+    args = (cfg, origins, dirs, tmin, tmax)
+    while True:
+        back = (k > j + 1) & _out_of_block(k - 1, blk, *args)
+        if not bool(back.any()):
+            break
+        k = k - back.long()
+    while True:
+        fwd = ~_out_of_block(k, blk, *args)
+        if not bool(fwd.any()):
+            break
+        k = k + fwd.long()
+    return k
+
+
+def marched_steps(occ, cfg: VoxelGridConfig, origins, dirs, tmin, tmax,
+                  steps_per_pass: int = 2) -> torch.Tensor:
+    """K1's march with the skip, [N, max_steps] bool: the steps whose
+    densities it reads.  Passes of ``steps_per_pass`` steps (K1's 2) from
+    step 0; a
+    pass whose first step lies in an unmarked block jumps (``leave_block``);
+    a later step of a pass in an unmarked block is not read."""
+    n = origins.shape[0]
+    dev = origins.device
+    out = torch.zeros((n, cfg.max_steps), dtype=torch.bool, device=dev)
+    rows = torch.arange(n, device=dev)
+    j0 = torch.zeros(n, dtype=torch.long, device=dev)
+    while True:
+        active = (j0 < cfg.max_steps) & (_step_t(tmin, j0, cfg) <= tmax)
+        if not bool(active.any()):
+            return out
+        cells = _floor_cells(origins, dirs, _step_t(tmin, j0, cfg), cfg)
+        jump = active & ~_marked(occ, cells)
+        blk = cells // 8
+        if bool(jump.any()):
+            i = rows[jump]
+            j0[i] = leave_block(blk[i], j0[i], cfg, origins[i], dirs[i], tmin[i], tmax[i])
+        march = active & ~jump
+        for s in range(steps_per_pass):
+            js = j0 + s
+            t = _step_t(tmin, js, cfg)
+            ok = march & (js < cfg.max_steps) & (t <= tmax)
+            ok &= _marked(occ, _floor_cells(origins, dirs, t, cfg))
+            out[rows[ok], js[ok]] = True
+        j0 = torch.where(march, j0 + steps_per_pass, j0)
+
+
+def render_rays_skip_plain(grid: VoxelGrid, rays_o: torch.Tensor, rays_d: torch.Tensor,
+                           cfg: VoxelGridConfig):
+    """``voxel_render_rays`` with K1's skip: only the steps ``marched_steps``
+    reads can add to the render (all of them when ``skip_occupancy`` gives
+    no occupancy).  Equal, bit for bit, to the render without the skip."""
+    occ = skip_occupancy(grid.density, grid.alive, cfg)
+    if occ is None:
+        return voxel_render_rays(grid, rays_o, rays_d, cfg)
+    origins, dirs, tmin, tmax, _, _ = grid_ray_setup(cfg, rays_o, rays_d)
+    keep = marched_steps(occ, cfg, origins, dirs, tmin, tmax)
+    return voxel_render_rays(grid, rays_o, rays_d, cfg, keep=keep)
+
+
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
 def cuvol_forward(density, sh, alive, origins, dirs, tmin, tmax, dscale,
                   shmult, cfg: VoxelGridConfig) -> torch.Tensor:
-    """K1: [N, 8] f32 — rgb (0:3), depth (3), final log-T (4), acc (5)."""
+    """K1: [N, 8] f32 — rgb (0:3), depth (3), final log-T (4), acc (5).
+    The occupancy K1 skips by (``skip_occupancy``) is built here from the
+    grid before the launch."""
     global FWD_LAUNCHES
     args = _common_args(density, sh, alive, origins, dirs, tmin, tmax, dscale,
                         shmult, cfg)
@@ -103,7 +283,9 @@ def cuvol_forward(density, sh, alive, origins, dirs, tmin, tmax, dscale,
     out = torch.empty((n, 8), dtype=torch.float32, device=density.device)
     if n == 0:
         return out
-    rc = _lib().cuvol_forward(*args, out.data_ptr(), _stream(density.device))
+    occ = skip_occupancy(density, alive, cfg)
+    rc = _lib().cuvol_forward(*args, None if occ is None else occ.data_ptr(), out.data_ptr(),
+                              _stream(density.device))
     FWD_LAUNCHES += 1
     if rc != 0:
         raise RuntimeError(f"cuvol_forward launch failed: cudaError {rc}")

@@ -12,6 +12,9 @@ profiler's device time on the same inputs:
             level fastest; K4 with 8 global atomics per live thread on a
             contiguous copy of a column-slice gradient, the copy timed
             apart), kept here as a source string;
+  own body  K4's own tile kernel before the lattice engine's K7 came to
+            share its skeleton (csrc/hash_corners.cuh tile_bwd_kernel),
+            kept here as a source string: what the sharing costs K4;
   no gather K3 with a value made from each corner's index in place of its
             table loads (substituted into a copy of hash_encode.cu);
   unpaired  K3 with one load for every corner, where it loads two
@@ -108,6 +111,119 @@ extern "C" int old_launch(int bwd, const float* x01, const float* data, long lon
   else
     old_fwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
         x01, reinterpret_cast<const float2*>(data), n, lv, reinterpret_cast<float2*>(out));
+  return (int)cudaGetLastError();
+}
+"""
+
+# K4's own body before the lattice engine's K7 came to share it
+# (csrc/hash_encode.cu hash_bwd_tile_kernel before csrc/hash_corners.cuh
+# tile_bwd_kernel): timed beside K4 to show what the shared skeleton costs.
+OWN_SOURCE = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include "hash_corners.cuh"
+namespace {
+using hashgrid::Levels;
+using hashgrid::atomic_add2;
+using hashgrid::lanemask_lt;
+using hashgrid::level_corners;
+using hashgrid::nonzero;
+using hashgrid::padded;
+using hashgrid::sum_peers;
+constexpr int kTile = 128;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+__global__ void __launch_bounds__(kThreads)
+own_bwd_kernel(const float* __restrict__ x01, const float2* __restrict__ grad,
+                int64_t g_row, int64_t n, Levels lv, int vec,
+                float2* __restrict__ grad_table) {
+  extern __shared__ float2 gs[];     // [kTile][padded(L)]
+  __shared__ float xs[kTile * 3];
+  __shared__ int live_list[kTile];
+  __shared__ int warp_live[kTile / 32];
+  const int L = lv.L, s = padded(L);
+  const int64_t p0 = (int64_t)blockIdx.x * kTile;
+  const int np = (int)(n - p0 < kTile ? n - p0 : kTile);
+  const float2* g0 = grad + p0 * g_row;
+  if (vec) {   // L even, rows 16-byte aligned
+    const int h = L / 2;
+    for (int j = threadIdx.x; j < np * h; j += kThreads) {
+      const int r = j / h, c = 2 * (j - r * h);
+      const float4 v = __ldg(reinterpret_cast<const float4*>(g0 + r * g_row + c));
+      gs[r * s + c] = make_float2(v.x, v.y);
+      gs[r * s + c + 1] = make_float2(v.z, v.w);
+    }
+  } else {
+    for (int j = threadIdx.x; j < np * L; j += kThreads) {
+      const int r = j / L, c = j - r * L;
+      gs[r * s + c] = __ldg(g0 + r * g_row + c);
+    }
+  }
+  __syncthreads();
+
+  // the tile's live points, in order
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  bool live = false;
+  if (threadIdx.x < np)
+    for (int l = 0; l < L; ++l) live |= nonzero(gs[threadIdx.x * s + l]);
+  int rank = 0;
+  if (warp < kTile / 32) {
+    const unsigned b = __ballot_sync(kFull, live);
+    if (lane == 0) warp_live[warp] = __popc(b);
+    rank = __popc(b & lanemask_lt());
+  }
+  __syncthreads();
+  int n_live = 0, before = 0;
+  for (int w = 0; w < kTile / 32; ++w) {
+    before += w < warp ? warp_live[w] : 0;
+    n_live += warp_live[w];
+  }
+  if (n_live == 0) return;   // the whole CTA: a dead tile reads no x01
+  if (live) live_list[before + rank] = threadIdx.x;
+  for (int j = threadIdx.x; j < np * 3; j += kThreads) xs[j] = __ldg(x01 + p0 * 3 + j);
+  __syncthreads();
+
+  const int groups = (n_live + 31) >> 5;
+  for (int task = warp; task < groups * L; task += kWarps) {   // level-major
+    const int l = task / groups;
+    const int i = (task - l * groups) * 32 + lane;
+    const int p = i < n_live ? live_list[i] : -1;
+    const float2 g = p >= 0 ? gs[p * s + l] : make_float2(0.f, 0.f);
+    const bool on = nonzero(g);
+    if (!__any_sync(kFull, on)) continue;
+    uint32_t idx[8] = {};
+    float w[8] = {};
+    if (on) {
+      const float x[3] = {xs[p * 3], xs[p * 3 + 1], xs[p * 3 + 2]};
+      level_corners(x, lv, l, idx, w);
+    }
+    float2* gt = grad_table + (int64_t)l * lv.t_cap;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      float2 v = on ? make_float2(__fmul_rn(w[c], g.x), __fmul_rn(w[c], g.y))
+                    : make_float2(0.f, 0.f);
+      bool lead;
+      const int key = on ? (int)idx[c] : -1 - lane;   // a dead lane keys itself apart
+      v = sum_peers(__match_any_sync(kFull, key), v, lead);
+      if (lead && nonzero(v)) atomic_add2(gt + idx[c], v);
+    }
+  }
+}
+
+}  // namespace
+extern "C" int own_launch(const float* x01, const float* grad, long long g_row, long long n,
+                          int L, int t_cap, const float* scales, const uint32_t* strides,
+                          const uint32_t* sizes, const int* use_hash, float* grad_table,
+                          void* stream) {
+  Levels lv;
+  const int err = hashgrid::make_levels(L, t_cap, scales, strides, sizes, use_hash, lv);
+  if (err != 0) return err;
+  const float2* g = reinterpret_cast<const float2*>(grad);
+  const int vec = L % 2 == 0 && g_row % 2 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  own_bwd_kernel<<<(unsigned)((n + kTile - 1) / kTile), kThreads,
+                   kTile * padded(L) * (int)sizeof(float2), (cudaStream_t)stream>>>(
+      x01, g, (int64_t)g_row, (int64_t)n, lv, vec, reinterpret_cast<float2*>(grad_table));
   return (int)cudaGetLastError();
 }
 """
@@ -327,8 +443,9 @@ _LIBS: dict = {}
 
 
 def build() -> dict:
-    """nvcc the probe's five libraries into build/probe/, all at once (once
-    a process): "old" (the replaced kernels), "no gather" (K3 without its
+    """nvcc the probe's six libraries into build/probe/, all at once (once
+    a process): "old" (the replaced kernels), "own" (K4's own body before
+    the shared tile skeleton), "no gather" (K3 without its
     table loads), "unpaired" (K3 with a load for every corner), "tiled" (K3
     walking a tile level by level) and "shared" (K4's shared-memory
     levels)."""
@@ -342,7 +459,8 @@ def build() -> dict:
     out_dir = os.path.join(os.path.dirname(_build.BUILD_DIR), "probe")
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
-    for name, text in (("old", OLD_SOURCE), ("no gather", src.replace(_GATHER, _NO_GATHER)),
+    for name, text in (("old", OLD_SOURCE), ("own", OWN_SOURCE),
+                       ("no gather", src.replace(_GATHER, _NO_GATHER)),
                        ("unpaired", src.replace(_PAIRED, _UNPAIRED)),
                        ("tiled", TILED_SOURCE), ("shared", SHARED_SOURCE)):
         cu = os.path.join(out_dir, f"hash_probe_{name.replace(' ', '_')}.cu")
@@ -360,6 +478,8 @@ def build() -> dict:
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     libs["old"].old_launch.restype = I
     libs["old"].old_launch.argtypes = [I, P, P, LL, I, I] + [P] * 6
+    libs["own"].own_launch.restype = I
+    libs["own"].own_launch.argtypes = [P, P, LL, LL, I, I] + [P] * 6
     libs["tiled"].tiled_launch.restype = I
     libs["tiled"].tiled_launch.argtypes = [P, P, LL, I, I] + [P] * 6
     libs["shared"].shared_launch.restype = I
@@ -451,6 +571,12 @@ def probe(x01: torch.Tensor, table: torch.Tensor, spec, grads: dict) -> dict:
         if rc != 0:
             raise RuntimeError(f"K3 ({name}) failed: cudaError {rc}")
 
+    def own(g, dst):
+        rc = libs["own"].own_launch(x01.data_ptr(), g.data_ptr(), max(g.stride(0), g.shape[1]) // 2,
+                                    n, L, spec.t_cap, *level_args, dst.data_ptr(), stream())
+        if rc != 0:
+            raise RuntimeError(f"K4's own body failed: cudaError {rc}")
+
     def shared(g, how, dst):
         ns, ctas, merge = how
         rc = libs["shared"].shared_launch(int(merge), x01.data_ptr(), g.data_ptr(),
@@ -477,8 +603,10 @@ def probe(x01: torch.Tensor, table: torch.Tensor, spec, grads: dict) -> dict:
     for gname, g in grads.items():
         want = hk.hash_encode_backward(x01, g, spec)
         gc = g.contiguous()
-        got = {" (replaced)": torch.zeros(shape, device=x01.device)}
+        got = {" (replaced)": torch.zeros(shape, device=x01.device),
+               " (its own body)": torch.zeros(shape, device=x01.device)}
         old(1, gc, got[" (replaced)"])
+        own(g, got[" (its own body)"])
         for vname, how in variants.items():
             got[vname] = torch.zeros(shape, device=x01.device)
             shared(g, how, got[vname])
@@ -491,6 +619,7 @@ def probe(x01: torch.Tensor, table: torch.Tensor, spec, grads: dict) -> dict:
                                    f"(largest entry {scale})")
         ms[f"K4 {gname}"] = _time(lambda: hk.launch_backward(hk._lib(), x01, g, args, buf))
         ms[f"K4 {gname} (replaced)"] = _time(lambda: old(1, gc, buf))
+        ms[f"K4 {gname} (its own body before the shared skeleton)"] = _time(lambda: own(g, buf))
         if not g.is_contiguous():
             ms[f"K4 {gname} (replaced, its gradient copy)"] = _time(lambda: g.contiguous())
         for vname, how in variants.items():
@@ -506,7 +635,9 @@ def finding(ms: dict, gname: str) -> str:
         return f"{gname} gradient: K4's device time was not recorded"
     old = (ms[f"K4 {gname} (replaced)"][1]
            + ms.get(f"K4 {gname} (replaced, its gradient copy)", (0.0, 0.0))[1])
-    parts = [f"K4 {k4:.4f} ms against the replaced {old:.4f} ({old / k4:.2f}x)"]
+    own = ms[f"K4 {gname} (its own body before the shared skeleton)"][1]
+    parts = [f"K4 {k4:.4f} ms against the replaced {old:.4f} ({old / k4:.2f}x)",
+             f"the shared skeleton costs {k4 - own:+.4f} ms against K4's own body"]
     rivals = {k[len(f"K4 {gname}, "):]: v[1] for k, v in ms.items()
               if k.startswith(f"K4 {gname}, ")}
     if rivals:

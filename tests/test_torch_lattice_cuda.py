@@ -251,3 +251,72 @@ def test_lattice_field_on_card_matches_its_plain_twin(cuda):
     # bf16 hidden activations: a one-ulp flip moves an output by ~2^-8
     torch.testing.assert_close(geo_k.cpu(), geo_p, rtol=2e-2, atol=2e-2)
     torch.testing.assert_close(s_k.cpu(), s_p, rtol=2e-2, atol=2e-2)
+
+
+def _train_like(n, spec, g, device, clustered=False):
+    """Points and a train-like upstream gradient: groups of 96 samples (a
+    ray) live at about one group in nine, handed to K7 as autograd's view,
+    the big levels' columns of a [N, L_all*2] gradient."""
+    x = torch.rand((n, 3), generator=g, device=device)
+    if clustered:                                    # 4 cells of the coarsest level
+        base = torch.randint(0, 16, (4, 3), generator=g, device=device).float()
+        pick = torch.randint(0, 4, (n,), generator=g, device=device)
+        x = ((base[pick] + x) / 16.0).clamp(0.0, 1.0)
+    wide = torch.randn((n, spec.num_levels, 2), generator=g, device=device)
+    live = (torch.arange(n, device=device) // 96) % 9 == 0
+    wide = wide * live[:, None, None]
+    return x.contiguous(), wide[:, spec.split.n_small:].transpose(0, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,clustered", [(393216, False), (8192, True), (1000, False),
+                                         (1, False), (0, False)],
+                         ids=["train_batch", "clustered_8192", "p1000", "p1", "p0"])
+def test_tile_k7_matches_plain_version_on_card(cuda, n, clustered):
+    """K7 (the tile, the warp merge) within 1e-4 of the plain gradient's
+    largest entry on a train-like gradient read in place, on a dense one
+    (also level-major), and exactly zero on a zero gradient."""
+    spec = hl.make_lattice_spec(**FULL)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x, g_train = _train_like(n, spec, g, cuda, clustered)
+    if n == 1:
+        g_train = torch.randn_like(g_train)            # one live point
+    g_dense = torch.randn((spec.n_big, n, 2), generator=g, device=cuda)
+    for g_up in (g_train, g_dense, g_dense.transpose(0, 1).contiguous().transpose(0, 1)):
+        before = hl.LATTICE_BWD_LAUNCHES
+        got = hl.lattice_encode_backward(x, g_up, spec)
+        assert hl.LATTICE_BWD_LAUNCHES == before + (1 if n else 0)
+        t_p = torch.zeros((spec.n_big, spec.t_big, 2), device=cuda, requires_grad=True)
+        if n:
+            (want,) = torch.autograd.grad(hl.lattice_encode_plain_levels(x, t_p, spec), [t_p],
+                                          g_up)
+        else:
+            want = torch.zeros_like(t_p)
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-4 * scale
+        assert (scale > 0) == (n > 0)
+    zero = hl.lattice_encode_backward(x, torch.zeros_like(g_dense), spec)
+    assert not bool(zero.any())
+
+
+@pytest.mark.cuda
+def test_tile_k7_is_exactly_zero_on_dead_tiles(cuda):
+    """Tiles whose gradient is +-0 everywhere add nothing and read no x01
+    (NaN points there would poison any corner they reached); a live tile
+    beside them adds only its own points."""
+    spec = hl.make_lattice_spec(**FULL)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    n = 128 * 6
+    x = torch.rand((n, 3), generator=g, device=cuda)
+    x[: 128 * 5] = float("nan")                      # the dead tiles' points
+    grad = torch.zeros((spec.n_big, n, 2), device=cuda)
+    grad[:, : 128 * 5:2] = -0.0
+    got = hl.lattice_encode_backward(x, grad, spec)
+    assert not bool(got.any()) and bool(torch.isfinite(got).all())
+    grad[:, 128 * 5:] = torch.randn((spec.n_big, 128, 2), generator=g, device=cuda)
+    got = hl.lattice_encode_backward(x, grad, spec)
+    t_p = torch.zeros((spec.n_big, spec.t_big, 2), device=cuda, requires_grad=True)
+    (want,) = torch.autograd.grad(hl.lattice_encode_plain_levels(x[128 * 5:], t_p, spec), [t_p],
+                                  grad[:, 128 * 5:])
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())

@@ -111,3 +111,98 @@ def test_kernel_wrappers_check_their_inputs(cuda):
                                    *rays, cfg)
     empty = voxel_kernel.ray_inputs(cfg, o[:0], d[:0])
     assert voxel_kernel.cuvol_forward(*grid, *empty, cfg).shape == (0, 8)
+
+
+def _shaped_grid(kind, device, reso=64, seed=0):
+    """Grids for K1's empty-space skip: the filled sphere of chip_smoke.py
+    phase 2, one occupied cell at an 8^3 block corner, a thin shell, and
+    an empty grid (negative and zero densities, ~10% of cells pruned)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    shape = (reso,) * 3
+    idx = (torch.arange(reso, device=device, dtype=torch.float32) - (reso - 1) / 2) / (reso / 2)
+    x, y, z = torch.meshgrid(idx, idx, idx, indexing="ij")
+    r = torch.sqrt(x * x + y * y + z * z)
+    density = -torch.rand(shape, generator=g, device=device)
+    density[torch.rand(shape, generator=g, device=device) < 0.3] = 0.0
+    if kind == "sphere":
+        density = torch.where(r < 0.55, 2.0 * torch.rand(shape, generator=g, device=device), 0.0)
+    elif kind == "block corner cell":
+        density[31, 32, 24] = 50.0          # the corner of four 8^3 blocks
+    elif kind == "thin shell":
+        shell = (r > 0.6) & (r < 0.62)
+        density = torch.where(shell, 5.0 * torch.rand(shape, generator=g, device=device),
+                              density)
+    sh = 0.3 * torch.randn(shape + (27,), generator=g, device=device)
+    alive = torch.rand(shape, generator=g, device=device) > 0.1
+    if kind == "block corner cell":
+        alive[31, 32, 24] = True
+    return vs.VoxelGrid(density.contiguous(), sh, alive)
+
+
+def _sphere_rays(device, n, reso=64, seed=1):
+    rng = np.random.default_rng(seed)
+    u = rng.standard_normal((n, 3))
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    d = -u + 0.35 * rng.standard_normal((n, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
+    return t(2.5 * u), t(d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sphere", "block corner cell", "thin shell", "empty"])
+@pytest.mark.parametrize("sigma_thresh", [1e-8, 0.5, 0.0])
+@pytest.mark.parametrize("n", [777, 1])
+def test_skip_is_bitwise_the_replaced_kernel(cuda, kind, sigma_thresh, n):
+    """K1 (skip, density first) against the kernel it replaced, kept by
+    tools/voxel_probe.py: equal bit for bit, every probe variant too; and
+    within the tolerance of the plain version.  sigma_thresh 0 skips
+    nothing; the empty grid renders the background with log-T 0."""
+    from flnerf_tpu_torch.tools import voxel_probe
+    grid = _shaped_grid(kind, cuda)
+    o, d = _sphere_rays(cuda, n)
+    cfg = vs.VoxelGridConfig(reso=(64,) * 3, max_steps=int(3.5 * 64 / 0.5), step_size=0.5,
+                             sigma_thresh=sigma_thresh)
+    ray_in = voxel_kernel.ray_inputs(cfg, o, d)
+    before = voxel_kernel.FWD_LAUNCHES
+    got = voxel_kernel.cuvol_forward(*grid, *ray_in, cfg)
+    assert voxel_kernel.FWD_LAUNCHES == before + 1
+    occ = voxel_kernel.skip_occupancy(grid.density, grid.alive, cfg)
+    assert (occ is None) == (sigma_thresh <= 0)
+    want = torch.full_like(got, float("nan"))
+    voxel_probe.launch(voxel_probe.REPLACED, grid, ray_in, cfg, None, want)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    for name, (_, skip) in voxel_probe.VARIANTS.items():
+        if skip and occ is None:
+            continue
+        out = torch.full_like(got, float("nan"))
+        voxel_probe.launch(name, grid, ray_in, cfg, occ, out)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), name
+    plain = voxel_kernel.render_rays_plain(grid, o, d, cfg)
+    for sl, tol in ((slice(0, 3), 1e-4), (slice(4, 6), 1e-4), (slice(3, 4), 1e-2)):
+        torch.testing.assert_close(got[:, sl], plain[:, sl], atol=tol, rtol=0)
+    if kind == "empty":
+        assert not bool(occ.any()) if occ is not None else True
+        assert float(got[:, 4].abs().max()) == 0.0 and float(got[:, 5].abs().max()) == 0.0
+        torch.testing.assert_close(got[:, :3], torch.ones_like(got[:, :3]), atol=0, rtol=0)
+    elif kind == "sphere" and n > 1:
+        assert float(got[:, 5].max()) > 0.1
+
+
+@pytest.mark.cuda
+def test_forward_builds_its_occupancy_and_takes_no_rays(cuda):
+    """The wrapper's occupancy is the plain one, built on the card; no rays
+    launch nothing."""
+    grid = _shaped_grid("thin shell", cuda)
+    o, d = _sphere_rays(cuda, 64)
+    cfg = vs.VoxelGridConfig(reso=(64,) * 3, max_steps=448, step_size=0.5)
+    occ = voxel_kernel.skip_occupancy(grid.density, grid.alive, cfg)
+    assert occ.shape == (8, 8, 8) and bool(occ.any()) and not bool(occ.all())
+    cpu = voxel_kernel.occupancy_blocks(grid.density.cpu(), grid.alive.cpu())
+    assert torch.equal(occ.cpu(), cpu)
+    before = voxel_kernel.FWD_LAUNCHES
+    empty = voxel_kernel.ray_inputs(cfg, o[:0], d[:0])
+    assert voxel_kernel.cuvol_forward(*grid, *empty, cfg).shape == (0, 8)
+    assert voxel_kernel.FWD_LAUNCHES == before
