@@ -17,7 +17,10 @@ Phases (any failure raises, and the script exits non-zero):
      48x48 test view (2304 rays, the eval render's one chunk); K1 (its
      occupancy built by its wrapper) bitwise equal to the kernel it replaced
      (tools/voxel_probe.py) on both, at sigma_thresh 1e-8, 0.5 and 0 (no
-     skip);
+     skip); K2 (the forward's occupancy passed, as the main path passes it)
+     within 1e-4 of the plain version's gradient and 1e-5 of the replaced
+     K2's, exactly zero on pruned cells, and without a merge bitwise the
+     replaced K2 on a 1-ray batch, at sigma_thresh 1e-8, 0.5 and 0;
   3. the main path: cli/opt.py main on the synthetic scene at 256^3 for 3
      epochs on the card (syn.json's first-stage width: SH degree 3, batch
      5000, 1792 steps), with the launch counters set to 0 just before and
@@ -26,7 +29,8 @@ Phases (any failure raises, and the script exits non-zero):
      goes;
      3c. train rays/s over epochs 2-10 of a 10-epoch run (no checkpoints);
   4. K1 (the occupancy build included, as the main path calls it), K2's
-     kernel body (its gradients zero-filled outside the timed loop; the
+     kernel body (the forward's occupancy passed in, as the main path
+     passes it; its gradients zero-filled outside the timed loop; the
      zero-fill timed apart) and the plain version, by CUDA events on phase
      2's training batch, beside the least time the card could take for the
      same work (K1's with the skip, and for every sample); on the phase-2
@@ -34,9 +38,16 @@ Phases (any failure raises, and the script exits non-zero):
      marked, of marched samples skipped, gated and kept, the longest ray's
      steps and those in marked blocks, and the K1 probe
      (tools/voxel_probe.py: K1, without the skip, without density first,
-     with 1 and 4 steps a pass, with its rays spread over the SMs, the
-     replaced kernel, each bitwise equal to it, and the occupancy build, by
-     events and device time) beside K2 in the same run; then K1/K2 on
+     with 1 and 4 steps a pass, with its rays spread over the SMs, its own
+     body before its march was shared with K2, the replaced kernel, each
+     bitwise equal to it, and the occupancy build, by
+     events and device time); K2 through its wrapper with the forward's
+     occupancy, the kept samples and the share whose floor cell repeats the
+     previous kept sample's (what a merge of K2's atomics folds), K2's bound with the
+     skip, and the K2 probe (K2, without the skip, without density first,
+     with the merge flipped, with other steps a pass, the replaced kernel,
+     each within 1e-5 of it, and K2 without its atomics, a measurement
+     only); then K1/K2 on
      batches in the budgeter's shuffled
      order against the trainer's coherence order (morton, 64-ray blocks) at
      48x48 and 800x800 train views, and on one eval chunk of a test view in
@@ -199,7 +210,9 @@ K9_FLOPS = 8 * 16
 # The replaced designs' figures (K3/K4 before their tiles and paired
 # loads, the sorted K6/K7 walks, the pair-walking K9; PERF.md section 6, on
 # "NVIDIA H100 80GB HBM3, 700.00 W"), printed beside this run's
-BEFORE = {"K1": "1.335 ms", "K3": "0.1758 ms", "K4 dense": "1.155 ms", "K4 train": "0.060 ms",
+BEFORE = {"K1": "1.335 ms", "K2 sphere": "1.3884 ms", "K2 trained": "1.8308 ms",
+          "K2 profile": "14.776 ms (8 launches)",
+          "K3": "0.1758 ms", "K4 dense": "1.155 ms", "K4 train": "0.060 ms",
           "K6": "0.336 ms sorted, 0.390 point order", "K7 dense": "1.260 ms",
           "K7 train": "0.189 ms", "K7 profile": "13.9 ms (64 launches)",
           "lattice step": "5.135 ms", "K9 dense": "0.667 ms", "K9 train": "0.387 ms",
@@ -229,11 +242,32 @@ def ptxas_kernels(log):
         if m:
             mangled = m.group(1)
             # the first length-prefixed identifier that names a kernel
-            name = next((mangled[j:j + int(mangled[i:j])] for i in range(len(mangled))
-                         for j in range(i + 1, len(mangled))
-                         if mangled[i:j].isdigit() and mangled[j].isalpha()
-                         and mangled[j:j + int(mangled[i:j])].endswith("kernel")), mangled)
-            name += "<true>" if "ILb1E" in mangled else "<false>" if "ILb0E" in mangled else ""
+            at = next(((j, int(mangled[i:j])) for i in range(len(mangled))
+                       for j in range(i + 1, len(mangled))
+                       if mangled[i:j].isdigit() and mangled[j].isalpha()
+                       and mangled[j:j + int(mangled[i:j])].endswith("kernel")), None)
+            name = mangled
+            if at:
+                name = mangled[at[0]:at[0] + at[1]]
+                # template arguments: I, then types (9LatticeGeo), ints (Li2E)
+                # and bools (Lb1E), then E
+                rest, targs = mangled[at[0] + at[1]:], []
+                if rest.startswith("I"):
+                    k = 1
+                    while k < len(rest) and rest[k] != "E":
+                        m = re.match(r"L([ib])(\d+)E|(\d+)", rest[k:])
+                        if not m:
+                            break
+                        if m.group(3):
+                            n = int(m.group(3))
+                            targs.append(rest[k + len(m.group(3)):k + len(m.group(3)) + n])
+                            k += len(m.group(3)) + n
+                        else:
+                            targs.append(m.group(2) if m.group(1) == "i" else
+                                         "true" if m.group(2) == "1" else "false")
+                            k += m.end()
+                if targs:
+                    name += "<" + ", ".join(targs) + ">"
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m:
@@ -385,6 +419,65 @@ def hold_k1_bitwise(grid, cfg, o, d, what):
     check(bad == 0, f"K1 is not bitwise equal to the replaced K1 ({what})")
 
 
+def hold_k2(grid, cfg, o, d, gt, what):
+    """K2 on these rays (the forward's occupancy passed, as RenderFused
+    passes it) against the plain version's gradient (within 1e-4 of its
+    largest entry) and the kernel it replaced (tools/voxel_probe.py, within
+    1e-5; atomics from many rays add in any order), and K2 without a merge
+    bit for bit the replaced kernel on the ray of largest acc alone (one
+    warp's atomics apply in program order).  Returns the largest error
+    against the plain version."""
+    import torch
+    from flnerf_tpu_torch.models.voxel_sh import VoxelGrid
+    from flnerf_tpu_torch.ops import voxel_kernel as vk
+    from flnerf_tpu_torch.tools import voxel_probe
+    ray_in = vk.ray_inputs(cfg, o, d)
+    occ = vk.skip_occupancy(grid.density, grid.alive, cfg)
+    out = vk.cuvol_forward(*grid, *ray_in, cfg, occ=occ)
+    grad_out = upstream_grad(out, gt)
+    got = vk.cuvol_backward(*grid, *ray_in, out, grad_out, cfg, occ=occ)
+    dens = grid.density.clone().requires_grad_(True)
+    sh = grid.sh.clone().requires_grad_(True)
+    plain = torch.autograd.grad(vk.render_rays_plain(VoxelGrid(dens, sh, grid.alive), o, d, cfg),
+                                [dens, sh], grad_out)
+    del dens, sh
+    zeros = lambda: (torch.zeros_like(grid.density), torch.zeros_like(grid.sh))
+    want = zeros()
+    voxel_probe.launch_backward(voxel_probe.REPLACED_K2_NAME, grid, ray_in, cfg, None, out,
+                                grad_out, want)
+    torch.cuda.synchronize()
+    errs = {k: float((a - b).abs().max()) for k, a, b in
+            zip(("grad_density", "grad_sh"), got, plain)}
+    scale = {k: float(b.abs().max()) for k, b in zip(("grad_density", "grad_sh"), plain)}
+    rel_old = voxel_probe.backward_error(got, want)
+    # one ray, the one of largest acc, without the merge
+    i = int(out[:, 5].argmax())
+    one_in = [t[i:i + 1].contiguous() for t in ray_in]
+    one = zeros()
+    voxel_probe.launch_backward(voxel_probe.merge_off_variant(), grid, one_in, cfg, occ,
+                                out[i:i + 1].contiguous(), grad_out[i:i + 1].contiguous(), one)
+    one_old = zeros()
+    voxel_probe.launch_backward(voxel_probe.REPLACED_K2_NAME, grid, one_in, cfg, None,
+                                out[i:i + 1].contiguous(), grad_out[i:i + 1].contiguous(), one_old)
+    torch.cuda.synchronize()
+    bitwise = all(bool(torch.equal(a, b)) for a, b in zip(one, one_old))
+    pruned = max(float(a[~grid.alive].abs().max()) for a in got)
+    print(f"[phase 2] K2 on {what} (sigma_thresh {cfg.sigma_thresh}): max_err against the plain "
+          f"version {errs} (scale {scale}); against the replaced K2 {rel_old:.3e} of the largest "
+          f"entry; {voxel_probe.merge_off_variant()!r} on ray {i} alone bitwise the replaced K2: "
+          f"{bitwise}; pruned cells' largest |gradient| {pruned}", flush=True)
+    for k in errs:
+        check(scale[k] > 0 and errs[k] <= 1e-4 * scale[k],
+              f"K2 {k} differs from the plain version by {errs[k]} > 1e-4 * {scale[k]} ({what}, "
+              f"sigma_thresh {cfg.sigma_thresh})")
+    check(rel_old <= 1e-5, f"K2 differs from the replaced K2 by {rel_old} of the largest entry "
+                           f"({what}, sigma_thresh {cfg.sigma_thresh})")
+    check(bitwise, f"K2 without a merge is not bitwise the replaced K2 on one ray ({what}, "
+                   f"sigma_thresh {cfg.sigma_thresh})")
+    check(pruned == 0.0, f"K2 gave a pruned cell a gradient ({what})")
+    return max(errs.values())
+
+
 def upstream_grad(out, gt):
     """d/d(out) of mean((rgb - gt)^2) + 0.1 * sum(log_T): phase 2's loss."""
     import torch
@@ -395,17 +488,20 @@ def upstream_grad(out, gt):
 
 
 def kernel_ms(grid, cfg, o, d, gt, iters=20):
-    """K1 and K2's kernel body on one batch, by CUDA events.  K2 adds into
-    gradient buffers zero-filled once, outside the timed loop."""
+    """K1 and K2's kernel body on one batch, by CUDA events, as the main
+    path calls them: K1 through its wrapper, the occupancy built before the
+    launch; K2 with that occupancy passed in, adding into gradient buffers
+    zero-filled once, outside the timed loop."""
     import torch
     from flnerf_tpu_torch.ops import voxel_kernel as vk
     ray_in = vk.ray_inputs(cfg, o, d)
-    out = vk.cuvol_forward(*grid, *ray_in, cfg)
+    occ = vk.skip_occupancy(grid.density, grid.alive, cfg)
+    out = vk.cuvol_forward(*grid, *ray_in, cfg, occ=occ)
     grad_out = upstream_grad(out, gt)
     grads = (torch.zeros_like(grid.density), torch.zeros_like(grid.sh))
     k1 = cuda_ms(lambda: vk.cuvol_forward(*grid, *ray_in, cfg), iters)
     k2 = cuda_ms(lambda: vk.cuvol_backward(*grid, *ray_in, out, grad_out, cfg,
-                                           grads=grads), iters)
+                                           grads=grads, occ=occ), iters)
     return k1, k2
 
 
@@ -1273,8 +1369,10 @@ def main():
             ("the training batch", (o, d), cfg._replace(sigma_thresh=0.5)),
             ("the training batch, no skip", (o, d), cfg._replace(sigma_thresh=0.0))):
         hold_k1_bitwise(grid, hcfg, ho, hd, what)
+    k2_errs = [hold_k2(grid, hcfg, o, d, gt, "the training batch")
+               for hcfg in (cfg, cfg._replace(sigma_thresh=0.5), cfg._replace(sigma_thresh=0.0))]
     k1_err = max(float((out_k - out_p).abs().max()), max(eval_errs.values()))
-    k2_err = max(g_err.values())
+    k2_err = max(max(g_err.values()), *k2_errs)
     del out_k, out_p, gd_k, gs_k, gd_p, gs_p
 
     # ---- phase 3: the main path, through the CLI on the card ----
@@ -1324,6 +1422,10 @@ def main():
     for e in dev_events[:10] + [e for e in dev_events[10:] if "cuvol" in e.key]:
         print(f"[phase 3b]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
               f"{e.key[:90]}")
+    k2_prof = [e for e in dev_events if "cuvol_bwd_kernel" in e.key]
+    print(f"[phase 3b] cuvol_bwd_kernel (K2) in the profile: "
+          f"{sum(e.self_device_time_total for e in k2_prof) / 1e3:.3f} ms in "
+          f"{sum(e.count for e in k2_prof)} launches (before: {BEFORE['K2 profile']})", flush=True)
 
     # ---- phase 3c: train rays/s over a longer window (epochs 2-10) ----
     with tempfile.TemporaryDirectory() as tmp:
@@ -1372,18 +1474,30 @@ def main():
     # the SH only of the touched cells alive with density > 0, the
     # occupancy once, the per-ray inputs and the output; a kept sample's
     # full arithmetic, a gated one's density pass
+    # K2 with the skip and the gate: the alive byte and density of the same
+    # touched cells, the SH of the alive corner cells of kept samples, a
+    # read and a write of those cells' 28 gradients, the occupancy, the
+    # per-ray inputs, K1's output and the upstream gradient; a kept
+    # sample's full backward arithmetic, a gated one's density pass
     from flnerf_tpu_torch.tools import voxel_probe
-    k1_stats, k1_probe = {}, {}
+    k1_stats, k1_probe, k2_stats = {}, {}, {}
     for gname, g in (("the phase-2 sphere grid", grid),
                      ("the main path's grid after phase 3c's 10 epochs", trained)):
         c = voxel_probe.sample_counts(g, cfg, o, d)
         pm = voxel_probe.probe(g, cfg, o, d)
+        out_g = vk.cuvol_forward(*g, *vk.ray_inputs(cfg, o, d), cfg)
+        pb = voxel_probe.probe_backward(g, cfg, o, d, upstream_grad(out_g, gt))
+        del out_g
         k2_same = kernel_ms(g, cfg, o, d, gt)[1]
         occ_bytes = math.prod(vk.occupancy_shape(cfg.reso))
         sb = bound_of(c["touched_cells"] * 5 + c["sh_cells"] * 4 * 27 + occ_bytes + ray_bytes
                       + BATCH * 32, c["kept"] * FWD_FLOPS_PER_SAMPLE
                       + c["gated"] * DENSITY_FLOPS_PER_SAMPLE)
+        sb2 = bound_of(c["touched_cells"] * 5 + c["kept_cells"] * 4 * (27 + 2 * 28) + occ_bytes
+                       + ray_bytes + 2 * BATCH * 32, c["kept"] * BWD_FLOPS_PER_SAMPLE
+                       + c["gated"] * DENSITY_FLOPS_PER_SAMPLE)
         k1_stats[gname], k1_probe[gname] = (c, sb), pm
+        k2_stats[gname] = (k2_same, sb2)
         left = 1.0 - c["skipped"] / c["samples"]
         print(f"[phase 4] K1 on {gname}: {100 * c['marked_blocks']:.2f}% of the 8^3 blocks "
               f"marked; of {c['samples']} marched samples {100 * c['skipped'] / c['samples']:.2f}% "
@@ -1397,14 +1511,34 @@ def main():
               f"events / device ms: " + "; ".join(f"{k} {ev:.4f} / {dt:.4f}"
                                                   for k, (ev, dt) in pm.items()), flush=True)
         print(f"[phase 4] finding, {gname}: {voxel_probe.finding(pm)}; K1's bound with the skip "
-              f"{sb[0]:.4f} ms by {sb[1]}; K2 body in the same run {k2_same:.4f} ms", flush=True)
+              f"{sb[0]:.4f} ms by {sb[1]}", flush=True)
+        print(f"[phase 4] K2 on {gname}: {c['kept']} kept samples, "
+              f"{100 * c['repeated'] / max(c['kept'], 1):.2f}% of them in the floor cell of the "
+              f"previous kept sample of their ray (what a merge folds); {c['kept_cells']} alive "
+              f"corner cells of kept samples; K2 through its wrapper, the forward's occupancy "
+              f"passed, {k2_same:.4f} ms (before: {BEFORE['K2 sphere' if grid is g else 'K2 trained']}"
+              f"); its bound with the skip {sb2[0]:.4f} ms by {sb2[1]}", flush=True)
+        print(f"[phase 4] K2 probe (flnerf_tpu_torch/tools/voxel_probe.py) on {gname}, ms by "
+              f"events / device ms: " + "; ".join(f"{k} {ev:.4f} / {dt:.4f}"
+                                                  for k, (ev, dt) in pb.items()), flush=True)
+        print(f"[phase 4] finding, {gname}: {voxel_probe.finding_backward(pb)}", flush=True)
     bounds["K1"] = k1_stats["the phase-2 sphere grid"][1]
+    sphere_k2, trained_k2 = (k2_stats["the phase-2 sphere grid"],
+                             k2_stats["the main path's grid after phase 3c's 10 epochs"])
+    dens = trained.density.clone().requires_grad_(True)
+    sh = trained.sh.clone().requires_grad_(True)
+    out_g = vk.render_rays_plain(VoxelGrid(dens, sh, trained.alive), o, d, cfg)
+    grad_out = upstream_grad(out_g.detach(), gt)
+    plain_bwd_trained_ms = cuda_ms(lambda: torch.autograd.grad(out_g, [dens, sh], grad_out,
+                                                               retain_graph=True), 5)
+    del out_g, dens, sh
     print(f"[phase 4] training batch: {n_samples} marched samples, {n_cells} distinct corner "
           f"cells ({n_alive} alive); K1 {k1_ms:.4f} ms through its wrapper, the occupancy build "
           f"included (before: {BEFORE['K1']}; plain {plain_fwd_ms:.3f} ms, bound "
           f"{bounds['K1'][0]:.4f} ms by {bounds['K1'][1]} with the skip, "
           f"{bounds['K1 every sample'][0]:.4f} ms by {bounds['K1 every sample'][1]} for every "
-          f"sample); K2 body {k2_ms:.4f} ms (plain backward {plain_bwd_ms:.3f} ms, bound "
+          f"sample); K2 body {k2_ms:.4f} ms (plain backward {plain_bwd_ms:.3f} ms, on the "
+          f"trained grid {plain_bwd_trained_ms:.3f} ms; bound for every sample "
           f"{bounds['K2'][0]:.4f} ms); K2's zero-fill of the "
           f"dense gradients {zero_ms:.4f} ms (bound {zero_bound:.4f} ms); K1 launches per "
           f"train step {fwd_launches / steps:.3f} ({fwd_launches - bwd_launches} of "
@@ -1604,8 +1738,9 @@ def main():
          "bound_ms": bounds["K1"][0], "bound_by": bounds["K1"][1], "library_ms": None},
         {"name": "cuvol_backward (K2)", "route": "cuda", "source": src,
          "replaces": "flnerf_tpu/ops/voxel_pallas.py:511", "launches": bwd_launches,
-         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": plain_bwd_ms,
-         "bound_ms": bounds["K2"][0], "bound_by": bounds["K2"][1], "library_ms": None},
+         "max_abs_err": k2_err, "ms": trained_k2[0], "plain_ms": plain_bwd_trained_ms,
+         "bound_ms": trained_k2[1][0], "bound_by": trained_k2[1][1], "library_ms": None,
+         "sphere_ms": sphere_k2[0], "sphere_bound_ms": sphere_k2[1][0]},
         {"name": "hash_encode_forward (K3)", "route": "cuda", "source": hsrc,
          "replaces": "flnerf_tpu/ops/hash_pallas.py:142", "launches": h_fwd,
          "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,

@@ -12,11 +12,11 @@
 // flnerf_tpu_torch/models/voxel_sh.py voxel_render_rays; both kernels are
 // held against it.
 //
-// Design: one warp per ray, in both kernels.
+// Design: one warp per ray, in both kernels, and one march for both.
 //
-// K1 (cuvol_fwd_kernel<2, true, false>) marches in passes of 2 steps, lane
-// 8s + c owning corner c of step s of the pass:
-//   * empty-space skip: ops/voxel_kernel.py builds, before each launch, an
+// The march (jump_block, density_pass, gather_sh, step_rgb) walks a ray in
+// passes of kSteps steps, lane 8s + c owning corner c of step s of the pass:
+//   * empty-space skip: ops/voxel_kernel.py builds, before each forward, an
 //     occupancy of 8^3 blocks of floor cells (a block is marked when some
 //     floor cell in it has an alive corner of positive density); a pass
 //     whose first step's floor cell lies in an unmarked block jumps to the
@@ -26,29 +26,34 @@
 //     later step of a pass in an unmarked block reads nothing.  Exact: such
 //     a sample's 8 corners are dead or <= 0, so its relu'd sigma is 0 and
 //     fails sigma >= sigma_thresh for sigma_thresh > 0; with sigma_thresh <=
-//     0 the wrapper passes no occupancy and every step is marched;
+//     0 the wrapper passes no occupancy and every step is marched.  The
+//     backward takes the forward's occupancy (RenderFused keeps it);
 //   * density first: each lane reads its corner's alive byte and density in
 //     one round trip, the pass's sigmas are summed in corner order from
 //     shuffles, and the 27 SH channels (lanes 1-27, 108 contiguous bytes a
 //     corner) are gathered only for the steps that pass the gate, all of
 //     the pass's loads in flight at once;
-//   * 2 steps a pass measured faster than 1 or 4 on both the phase-2
-//     sphere and a trained grid, and handing neighbouring rays to
-//     different SMs slower than 4 consecutive rays a block
-//     (tools/voxel_probe.py, PERF.md);
 //   * the SH dot products (a segmented shuffle sum) and the compositing are
-//     the replaced kernel's statements in its order, so every kept sample's
-//     sigma and rgb and the output equal the replaced kernel's (and K2's
-//     recomputation) bit for bit; the replaced kernel, and the design's
-//     switches (no skip, no density first, 1 or 4 steps a pass, rays spread
-//     over the SMs) are kept by flnerf_tpu_torch/tools/voxel_probe.py.
-// K2 (cuvol_bwd_kernel) keeps the replaced design: lane c owns channel c of
-// the 28 (density and 27 SH coefficients; lanes 28-31 idle in the gathers);
-// each step every lane computes the sample's trilinear geometry, lanes 0-7
-// read the alive bits of the 8 corners (one ballot), and lane c gathers its
-// channel at the live corners straight from the f32 density [X,Y,Z] and sh
-// [X,Y,Z,27] tensors (gather_sample).  Every lane then holds the sample's
-// sigma and rgb and composites redundantly, so no lane waits on another.
+//     the replaced kernels' statements in their order, so every kept
+//     sample's sigma and rgb, K1's output and K2's per-sample gradient
+//     terms equal the replaced kernels' bit for bit.
+// K1 (cuvol_fwd_kernel<2, true, false>) composites the kept samples.  2
+// steps a pass measured faster than 1 or 4 on both the phase-2 sphere and a
+// trained grid, and handing neighbouring rays to different SMs slower than
+// 4 consecutive rays a block (tools/voxel_probe.py, PERF.md).
+// K2 (cuvol_bwd_kernel<4, true, false, true>) recomputes the march, 4
+// steps a pass, and, for each kept sample, the replaced kernel's
+// transmittance gradient; lane 0 then adds into the density's gradient and
+// lane c (1-27) into SH channel c - 1's, one atomic per live corner, in the
+// replaced kernel's order, so a single ray's gradient is the replaced
+// kernel's bit for bit.  Its switches: 1 or 2 steps a pass, and a merge that
+// keeps a lane's 8 corners' adds in registers while the kept samples stay in
+// one floor cell (39% of kept samples repeat the previous one's) and flushes
+// them when it changes; at 4 steps a pass the merge measured slower (its
+// registers cost more than the atomics it saves: they are 7% of K2 on a
+// trained grid).  The replaced kernels (every step marched, all 28 channels
+// gathered before the gate, a step a pass, an atomic per sample) and the
+// design's switches are kept by flnerf_tpu_torch/tools/voxel_probe.py.
 // The kernels serve every ray: there are no boxes and no coherence
 // requirement.
 //
@@ -71,13 +76,13 @@
 // B = 896 B (mostly from L2, since neighbouring samples and rays share
 // corners) for about 600 flops, far below the ~20 flops/B the f32 pipes
 // would need to be the limit; the main path's 5000 rays are ~38 warps an
-// SM, each marching a few hundred dependent steps.  K1 takes one round trip
-// for the densities of 2 steps and one for the SH of those that pass, and
-// none for a step in an empty block, so its time follows the steps inside
-// marked blocks (chip_smoke.py phase 4 reports the longest ray's).  K2
-// still takes two round trips a step over every step (redesign 5).  Not
-// done: early exit at stop_thresh (the contract has none), TMA or
-// shared-memory tiling of the grid.
+// SM, each marching a few hundred dependent steps.  Both kernels take one
+// round trip for the densities of a pass and one for the SH of the steps
+// that pass the gate, and none for a step in an empty block, so their time
+// follows the steps inside marked blocks (chip_smoke.py phase 4 reports the
+// longest ray's); K2 adds its atomics (the probe's "atomics off" variant
+// shows their share).  Not done: early exit at stop_thresh (the contract
+// has none), TMA or shared-memory tiling of the grid.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -119,67 +124,6 @@ __device__ __forceinline__ void axis_lerp(float o, float d, float t, int reso,
   fl = fminf(fmaxf(fl, 0.f), (float)(reso - 2));
   l = (int)fl;
   f = __fsub_rn(pos, fl);
-}
-
-// What one step of the march gives each lane.
-struct Sample {
-  int64_t cell[8];   // corner cell index, corner j = (dx, dy, dz) bits 2,1,0
-  float w[8];        // trilinear corner weight
-  unsigned live;     // bit j set: corner j alive
-  float sigma_raw;   // channel 0, broadcast
-  float rgb_raw[3];  // SH dot products + 0.5, broadcast
-};
-
-__device__ __forceinline__ void gather_sample(const GridView& g, const float o[3],
-                                              const float d[3], float t,
-                                              float shm_lane, int lane,
-                                              Sample& s) {
-  int lx, ly, lz;
-  float fx, fy, fz;
-  axis_lerp(o[0], d[0], t, g.X, lx, fx);
-  axis_lerp(o[1], d[1], t, g.Y, ly, fy);
-  axis_lerp(o[2], d[2], t, g.Z, lz, fz);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int dx = j >> 2, dy = (j >> 1) & 1, dz = j & 1;
-    s.cell[j] = ((int64_t)(lx + dx) * g.Y + (ly + dy)) * g.Z + (lz + dz);
-    s.w[j] = __fmul_rn(__fmul_rn(dx ? fx : 1.f - fx, dy ? fy : 1.f - fy),
-                       dz ? fz : 1.f - fz);
-  }
-  // lanes 0-7 read one corner's alive bit each (no dynamic register index)
-  const int mj = lane & 7;
-  const int64_t my_cell =
-      ((int64_t)(lx + (mj >> 2)) * g.Y + (ly + ((mj >> 1) & 1))) * g.Z +
-      (lz + (mj & 1));
-  const bool mine = lane < 8 && g.alive[my_cell] != 0;
-  s.live = __ballot_sync(kFull, mine) & 0xffu;
-
-  float v = 0.f;
-  if (lane < kCh) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      if (s.live & (1u << j)) {
-        const float c = lane == 0 ? g.density[s.cell[j]]
-                                  : g.sh[s.cell[j] * (kCh - 1) + (lane - 1)];
-        v = __fadd_rn(v, __fmul_rn(s.w[j], c));
-      }
-    }
-  }
-  s.sigma_raw = __shfl_sync(kFull, v, 0);
-
-  // segmented sum of shm * c over lanes 1-9 (r), 10-18 (g), 19-27 (b)
-  const int seg = (lane >= 1 && lane < kCh) ? (lane - 1) / kBasis : -1 - lane;
-  float p = seg >= 0 ? shm_lane * v : 0.f;
-#pragma unroll
-  for (int off = 1; off < 16; off <<= 1) {
-    const float other = __shfl_down_sync(kFull, p, off);
-    const int ol = lane + off;
-    const int oseg = (ol >= 1 && ol < kCh) ? (ol - 1) / kBasis : -1 - ol;
-    if (ol < 32 && oseg == seg) p += other;
-  }
-  s.rgb_raw[0] = __shfl_sync(kFull, p, 1) + 0.5f;
-  s.rgb_raw[1] = __shfl_sync(kFull, p, 1 + kBasis) + 0.5f;
-  s.rgb_raw[2] = __shfl_sync(kFull, p, 1 + 2 * kBasis) + 0.5f;
 }
 
 struct RayIn {
@@ -269,17 +213,136 @@ __device__ int leave_block(const GridView& g, const RayIn& in, const Params& p, 
   return k;
 }
 
-// K1.  kSteps steps a pass (lane = 8 * step + corner); kDensityFirst
-// gathers the SH channels only for the steps that pass the sigma gate
-// (false: for every marched step, as the replaced kernel did); kSpread
-// hands warp w of block b ray w * gridDim.x + b, so that neighbouring rays
-// of the coherent order, which cross the same occupied blocks, run on
-// different SMs (false: a block takes 4 consecutive rays).  The variants
-// are kept for tools/voxel_probe.py.
+// The skip of both kernels: when step j0 (at t0) lies in an unmarked block,
+// move j0 to the first step out of it and return true.
+__device__ __forceinline__ bool jump_block(const GridView& g, const Occupancy& oc,
+                                           const RayIn& in, const Params& p, float t0, int& j0) {
+  int bx, by, bz;
+  floor_cell(g, in, t0, bx, by, bz);
+  if (block_marked(oc, bx, by, bz)) return false;
+  j0 = leave_block(g, in, p, j0, bx >> 3, by >> 3, bz >> 3);
+  return true;
+}
+
+// What the density pass of kSteps steps from j0 gives each lane.
+template <int kSteps>
+struct Pass {
+  int64_t cell0;       // corner 0 of the floor cell of this lane's step
+  float w;             // this lane's trilinear corner weight
+  unsigned live;       // bit 8s + c: corner c of step s read and alive
+  unsigned marched;    // bit s: step s marched
+  unsigned gated;      // bit s: step s passes the sigma gate
+  float sig[kSteps];   // each step's relu'd sigma, in every lane
+};
+
+// The density pass: lane (s, c) reads corner c's alive byte and density at
+// step j0 + s, both loads in one round trip; each step's sigma is summed
+// over its live corners in corner order, as the replaced kernels sum it.
+// The lane's step ls and corner (dx, dy, dz), and yz = Y * Z, are the
+// kernel's, computed once (recomputed here they cost K1 12-19%).
+template <int kSteps>
+__device__ __forceinline__ void density_pass(const GridView& g, const Occupancy& oc,
+                                             const RayIn& in, const Params& p, int j0,
+                                             int ls, int dx, int dy, int dz, int64_t yz,
+                                             Pass<kSteps>& ps) {
+  static_assert(kSteps >= 1 && kSteps <= 4, "8 lanes a step");
+  const int js = j0 + ls;
+  const float t = step_t(in, p, js);
+  int lx, ly, lz;
+  float fx, fy, fz;
+  axis_lerp(in.o[0], in.d[0], t, g.X, lx, fx);
+  axis_lerp(in.o[1], in.d[1], t, g.Y, ly, fy);
+  axis_lerp(in.o[2], in.d[2], t, g.Z, lz, fz);
+  bool use = ls < kSteps && js < p.max_steps && t <= in.tmax;
+  if (use && oc.bits) use = block_marked(oc, lx, ly, lz);
+  ps.cell0 = ((int64_t)lx * g.Y + ly) * g.Z + lz;
+  const int64_t cell = ps.cell0 + dx * yz + dy * (int64_t)g.Z + dz;
+  ps.w = __fmul_rn(__fmul_rn(dx ? fx : 1.f - fx, dy ? fy : 1.f - fy), dz ? fz : 1.f - fz);
+  bool alive = false;
+  float dens = 0.f;
+  if (use) {
+    alive = g.alive[cell] != 0;
+    dens = g.density[cell];
+  }
+  ps.live = __ballot_sync(kFull, alive);   // bit 8s + c
+  const unsigned used = __ballot_sync(kFull, use);
+  const float prod = __fmul_rn(ps.w, dens);
+  ps.marched = 0;
+  ps.gated = 0;
+#pragma unroll
+  for (int s = 0; s < kSteps; ++s) {
+    float v = 0.f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const float pc = __shfl_sync(kFull, prod, 8 * s + c);
+      if (ps.live & (1u << (8 * s + c))) v = __fadd_rn(v, pc);
+    }
+    ps.sig[s] = v > 0.f ? v : 0.f;
+    if ((used >> (8 * s)) & 1u) {
+      ps.marched |= 1u << s;
+      if (ps.sig[s] >= p.sigma_thresh) ps.gated |= 1u << s;
+    }
+  }
+}
+
+// corner c (dx, dy, dz bits 2, 1, 0) of the floor cell whose corner 0 is cell0
+__device__ __forceinline__ int64_t corner_cell(const GridView& g, int64_t yz, int64_t cell0,
+                                               int c) {
+  return cell0 + (c >> 2) * yz + ((c >> 1) & 1) * (int64_t)g.Z + (c & 1);
+}
+
+// Lane c (1-27) reads SH channel c - 1 at the live corners of every step of
+// `gather`: all loads of the pass in flight at once.
+template <int kSteps>
+__device__ __forceinline__ void gather_sh(const GridView& g, int64_t yz, const Pass<kSteps>& ps,
+                                          unsigned gather, int lane, float (&cv)[kSteps][8]) {
+#pragma unroll
+  for (int s = 0; s < kSteps; ++s) {
+    const int64_t cs = __shfl_sync(kFull, ps.cell0, 8 * s);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const bool ld = ((gather >> s) & 1u) && ((ps.live >> (8 * s + c)) & 1u) && lane >= 1 &&
+                      lane < kCh;
+      cv[s][c] = ld ? __ldg(g.sh + corner_cell(g, yz, cs, c) * (kCh - 1) + (lane - 1)) : 0.f;
+    }
+  }
+}
+
+// Step s's SH dot products + 0.5 (rgb_raw), in every lane, from its
+// gathered SH, summed as the replaced kernels sum them.
+template <int kSteps>
+__device__ __forceinline__ void step_rgb(const Pass<kSteps>& ps, const float (&cv)[kSteps][8],
+                                         int s, float shm, int lane, float (&rgb_raw)[3]) {
+  float v = 0.f;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const float wc = __shfl_sync(kFull, ps.w, 8 * s + c);
+    if (ps.live & (1u << (8 * s + c))) v = __fadd_rn(v, __fmul_rn(wc, cv[s][c]));
+  }
+  // segmented sum of shm * c over lanes 1-9 (r), 10-18 (g), 19-27 (b)
+  const int seg = (lane >= 1 && lane < kCh) ? (lane - 1) / kBasis : -1 - lane;
+  float q = seg >= 0 ? shm * v : 0.f;
+#pragma unroll
+  for (int off = 1; off < 16; off <<= 1) {
+    const float other = __shfl_down_sync(kFull, q, off);
+    const int ol = lane + off;
+    const int oseg = (ol >= 1 && ol < kCh) ? (ol - 1) / kBasis : -1 - ol;
+    if (ol < 32 && oseg == seg) q += other;
+  }
+  rgb_raw[0] = __shfl_sync(kFull, q, 1) + 0.5f;
+  rgb_raw[1] = __shfl_sync(kFull, q, 1 + kBasis) + 0.5f;
+  rgb_raw[2] = __shfl_sync(kFull, q, 1 + 2 * kBasis) + 0.5f;
+}
+
+// K1.  kSteps steps a pass; kDensityFirst gathers the SH channels only for
+// the steps that pass the sigma gate (false: for every marched step, as the
+// replaced kernel did); kSpread hands warp w of block b ray w * gridDim.x +
+// b, so that neighbouring rays of the coherent order, which cross the same
+// occupied blocks, run on different SMs (false: a block takes 4
+// consecutive rays).  The variants are kept for tools/voxel_probe.py.
 template <int kSteps, bool kDensityFirst, bool kSpread>
 __global__ void __launch_bounds__(32 * kWarps)
 cuvol_fwd_kernel(GridView g, Occupancy oc, RayView r, Params p, float* __restrict__ out) {
-  static_assert(kSteps >= 1 && kSteps <= 4, "8 lanes a step");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int ray = kSpread ? warp * (int)gridDim.x + (int)blockIdx.x
                           : (int)blockIdx.x * kWarps + warp;
@@ -294,98 +357,20 @@ cuvol_fwd_kernel(GridView g, Occupancy oc, RayView r, Params p, float* __restric
   while (j0 < p.max_steps) {
     const float t0 = step_t(in, p, j0);
     if (t0 > in.tmax) break;
-    if (oc.bits) {   // a step in an unmarked block: jump to the first out of it
-      int bx, by, bz;
-      floor_cell(g, in, t0, bx, by, bz);
-      if (!block_marked(oc, bx, by, bz)) {
-        j0 = leave_block(g, in, p, j0, bx >> 3, by >> 3, bz >> 3);
-        continue;
-      }
-    }
-    // the density pass: lane (s, c) reads corner c's alive byte and density
-    // at step j0 + s, both loads in one round trip
-    const int js = j0 + ls;
-    const float t = step_t(in, p, js);
-    int lx, ly, lz;
-    float fx, fy, fz;
-    axis_lerp(in.o[0], in.d[0], t, g.X, lx, fx);
-    axis_lerp(in.o[1], in.d[1], t, g.Y, ly, fy);
-    axis_lerp(in.o[2], in.d[2], t, g.Z, lz, fz);
-    bool use = ls < kSteps && js < p.max_steps && t <= in.tmax;
-    if (use && oc.bits) use = block_marked(oc, lx, ly, lz);
-    const int64_t cell0 = ((int64_t)lx * g.Y + ly) * g.Z + lz;   // corner 0
-    const int64_t cell = cell0 + dx * yz + dy * (int64_t)g.Z + dz;
-    const float w = __fmul_rn(__fmul_rn(dx ? fx : 1.f - fx, dy ? fy : 1.f - fy),
-                              dz ? fz : 1.f - fz);
-    bool alive = false;
-    float dens = 0.f;
-    if (use) {
-      alive = g.alive[cell] != 0;
-      dens = g.density[cell];
-    }
-    const unsigned live = __ballot_sync(kFull, alive);   // bit 8s + c
-    const unsigned used = __ballot_sync(kFull, use);
-    const float prod = __fmul_rn(w, dens);
-    // each step's sigma, summed over its live corners in corner order as
-    // gather_sample sums it, in every lane
-    float sig[kSteps];
-    unsigned marched = 0, gated = 0;   // bit s: step s marched / passes the gate
-#pragma unroll
-    for (int s = 0; s < kSteps; ++s) {
-      float v = 0.f;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const float pc = __shfl_sync(kFull, prod, 8 * s + c);
-        if (live & (1u << (8 * s + c))) v = __fadd_rn(v, pc);
-      }
-      sig[s] = v > 0.f ? v : 0.f;
-      if ((used >> (8 * s)) & 1u) {
-        marched |= 1u << s;
-        if (sig[s] >= p.sigma_thresh) gated |= 1u << s;
-      }
-    }
-    const unsigned gather = kDensityFirst ? gated : marched;
+    if (oc.bits && jump_block(g, oc, in, p, t0, j0)) continue;
+    Pass<kSteps> ps;
+    density_pass(g, oc, in, p, j0, ls, dx, dy, dz, yz, ps);
+    const unsigned gather = kDensityFirst ? ps.gated : ps.marched;
     if (gather) {
-      // lane c (1-27) reads SH channel c - 1 at the live corners of every
-      // gathered step: all loads of the pass in flight at once
       float cv[kSteps][8];
+      gather_sh(g, yz, ps, gather, lane, cv);
 #pragma unroll
       for (int s = 0; s < kSteps; ++s) {
-        const int64_t cs = __shfl_sync(kFull, cell0, 8 * s);
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          const int64_t cc = cs + (c >> 2) * yz + ((c >> 1) & 1) * (int64_t)g.Z + (c & 1);
-          const bool ld = ((gather >> s) & 1u) && ((live >> (8 * s + c)) & 1u) && lane >= 1 &&
-                          lane < kCh;
-          cv[s][c] = ld ? __ldg(g.sh + cc * (kCh - 1) + (lane - 1)) : 0.f;
-        }
-      }
-#pragma unroll
-      for (int s = 0; s < kSteps; ++s) {
-        if (!((gated >> s) & 1u)) continue;   // contributes exactly nothing
-        float v = 0.f;
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          const float wc = __shfl_sync(kFull, w, 8 * s + c);
-          if (live & (1u << (8 * s + c))) v = __fadd_rn(v, __fmul_rn(wc, cv[s][c]));
-        }
-        // segmented sum of shm * c over lanes 1-9 (r), 10-18 (g), 19-27 (b),
-        // as gather_sample sums it
-        const int seg = (lane >= 1 && lane < kCh) ? (lane - 1) / kBasis : -1 - lane;
-        float q = seg >= 0 ? in.shm * v : 0.f;
-#pragma unroll
-        for (int off = 1; off < 16; off <<= 1) {
-          const float other = __shfl_down_sync(kFull, q, off);
-          const int ol = lane + off;
-          const int oseg = (ol >= 1 && ol < kCh) ? (ol - 1) / kBasis : -1 - ol;
-          if (ol < 32 && oseg == seg) q += other;
-        }
+        if (!((ps.gated >> s) & 1u)) continue;   // contributes exactly nothing
         float rgb_raw[3];
-        rgb_raw[0] = __shfl_sync(kFull, q, 1) + 0.5f;
-        rgb_raw[1] = __shfl_sync(kFull, q, 1 + kBasis) + 0.5f;
-        rgb_raw[2] = __shfl_sync(kFull, q, 1 + 2 * kBasis) + 0.5f;
+        step_rgb(ps, cv, s, in.shm, lane, rgb_raw);
         // composite, as the replaced kernel does
-        const float sigma = sig[s];
+        const float sigma = ps.sig[s];
         const float ts = step_t(in, p, j0 + s);
         const float la = -p.step * sigma * in.dscale;
         const float wt = expf(log_t) * (1.f - expf(la));
@@ -410,14 +395,24 @@ cuvol_fwd_kernel(GridView g, Occupancy oc, RayView r, Params p, float* __restric
   }
 }
 
+// K2.  kSteps and kDensityFirst as K1's; kMerge keeps a lane's adds to the
+// 8 corners of the kept samples' floor cell in registers until the floor
+// cell changes (false: 8 atomics a kept sample, the replaced kernel's);
+// kAtomics false sums the adds into sink[ray * 32 + lane] instead of the
+// gradients, a measurement of what the atomics cost
+// (tools/voxel_probe.py), not a gradient.
+template <int kSteps, bool kDensityFirst, bool kMerge, bool kAtomics>
 __global__ void __launch_bounds__(32 * kWarps)
-cuvol_bwd_kernel(GridView g, RayView r, Params p, const float* __restrict__ out,
-                 const float* __restrict__ grad_out,
-                 float* __restrict__ grad_density, float* __restrict__ grad_sh) {
+cuvol_bwd_kernel(GridView g, Occupancy oc, RayView r, Params p, const float* __restrict__ out,
+                 const float* __restrict__ grad_out, float* __restrict__ grad_density,
+                 float* __restrict__ grad_sh, float* __restrict__ sink) {
   const int lane = threadIdx.x & 31;
   const int ray = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (ray >= p.n_rays) return;
   const RayIn in = load_ray(r, ray, lane);
+  const int ls = lane >> 3, lc = lane & 7;   // this lane's step of the pass, and corner
+  const int dx = lc >> 2, dy = (lc >> 1) & 1, dz = lc & 1;
+  const int64_t yz = (int64_t)g.Y * g.Z;
 
   const float* o = out + (int64_t)ray * 8;
   const float* go = grad_out + (int64_t)ray * 8;
@@ -435,51 +430,95 @@ cuvol_bwd_kernel(GridView g, RayView r, Params p, const float* __restrict__ out,
   // lane c's color (lanes 1-27) and its upstream gradient
   const int kc = (lane >= 1 && lane < kCh) ? (lane - 1) / kBasis : 0;
   const float g_lane = kc == 0 ? gk[0] : (kc == 1 ? gk[1] : gk[2]);
+  // this lane's channel of the gradients: lane 0 the density, lane c
+  // (1-27) SH channel c - 1 (lanes 28-31 add nothing)
+  float* const gch = lane == 0 ? grad_density : grad_sh + (lane - 1);
+  const int64_t gstride = lane == 0 ? 1 : kCh - 1;
+  float sunk = 0.f;
+  auto add = [&](int64_t cell, float v) {
+    if constexpr (kAtomics) {
+      atomicAdd(gch + cell * gstride, v);
+    } else {
+      sunk += v;
+    }
+  };
+  // kMerge: the adds to the corners of floor cell run_cell (its corner 0)
+  int64_t run_cell = -1;
+  unsigned run_live = 0;
+  float run[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) run[c] = 0.f;
+  auto flush = [&]() {
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      if (((run_live >> c) & 1u) && run[c] != 0.f) add(corner_cell(g, yz, run_cell, c), run[c]);
+  };
 
   float log_t = 0.f, prefix = 0.f;
-  Sample s;
-  for (int j = 0; j < p.max_steps; ++j) {
-    const float t = __fadd_rn(in.tmin, __fmul_rn(p.step, (float)j));
-    if (t > in.tmax) break;
-    gather_sample(g, in.o, in.d, t, in.shm, lane, s);
-    const float sigma = s.sigma_raw > 0.f ? s.sigma_raw : 0.f;
-    if (!(sigma >= p.sigma_thresh)) continue;  // gated: zero gradient
-    const float la = -p.step * sigma * in.dscale;
-    const float w = expf(log_t) * (1.f - expf(la));
-    const float t_next = expf(log_t + la);
-    float rgb[3], gc = 0.f;
+  int j0 = 0;
+  while (j0 < p.max_steps) {
+    const float t0 = step_t(in, p, j0);
+    if (t0 > in.tmax) break;
+    if (oc.bits && jump_block(g, oc, in, p, t0, j0)) continue;
+    Pass<kSteps> ps;
+    density_pass(g, oc, in, p, j0, ls, dx, dy, dz, yz, ps);
+    const unsigned gather = kDensityFirst ? ps.gated : ps.marched;
+    if (gather) {
+      float cv[kSteps][8];
+      gather_sh(g, yz, ps, gather, lane, cv);
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      rgb[k] = fmaxf(s.rgb_raw[k], 0.f);
-      gc += gk[k] * rgb[k];
-    }
-    prefix += gc * w;                       // P_i, inclusive
-    const float dla = (s_tot - prefix) - t_next * gc + tfin_gbg;
-    log_t += la;
+      for (int s = 0; s < kSteps; ++s) {
+        if (!((ps.gated >> s) & 1u)) continue;   // gated: zero gradient
+        float rgb_raw[3];
+        step_rgb(ps, cv, s, in.shm, lane, rgb_raw);
+        float wc[8];   // the step's corner weights
+#pragma unroll
+        for (int c = 0; c < 8; ++c) wc[c] = __shfl_sync(kFull, ps.w, 8 * s + c);
+        // the replaced kernel's per-sample terms, in its order
+        const float sigma = ps.sig[s];
+        const float la = -p.step * sigma * in.dscale;
+        const float w = expf(log_t) * (1.f - expf(la));
+        const float t_next = expf(log_t + la);
+        float rgb[3], gc = 0.f;
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          rgb[k] = fmaxf(rgb_raw[k], 0.f);
+          gc += gk[k] * rgb[k];
+        }
+        prefix += gc * w;                       // P_i, inclusive
+        const float dla = (s_tot - prefix) - t_next * gc + tfin_gbg;
+        log_t += la;
 
-    const float raw_lane =
-        kc == 0 ? s.rgb_raw[0] : (kc == 1 ? s.rgb_raw[1] : s.rgb_raw[2]);
-    float dval = 0.f;
-    if (lane == 0) {
-      // the thresh gate passed; the relu gate matters when sigma_thresh <= 0
-      if (s.sigma_raw > 0.f) dval = dla * (-p.step) * in.dscale;
-    } else if (lane < kCh && raw_lane > 0.f) {
-      dval = g_lane * w * in.shm;
-    }
-    if (dval != 0.f) {
+        const float raw_lane = kc == 0 ? rgb_raw[0] : (kc == 1 ? rgb_raw[1] : rgb_raw[2]);
+        float dval = 0.f;
+        if (lane == 0) {
+          // the thresh gate passed; the relu gate matters when sigma_thresh <= 0
+          if (sigma > 0.f) dval = dla * (-p.step) * in.dscale;
+        } else if (lane < kCh && raw_lane > 0.f) {
+          dval = g_lane * w * in.shm;
+        }
+        const int64_t cs = __shfl_sync(kFull, ps.cell0, 8 * s);
+        if constexpr (kMerge) {
+          if (cs != run_cell) {   // a new floor cell: the last one's adds go out
+            flush();
+            run_cell = cs;
+            run_live = (ps.live >> (8 * s)) & 0xffu;
 #pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        if (s.live & (1u << c)) {
-          const float add = s.w[c] * dval;
-          if (lane == 0) {
-            atomicAdd(grad_density + s.cell[c], add);
-          } else {
-            atomicAdd(grad_sh + s.cell[c] * (kCh - 1) + (lane - 1), add);
+            for (int c = 0; c < 8; ++c) run[c] = 0.f;
           }
+#pragma unroll
+          for (int c = 0; c < 8; ++c) run[c] += wc[c] * dval;
+        } else if (dval != 0.f) {
+#pragma unroll
+          for (int c = 0; c < 8; ++c)
+            if (ps.live & (1u << (8 * s + c))) add(corner_cell(g, yz, cs, c), wc[c] * dval);
         }
       }
     }
+    j0 += kSteps;
   }
+  if constexpr (kMerge) flush();
+  if constexpr (!kAtomics) sink[(int64_t)ray * 32 + lane] = sunk;
 }
 
 GridView make_grid(const float* density, const float* sh, const uint8_t* alive,
@@ -528,6 +567,10 @@ Params make_params(int n_rays, int max_steps, float step, float sigma_thresh,
 
 }  // namespace
 
+// K2's steps a pass and merge (tools/voxel_probe.py times the others)
+constexpr int kBwdSteps = 4;
+constexpr bool kBwdMerge = false;
+
 extern "C" {
 
 // K1.  Every pointer is device memory; out is [n_rays, 8]; occ is the
@@ -551,22 +594,24 @@ int cuvol_forward(const float* density, const float* sh, const uint8_t* alive,
 }
 
 // K2.  out is K1's output for the same inputs, grad_out the upstream
-// gradient [n_rays, 8]; grad_density [X,Y,Z] and grad_sh [X,Y,Z,27] must be
-// zero-filled by the caller and are accumulated atomically.
+// gradient [n_rays, 8]; occ as for K1 (the forward's own, or null: march
+// every step; null unless sigma_thresh > 0); grad_density [X,Y,Z] and
+// grad_sh [X,Y,Z,27] must be zero-filled by the caller and are accumulated
+// atomically.
 int cuvol_backward(const float* density, const float* sh, const uint8_t* alive,
                    int X, int Y, int Z, const float* origins, const float* dirs,
                    const float* tmin, const float* tmax, const float* dscale,
                    const float* shmult, int n_rays, int max_steps, float step,
-                   float sigma_thresh, float background, const float* out,
+                   float sigma_thresh, float background, const uint8_t* occ, const float* out,
                    const float* grad_out, float* grad_density, float* grad_sh,
                    void* stream) {
   const dim3 block(32 * kWarps);
   const dim3 grid((n_rays + kWarps - 1) / kWarps);
-  cuvol_bwd_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      make_grid(density, sh, alive, X, Y, Z),
+  cuvol_bwd_kernel<kBwdSteps, true, kBwdMerge, true><<<grid, block, 0, (cudaStream_t)stream>>>(
+      make_grid(density, sh, alive, X, Y, Z), make_occupancy(occ, Y, Z),
       make_rays(origins, dirs, tmin, tmax, dscale, shmult),
-      make_params(n_rays, max_steps, step, sigma_thresh, background), out,
-      grad_out, grad_density, grad_sh);
+      make_params(n_rays, max_steps, step, sigma_thresh, background), out, grad_out,
+      grad_density, grad_sh, nullptr);
   return (int)cudaGetLastError();
 }
 

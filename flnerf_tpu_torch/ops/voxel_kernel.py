@@ -6,16 +6,19 @@ of ``csrc/voxel_cuvol.cu``: K1 (forward) and K2 (backward), one warp per
 ray.  ``render_rays_fused`` is a ``torch.autograd.Function`` whose forward
 launches K1 and whose backward launches K2.
 
-K1 skips empty space, as the TPU kernel does (``occupancy_mip``): before
-each launch ``skip_occupancy`` builds, in plain torch ops over the grid, an
-occupancy of 8^3 blocks of floor cells (``occupancy_blocks``), and K1 jumps
-over the steps whose floor cell lies in an unmarked block.  The skip is
+K1 and K2 skip empty space, as the TPU kernels do (``occupancy_mip``):
+before each forward ``skip_occupancy`` builds, in plain torch ops over the
+grid, an occupancy of 8^3 blocks of floor cells (``occupancy_blocks``), and
+the kernels jump over the steps whose floor cell lies in an unmarked block;
+``RenderFused`` hands the forward's occupancy to the backward.  The skip is
 exact: such a step's corners are all dead or <= 0, so its sigma fails the
 gate whenever ``sigma_thresh > 0``; with ``sigma_thresh <= 0`` nothing is
 skipped.  ``skipped_steps``, ``leave_block`` and ``marched_steps`` are the
-plain versions of K1's skip predicate, step jump and march, in the device's
-f32 arithmetic; ``render_rays_skip_plain`` is the plain render with the
-skip.
+plain versions of the kernels' skip predicate, step jump and march, in the
+device's f32 arithmetic; ``render_rays_skip_plain`` is the plain render with
+the skip, and ``repeated_floor_cells`` counts the kept samples whose adds
+a merge in K2 (a variant of ``tools/voxel_probe.py``) would fold into the
+previous kept sample's.
 
 Dispatch: on CUDA tensors the kernels launch (or the wrapper raises); on CPU
 tensors the plain version, ``models/voxel_sh.voxel_render_rays``, runs and
@@ -64,7 +67,7 @@ def _lib() -> ctypes.CDLL:
         lib.cuvol_forward.restype = ctypes.c_int
         lib.cuvol_forward.argtypes = _COMMON + [_P, _P, _P]
         lib.cuvol_backward.restype = ctypes.c_int
-        lib.cuvol_backward.argtypes = _COMMON + [_P, _P, _P, _P, _P]
+        lib.cuvol_backward.argtypes = _COMMON + [_P, _P, _P, _P, _P, _P]
     return lib
 
 
@@ -101,8 +104,8 @@ def _common_args(density, sh, alive, origins, dirs, tmin, tmax, dscale, shmult,
 
 
 def occupancy_shape(reso) -> tuple:
-    """The block counts of K1's occupancy: 8^3 blocks of the floor cells
-    0 .. reso - 2 of each side."""
+    """The block counts of the kernels' occupancy: 8^3 blocks of the floor
+    cells 0 .. reso - 2 of each side."""
     return tuple(max(1, -(-(r - 1) // 8)) for r in reso)
 
 
@@ -127,7 +130,7 @@ def _pool_axis(occ: torch.Tensor, axis: int) -> torch.Tensor:
 
 
 def occupancy_blocks(density: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
-    """K1's occupancy, bool [ceil((X-1)/8), ceil((Y-1)/8), ceil((Z-1)/8)]:
+    """The kernels' occupancy, bool [ceil((X-1)/8), ceil((Y-1)/8), ceil((Z-1)/8)]:
     8^3 blocks of floor cells (a sample's floor cell l is clipped to [0,
     reso - 2]; its corners are l + {0,1}^3), block b marked when some floor
     cell in it has a corner that is alive with density > 0.  So a sample
@@ -142,14 +145,27 @@ def occupancy_blocks(density: torch.Tensor, alive: torch.Tensor) -> torch.Tensor
 
 
 def skips(cfg: VoxelGridConfig) -> bool:
-    """Whether K1 may skip a step: not where ``sigma_thresh <= 0`` (a sigma
+    """Whether K1 and K2 may skip a step: not where ``sigma_thresh <= 0`` (a sigma
     of 0 then passes the gate) or a side of the grid is under 2 cells."""
     return cfg.sigma_thresh > 0 and min(cfg.reso) >= 2
 
 
 def skip_occupancy(density: torch.Tensor, alive: torch.Tensor, cfg: VoxelGridConfig):
-    """The occupancy K1 skips by, or None where it may skip nothing."""
+    """The occupancy K1 and K2 skip by, or None where they may skip nothing."""
     return occupancy_blocks(density, alive).contiguous() if skips(cfg) else None
+
+
+def repeated_floor_cells(cells: torch.Tensor, kept: torch.Tensor) -> torch.Tensor:
+    """[N, S] bool: the kept samples whose floor cell equals the previous
+    kept sample's of the same ray, from the samples' floor cells [N, S]
+    (any integer key of the cell) and the kept mask [N, S], steps in march
+    order.  A merge in K2 adds such a sample's gradient to the previous
+    one's in registers, so its share bounds the atomics a merge saves."""
+    steps = torch.arange(cells.shape[1], device=cells.device)
+    last = torch.where(kept, steps, -1).cummax(1).values      # the last kept step up to j
+    prev = torch.cat([last.new_full((cells.shape[0], 1), -1), last[:, :-1]], 1)
+    same = cells == cells.gather(1, prev.clamp(min=0))
+    return kept & (prev >= 0) & same
 
 
 def _floor_cells(origins, dirs, ts, cfg: VoxelGridConfig) -> torch.Tensor:
@@ -271,11 +287,22 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _occupancy_arg(density, alive, cfg: VoxelGridConfig, occ):
+    """The occupancy a kernel skips by: ``occ`` when given (checked), else
+    built here from the grid (``skip_occupancy``; None: skip nothing)."""
+    if occ is None:
+        return skip_occupancy(density, alive, cfg)
+    if not skips(cfg):
+        raise ValueError("an occupancy skips exactly only where sigma_thresh > 0")
+    _build.check_tensor(occ, "occ", occupancy_shape(cfg.reso), torch.bool, density.device)
+    return occ
+
+
 def cuvol_forward(density, sh, alive, origins, dirs, tmin, tmax, dscale,
-                  shmult, cfg: VoxelGridConfig) -> torch.Tensor:
+                  shmult, cfg: VoxelGridConfig, occ=None) -> torch.Tensor:
     """K1: [N, 8] f32 — rgb (0:3), depth (3), final log-T (4), acc (5).
-    The occupancy K1 skips by (``skip_occupancy``) is built here from the
-    grid before the launch."""
+    ``occ`` is the occupancy K1 skips by (``skip_occupancy`` of this grid);
+    without it the wrapper builds it from the grid before the launch."""
     global FWD_LAUNCHES
     args = _common_args(density, sh, alive, origins, dirs, tmin, tmax, dscale,
                         shmult, cfg)
@@ -283,7 +310,7 @@ def cuvol_forward(density, sh, alive, origins, dirs, tmin, tmax, dscale,
     out = torch.empty((n, 8), dtype=torch.float32, device=density.device)
     if n == 0:
         return out
-    occ = skip_occupancy(density, alive, cfg)
+    occ = _occupancy_arg(density, alive, cfg, occ)
     rc = _lib().cuvol_forward(*args, None if occ is None else occ.data_ptr(), out.data_ptr(),
                               _stream(density.device))
     FWD_LAUNCHES += 1
@@ -293,12 +320,14 @@ def cuvol_forward(density, sh, alive, origins, dirs, tmin, tmax, dscale,
 
 
 def cuvol_backward(density, sh, alive, origins, dirs, tmin, tmax, dscale,
-                   shmult, out, grad_out, cfg: VoxelGridConfig, grads=None):
+                   shmult, out, grad_out, cfg: VoxelGridConfig, grads=None, occ=None):
     """K2: (grad_density [X,Y,Z], grad_sh [X,Y,Z,27]) from K1's output and
     the upstream gradient [N, 8] (channels 0:3 and 4 are read).
 
     The gradients are zero-filled here, or, when ``grads`` is given as a
-    (grad_density, grad_sh) pair, added into those tensors."""
+    (grad_density, grad_sh) pair, added into those tensors.  ``occ`` is the
+    occupancy the forward skipped by; without it the wrapper builds it by
+    the forward's rule (``skip_occupancy``)."""
     global BWD_LAUNCHES
     args = _common_args(density, sh, alive, origins, dirs, tmin, tmax, dscale,
                         shmult, cfg)
@@ -313,7 +342,9 @@ def cuvol_backward(density, sh, alive, origins, dirs, tmin, tmax, dscale,
     _build.check_tensor(grad_sh, "grad_sh", sh.shape, torch.float32, density.device)
     if n == 0:
         return grad_density, grad_sh
-    rc = _lib().cuvol_backward(*args, out.data_ptr(), grad_out.data_ptr(),
+    occ = _occupancy_arg(density, alive, cfg, occ)
+    rc = _lib().cuvol_backward(*args, None if occ is None else occ.data_ptr(),
+                               out.data_ptr(), grad_out.data_ptr(),
                                grad_density.data_ptr(), grad_sh.data_ptr(),
                                _stream(density.device))
     BWD_LAUNCHES += 1
@@ -323,22 +354,25 @@ def cuvol_backward(density, sh, alive, origins, dirs, tmin, tmax, dscale,
 
 
 class RenderFused(torch.autograd.Function):
-    """Forward K1, backward K2; gradients flow to density and sh only."""
+    """Forward K1, backward K2; gradients flow to density and sh only.  The
+    occupancy is built once, in the forward, and the backward skips by the
+    same one (the saved density's version counter guards it)."""
 
     @staticmethod
     def forward(ctx, density, sh, alive, origins, dirs, tmin, tmax, dscale,
                 shmult, cfg):
+        occ = skip_occupancy(density, alive, cfg)
         out = cuvol_forward(density, sh, alive, origins, dirs, tmin, tmax,
-                            dscale, shmult, cfg)
+                            dscale, shmult, cfg, occ=occ)
         ctx.save_for_backward(density, sh, alive, origins, dirs, tmin, tmax,
-                              dscale, shmult, out)
+                              dscale, shmult, out, occ)
         ctx.cfg = cfg
         return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        saved = ctx.saved_tensors
-        gd, gs = cuvol_backward(*saved, grad_out.contiguous(), ctx.cfg)
+        *saved, occ = ctx.saved_tensors
+        gd, gs = cuvol_backward(*saved, grad_out.contiguous(), ctx.cfg, occ=occ)
         return (gd, gs) + (None,) * 8
 
 

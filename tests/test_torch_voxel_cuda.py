@@ -92,6 +92,15 @@ def test_backward_adds_into_given_gradients(cuda):
     # atomics reorder the sums: within 1e-6 of the largest entry
     for a, b in ((grads[0], gd + 1.0), (grads[1], gs + 1.0)):
         assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+    # the forward's occupancy passed in, as RenderFused passes it
+    occ = voxel_kernel.skip_occupancy(grid.density, grid.alive, cfg)
+    grads = (torch.ones_like(gd), torch.ones_like(gs))
+    voxel_kernel.cuvol_backward(*grid, *rays, out, grad_out, cfg, grads=grads, occ=occ)
+    for a, b in ((grads[0], gd + 1.0), (grads[1], gs + 1.0)):
+        assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+    with pytest.raises(ValueError, match="sigma_thresh"):
+        voxel_kernel.cuvol_backward(*grid, *rays, out, grad_out, cfg._replace(sigma_thresh=0.0),
+                                    occ=occ)
     with pytest.raises(ValueError, match="grad_sh"):
         voxel_kernel.cuvol_backward(*grid, *rays, out, grad_out, cfg,
                                     grads=(grads[0], grads[1][..., :9].contiguous()))
@@ -206,3 +215,109 @@ def test_forward_builds_its_occupancy_and_takes_no_rays(cuda):
     empty = voxel_kernel.ray_inputs(cfg, o[:0], d[:0])
     assert voxel_kernel.cuvol_forward(*grid, *empty, cfg).shape == (0, 8)
     assert voxel_kernel.FWD_LAUNCHES == before
+
+
+def _plain_grads(grid, o, d, cfg, grad_out):
+    """The plain version's gradients of sum(out * grad_out), by autograd."""
+    dens = grid.density.clone().requires_grad_(True)
+    sh = grid.sh.clone().requires_grad_(True)
+    out = voxel_kernel.render_rays_plain(vs.VoxelGrid(dens, sh, grid.alive), o, d, cfg)
+    return torch.autograd.grad(out, [dens, sh], grad_out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sphere", "block corner cell", "thin shell", "empty"])
+@pytest.mark.parametrize("sigma_thresh", [1e-8, 0.5, 0.0])
+@pytest.mark.parametrize("n", [777, 1])
+def test_backward_is_the_replaced_kernel(cuda, kind, sigma_thresh, n):
+    """K2 (the forward's occupancy, density first) against the kernel it
+    replaced, kept by tools/voxel_probe.py: within 1e-5 of the largest entry
+    (atomics from many rays add in any order), every probe variant too; bit
+    for bit, every variant without a merge, on a single ray (one warp's
+    atomics apply in program order); within 1e-4 of the plain version's
+    gradient; exactly zero on pruned cells, and everywhere on the empty
+    grid."""
+    from flnerf_tpu_torch.tools import voxel_probe
+    grid = _shaped_grid(kind, cuda)
+    o, d = _sphere_rays(cuda, n)
+    cfg = vs.VoxelGridConfig(reso=(64,) * 3, max_steps=int(3.5 * 64 / 0.5), step_size=0.5,
+                             sigma_thresh=sigma_thresh)
+    ray_in = voxel_kernel.ray_inputs(cfg, o, d)
+    occ = voxel_kernel.skip_occupancy(grid.density, grid.alive, cfg)
+    out = voxel_kernel.cuvol_forward(*grid, *ray_in, cfg, occ=occ)
+    g = torch.Generator(device=cuda).manual_seed(n)
+    grad_out = torch.randn((n, 8), generator=g, device=cuda)
+    grad_out[:, 3] = 0.0          # K2 reads channels 0:3 and 4 (rgb and log-T) only
+    grad_out[:, 5:] = 0.0
+    before = voxel_kernel.BWD_LAUNCHES
+    got = voxel_kernel.cuvol_backward(*grid, *ray_in, out, grad_out, cfg, occ=occ)
+    assert voxel_kernel.BWD_LAUNCHES == before + 1
+    zeros = lambda: (torch.zeros_like(grid.density), torch.zeros_like(grid.sh))
+    want = zeros()
+    voxel_probe.launch_backward(voxel_probe.REPLACED_K2_NAME, grid, ray_in, cfg, None, out,
+                                grad_out, want)
+    torch.cuda.synchronize()
+    assert voxel_probe.backward_error(got, want) <= 1e-5
+    for name, (t, skip) in voxel_probe.k2_variants().items():
+        if (t is not None and not t[3]) or (skip and occ is None):   # no atomics, no skip
+            continue
+        var = zeros()
+        voxel_probe.launch_backward(name, grid, ray_in, cfg, occ, out, grad_out, var)
+        torch.cuda.synchronize()
+        assert voxel_probe.backward_error(var, want) <= 1e-5, name
+        if n == 1 and t is not None and not t[2]:   # no merge: the replaced kernel's order
+            assert torch.equal(var[0], want[0]) and torch.equal(var[1], want[1]), name
+    plain = _plain_grads(grid, o, d, cfg, grad_out)
+    for a, b in zip(got, plain):
+        assert float((a - b).abs().max()) <= 1e-4 * max(float(b.abs().max()), 1e-30)
+        assert float(a[~grid.alive].abs().max()) == 0.0   # pruned: exactly zero
+    if kind == "empty":
+        assert float(got[0].abs().max()) == 0.0 and float(got[1].abs().max()) == 0.0
+    elif n > 1:
+        assert float(got[1].abs().max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sigma_thresh", [1e-8, 0.0])
+def test_backward_of_a_zero_upstream_gradient_is_exactly_zero(cuda, sigma_thresh):
+    grid = _shaped_grid("sphere", cuda)
+    o, d = _sphere_rays(cuda, 300)
+    cfg = vs.VoxelGridConfig(reso=(64,) * 3, max_steps=448, step_size=0.5,
+                             sigma_thresh=sigma_thresh)
+    ray_in = voxel_kernel.ray_inputs(cfg, o, d)
+    out = voxel_kernel.cuvol_forward(*grid, *ray_in, cfg)
+    gd, gs = voxel_kernel.cuvol_backward(*grid, *ray_in, out, torch.zeros_like(out), cfg)
+    torch.cuda.synchronize()
+    assert float(gd.abs().max()) == 0.0 and float(gs.abs().max()) == 0.0
+    empty = voxel_kernel.ray_inputs(cfg, o[:0], d[:0])
+    before = voxel_kernel.BWD_LAUNCHES
+    gd, _ = voxel_kernel.cuvol_backward(*grid, *empty, out[:0], out[:0], cfg)
+    assert voxel_kernel.BWD_LAUNCHES == before and float(gd.abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_render_builds_one_occupancy_for_forward_and_backward(cuda, monkeypatch):
+    """RenderFused builds the occupancy once, in the forward, and K2 skips
+    by that one: no second build in the backward."""
+    calls = []
+    build = voxel_kernel.occupancy_blocks
+
+    def counted(density, alive):
+        calls.append(1)
+        return build(density, alive)
+
+    monkeypatch.setattr(voxel_kernel, "occupancy_blocks", counted)
+    grid = _shaped_grid("thin shell", cuda)
+    o, d = _sphere_rays(cuda, 64)
+    cfg = vs.VoxelGridConfig(reso=(64,) * 3, max_steps=448, step_size=0.5)
+    dens = grid.density.clone().requires_grad_(True)
+    sh = grid.sh.clone().requires_grad_(True)
+    before = voxel_kernel.FWD_LAUNCHES, voxel_kernel.BWD_LAUNCHES
+    out = voxel_kernel.render_rays_fused(vs.VoxelGrid(dens, sh, grid.alive), o, d, cfg)
+    assert len(calls) == 1
+    gd, gs = torch.autograd.grad(out[:, :3].sum() + out[:, 4].sum(), [dens, sh])
+    torch.cuda.synchronize()
+    assert len(calls) == 1
+    assert (voxel_kernel.FWD_LAUNCHES, voxel_kernel.BWD_LAUNCHES) == (before[0] + 1,
+                                                                      before[1] + 1)
+    assert float(gs.abs().max()) > 0

@@ -233,3 +233,76 @@ def test_skip_on_random_sparse_grids(reso, cells, seed, p_dead):
     occ = vk.occupancy_blocks(grid.density, grid.alive)
     assert np.array_equal(occ.numpy(), _occupancy_brute(grid.density, grid.alive))
     _check_skip(grid, _cfg(reso), *_rays(reso, seed, n=48))
+
+
+def _grads(render, grid, o, d, cfg, g_rgb, g_log_t):
+    """Gradients of sum(rgb * g_rgb) + sum(log_t * g_log_t) in density and
+    sh, through autograd: an upstream gradient on rgb and on log-T (the
+    kernels' channel 4)."""
+    dens = grid.density.clone().requires_grad_(True)
+    sh = grid.sh.clone().requires_grad_(True)
+    out = render(vs.VoxelGrid(dens, sh, grid.alive), o, d, cfg)
+    loss = torch.sum(out["rgb"] * g_rgb) + torch.sum(out["log_t"] * g_log_t)
+    return torch.autograd.grad(loss, [dens, sh])
+
+
+@pytest.mark.parametrize("reso,seed,thresh", [((32, 32, 32), 8, 1e-8), ((32, 32, 32), 9, 0.5),
+                                              ((25, 18, 32), 4, 1e-8), ((17, 24, 9), 10, 0.5)])
+def test_skip_render_has_the_gradients_of_the_plain_render(reso, seed, thresh):
+    """What K2's skip rests on: the plain render with the skip has, through
+    autograd, the gradients of the render without it, bit for bit (a
+    skipped sample's sigma is 0 with a zero relu gradient, and its weight
+    0)."""
+    grid = _grid(reso, seed, BOUNDARY_CELLS)
+    cfg = _cfg(reso, thresh)
+    o, d = _rays(reso, seed, n=96)
+    rng = np.random.default_rng(seed)
+    g_rgb = torch.from_numpy(rng.standard_normal((o.shape[0], 3)).astype(np.float32))
+    g_log_t = torch.from_numpy(rng.standard_normal(o.shape[0]).astype(np.float32))
+    with_skip = _grads(vk.render_rays_skip_plain, grid, o, d, cfg, g_rgb, g_log_t)
+    without = _grads(vs.voxel_render_rays, grid, o, d, cfg, g_rgb, g_log_t)
+    for a, b in zip(with_skip, without):
+        assert float(b.abs().max()) > 0
+        assert torch.equal(a, b)
+    # the skip did drop samples here
+    origins, dirs, tmin, tmax, _, _ = vs.grid_ray_setup(cfg, o, d)
+    occ = vk.occupancy_blocks(grid.density, grid.alive)
+    assert bool(vk.skipped_steps(occ, cfg, origins, dirs, tmin, tmax).any())
+
+
+def _repeated_loop(cells, kept):
+    out = np.zeros(kept.shape, bool)
+    for i in range(kept.shape[0]):
+        prev = None
+        for j in range(kept.shape[1]):
+            if kept[i, j]:
+                out[i, j] = prev is not None and cells[i, j] == prev
+                prev = cells[i, j]
+    return out
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_repeated_floor_cells_match_a_loop(seed):
+    """The kept samples whose floor cell repeats the previous kept one's
+    (what K2's merge folds): random runs of cells and kept masks, with the
+    first and last steps kept or not, and a real march's floor cells."""
+    rng = np.random.default_rng(seed)
+    cells = np.cumsum(rng.random((40, 60)) < 0.4, 1) + 1000 * np.arange(40)[:, None]
+    kept = rng.random((40, 60)) < (1.0, 0.3, 0.8)[seed]
+    kept[::7] = rng.random((len(kept[::7]), 60)) < 0.5
+    got = vk.repeated_floor_cells(torch.from_numpy(cells), torch.from_numpy(kept))
+    assert np.array_equal(got.numpy(), _repeated_loop(cells, kept))
+    # a march: the floor cells of every step, kept where sigma passes the gate
+    reso = (16, 16, 16)
+    grid = _grid(reso, seed, BOUNDARY_CELLS)
+    cfg = _cfg(reso)
+    o, d = _rays(reso, seed, n=32)
+    origins, dirs, tmin, tmax, _, _ = vs.grid_ray_setup(cfg, o, d)
+    ts = vk._step_t(tmin[:, None], torch.arange(cfg.max_steps)[None, :], cfg)
+    fl = vk._floor_cells(origins, dirs, ts, cfg)
+    key = (fl[..., 0] * reso[1] + fl[..., 1]) * reso[2] + fl[..., 2]
+    kept = (ts <= tmax[:, None]) & (_sample_sigma(grid, cfg, origins, dirs, tmin)
+                                    >= cfg.sigma_thresh)
+    got = vk.repeated_floor_cells(key, kept)
+    want = _repeated_loop(key.numpy(), kept.numpy())
+    assert np.array_equal(got.numpy(), want) and want.any()
