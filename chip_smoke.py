@@ -169,7 +169,25 @@ Phases (any failure raises, and the script exits non-zero):
      TFLOP/s of the bf16 tensor cores (the products' operands are bf16, so
      the tensor cores could take them exactly); and the host's decode time
      of an 800 x 800 RGBA PNG whose rows all use the Paeth filter (a
-     blender dataset's image size) through data/png.py.
+     blender dataset's image size) through data/png.py;
+     15a. NeRF++ at the width of configs/tat_training_truck.txt (D8 W256,
+     fg and bg MLPs, 64 + 128 samples, bf16 operands): both cascade levels
+     of one step (no optimizer step) on one 1920-ray batch from the
+     budgeter over write_nerfpp_fixture's train views at resolution_level
+     2, on the card and on the CPU with the same weights and uniforms: rgb
+     and every weight gradient within phase 14a's tolerances;
+     15b. the main path: ddp_train_nerf.main --config
+     configs/tat_training_truck.txt on the 96-px nerf++ fixture (12 train,
+     2 test views; shrunk to 48 px by data/resize.py), every kernel counter
+     set to 0 just before and read just after: all read 0; the last
+     epoch's train PSNR above the first's, leaves subdivided, 10 .pth and
+     10 .pkl, a finite test PSNR and SSIM (printed beside the JAX package's
+     GOLDEN_runs.json fixture_nerfpp row), the same test PSNR within 1e-3
+     dB from the last .pth loaded into a fresh trainer;
+     15c. train rays/s over the 10 epochs, each epoch's wall time, peak
+     memory, and a 16-step profile: the device's busy share, the top
+     operations by device time, the f32 FLOPs a step beside the least time
+     at 67 TFLOP/s and at 989 TFLOP/s.
 
 The last lines are one JSON object describing the kernels, the card's name
 and power limit as nvidia-smi gives them, and
@@ -256,6 +274,11 @@ NERF_PROFILE_STEPS = 16
 # way): rgb within 2e-3, each weight gradient within 2e-2 of its norm
 NERF_RGB_TOL = 2e-3
 NERF_GRAD_TOL = 2e-2
+# phase 15: NeRF++ at the T&T Truck config's widths (D8 W256, 64 + 128
+# samples, batch 1920, bf16) on the 96-px nerf++ fixture; 15a holds both
+# cascade levels card against CPU at phase 14a's tolerances
+NERFPP_CONFIG = os.path.join("configs", "tat_training_truck.txt")
+NERFPP_PROFILE_STEPS = 16
 
 
 def check(cond, msg):
@@ -1529,6 +1552,192 @@ def nerf_phases(dev):
     return res["psnr"]
 
 
+def _nerfpp_levels(trainer, batch, draws):
+    """Both cascade levels of one step with no optimizer step: the
+    level-0 loss's backward, then level 1 sampled from level 0's detached
+    weights and its backward (``NerfPPTrainer._step`` without Adam).
+    Returns (per-level rgb on the host, {parameter: gradient on the host})."""
+    import torch
+
+    from flnerf_tpu_torch.models.nerfpp import intersect_sphere
+
+    o, d, rgb, img = (torch.as_tensor(a, device=trainer.device) for a in batch)
+    fg_z_max, _ = intersect_sphere(o, d)
+    prev, rgbs = None, []
+    for m, net in enumerate(trainer.nets):
+        net.zero_grad(set_to_none=True)
+        out = trainer._render_level(m, o, d, fg_z_max, prev, draws[m])
+        trainer._loss(net, out["rgb"], rgb, img).backward()
+        prev = {k: v.detach() for k, v in out.items()}
+        rgbs.append(prev["rgb"].cpu())
+    grads = {f"level{m}.{k}": p.grad.cpu() for m, net in enumerate(trainer.nets)
+             for k, p in net.named_parameters()}
+    return rgbs, grads
+
+
+def nerfpp_phases(dev):
+    """Phase 15: quadtree NeRF++ (cli/ddp_train_nerf.py) on the card.  Its
+    path launches none of the port's kernels (no TPU kernel lies on it in
+    the reference: dot_general chains and jnp sampling and compositing)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from flnerf_tpu_torch.cli import ddp_train_nerf
+    from flnerf_tpu_torch.data.nerfpp_dataset import write_nerfpp_fixture
+    from flnerf_tpu_torch.ops import hash_kernel as hk, hash_lattice as hl, hash_sorted as hs
+    from flnerf_tpu_torch.ops import sort_kernel as sk, voxel_kernel as vk
+    from flnerf_tpu_torch.rays.quadtree import RayBudgeter, RayEpoch
+
+    tmp = tempfile.TemporaryDirectory()
+    write_nerfpp_fixture(os.path.join(tmp.name, "fixture"), H=96, n_train=12, n_test=2)
+    root = os.path.dirname(os.path.abspath(__file__))
+    base = ["--config", os.path.join(root, NERFPP_CONFIG), "--datadir", tmp.name, "--scene",
+            "fixture", "--basedir", os.path.join(tmp.name, "logs"), "--testskip", "1"]
+    args = ddp_train_nerf.config_parser().parse_args(base)
+    train, test = ddp_train_nerf.load_splits(args)
+    n_train = train["images"].shape[0]
+    samples = [int(x) for x in args.cascade_samples.split(",")][:args.cascade_level]
+
+    # ---- phase 15a: both cascade levels at full width, card against CPU ----
+    budgeter = RayBudgeter(train["images"], train["origins"], train["dirs"],
+                           init_level=args.init_level, seed=args.seed)
+    epoch = budgeter.gen_rays()
+    n = args.batch_size
+    batch = [np.ascontiguousarray(a[:n]) for a in (epoch.origins, epoch.dirs, epoch.rgb)]
+    batch.append(epoch.img[:n].astype(np.int64))
+    rng = np.random.default_rng(args.seed)
+    draws = [tuple(rng.random((n, s), dtype=np.float32) for _ in range(2)) for s in samples]
+    cpu_args = ddp_train_nerf.config_parser().parse_args(base + ["--device", "cpu"])
+    got = {}
+    for where, a in ((str(dev), args), ("cpu", cpu_args)):
+        trainer = ddp_train_nerf.build(a, n_train)      # weights drawn on the CPU from the seed
+        t0 = time.time()
+        got[where] = _nerfpp_levels(trainer, batch, draws) + (time.time() - t0,)
+        del trainer
+    (rgb_c, g_c, s_c), (rgb_h, g_h, s_h) = got[str(dev)], got["cpu"]
+    rgb_err = max(float((a - b).abs().max()) for a, b in zip(rgb_c, rgb_h))
+    grad_err = {k: float((g_c[k] - g_h[k]).norm() / g_h[k].norm().clamp(min=1e-30))
+                for k in g_h}
+    worst = max(grad_err, key=grad_err.get)
+    print(f"[phase 15a] both cascade levels on {n} rays x ({samples[0]} + "
+          f"{samples[0] + samples[1]}) fg and bg samples, D{args.netdepth} W{args.netwidth}, "
+          f"{args.compute_dtype} operands, the same uniforms: card {s_c:.2f} s (first call), "
+          f"CPU {s_h:.2f} s; rgb max abs err per level "
+          f"{[float((a - b).abs().max()) for a, b in zip(rgb_c, rgb_h)]} (tolerance "
+          f"{NERF_RGB_TOL}); weight gradients, norm-wise error per parameter: median "
+          f"{float(np.median(list(grad_err.values()))):.3e}, largest {grad_err[worst]:.3e} "
+          f"({worst}; tolerance {NERF_GRAD_TOL})", flush=True)
+    check(rgb_err <= NERF_RGB_TOL, f"phase 15a: rgb differs card/CPU by {rgb_err}")
+    check(grad_err[worst] <= NERF_GRAD_TOL,
+          f"phase 15a: gradient {worst} differs card/CPU by {grad_err[worst]}")
+    del got, g_c, g_h
+
+    # ---- phase 15b: the main path, through the CLI on the card ----
+    for mod in (hk, hl, hs, sk, vk):
+        mod.reset_launch_counts()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    res = ddp_train_nerf.main(base)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {"K1": vk.FWD_LAUNCHES, "K2": vk.BWD_LAUNCHES, "K3": hk.HASH_FWD_LAUNCHES,
+                "K4": hk.HASH_BWD_LAUNCHES, "K5": sk.SORT_LAUNCHES,
+                "K6": hl.LATTICE_FWD_LAUNCHES, "K7": hl.LATTICE_BWD_LAUNCHES,
+                "K8": hs.SORTED_FWD_LAUNCHES, "K9": hs.SORTED_BWD_LAUNCHES}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hist = res["history"]
+    files = sorted(os.listdir(res["run_dir"]))
+    pths = [f for f in files if f.endswith(".pth")]
+    pkls = [f for f in files if f.startswith("treeDivide_")]
+    with open(os.path.join(root, "GOLDEN_runs.json")) as f:
+        golden = json.load(f)["fixture_nerfpp"]
+    print(f"[phase 15b] ddp_train_nerf.main --config {NERFPP_CONFIG} on the 96-px fixture at "
+          f"resolution_level {args.resolution_level} ({train['H']}x{train['W']}, {n_train} "
+          f"train and {test['images'].shape[0]} test views; D{args.netdepth} "
+          f"W{args.netwidth}, cascade {args.cascade_samples}, batch {n}, "
+          f"{args.compute_dtype}): kernel launches {launches}; {len(pths)} .pth, "
+          f"{len(pkls)} .pkl; main {wall:.1f} s", flush=True)
+    for h in hist:
+        print(f"[phase 15b]   epoch {h['epoch']}: {h['rays']} rays, train PSNR "
+              f"{h['train_psnr']:.3f}, {h['n_leaves']} leaves after it, {h['epoch_s']:.2f} s")
+    print(f"[phase 15b] test PSNR {res['psnr']:.3f} SSIM {res['ssim']:.4f}; the JAX "
+          f"package's result in GOLDEN_runs.json fixture_nerfpp (3 epochs, cascade 64,64, "
+          f"batch 2880; no band gates it, ROADMAP R2): {golden['psnr']:.2f} dB, SSIM "
+          f"{golden['ssim']:.4f}", flush=True)
+    check(all(v == 0 for v in launches.values()), f"the NeRF++ path launched a kernel: {launches}")
+    check(len(pths) == len(pkls) == args.n_epoch, f"phase 15b: checkpoints {files}")
+    check(len(hist) == args.n_epoch and all(math.isfinite(h["train_psnr"]) for h in hist),
+          f"phase 15b: history {hist}")
+    check(hist[-1]["train_psnr"] > hist[0]["train_psnr"], "phase 15b: train PSNR did not rise")
+    check(max(h["n_leaves"] for h in hist) > n_train * 4 ** (args.init_level - 1),
+          "phase 15b: no leaf was subdivided")
+    check(math.isfinite(res["psnr"]) and math.isfinite(res["ssim"]),
+          f"phase 15b: test PSNR {res['psnr']}, SSIM {res['ssim']}")
+    trainer = ddp_train_nerf.build(args, n_train)
+    epoch_r = ddp_train_nerf.load_checkpoint(os.path.join(res["run_dir"], pths[-1]), trainer)
+    psnr_r, _ = trainer.eval_images(test["poses"], test["images"], test["H"], test["W"],
+                                    test["intrinsics"][0], chunk=args.chunk_size)
+    print(f"[phase 15b] {pths[-1]} (epoch {epoch_r}) reloaded into a fresh trainer: test PSNR "
+          f"{psnr_r:.4f} (trained run {res['psnr']:.4f}, difference "
+          f"{abs(psnr_r - res['psnr']):.2e} dB)", flush=True)
+    check(abs(psnr_r - res["psnr"]) <= 1e-3, "phase 15b: the reloaded checkpoint renders "
+          "another test PSNR")
+
+    # ---- phase 15c: speed and profile ----
+    rays = sum(h["rays"] for h in hist)
+    steps = sum(-(-h["rays"] // n) for h in hist)
+    train_s = sum(h["epoch_s"] for h in hist)
+    print(f"[phase 15c] train rays/s over the {len(hist)} epochs: {rays / train_s:.1f} "
+          f"({rays} rays, {steps} steps of <= {n} rays, {train_s:.2f} s); epochs "
+          f"{[round(h['epoch_s'], 3) for h in hist]} s; peak memory {peak_gb:.2f} GB "
+          f"({peak_gb - base_gb:.2f} GB above the {base_gb:.2f} GB held before the run)",
+          flush=True)
+    macs = {net: sum(mod.in_features * mod.out_features
+                     for mod in getattr(trainer.nets[0], net).modules()
+                     if isinstance(mod, torch.nn.Linear)) for net in ("fg", "bg")}
+    pts = n * (samples[0] + samples[0] + samples[1])      # per MLP, both levels
+    step_flops = 3 * 2 * pts * (macs["fg"] + macs["bg"])
+    # two epochs' rays, so the profile takes 16 whole steps
+    more = budgeter.gen_rays()
+    epoch = RayEpoch(*(np.concatenate([a, b]) if isinstance(a, np.ndarray) else a
+                       for a, b in zip(epoch, more)))
+    prof_epoch = RayEpoch(*(a[:NERFPP_PROFILE_STEPS * n] if isinstance(a, np.ndarray) else a
+                            for a in epoch))
+    warm = RayEpoch(*(a[:2 * n] if isinstance(a, np.ndarray) else a for a in epoch))
+    trainer.run_epoch_rays(warm)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        trainer.run_epoch_rays(prof_epoch)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.time() - t0) * 1e3
+    dev_events = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                        key=lambda e: -e.self_device_time_total)
+    dev_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
+    check(math.isfinite(dev_ms) and dev_ms > 0, "phase 15c: the profile saw no device time")
+    least_ms = step_flops / F32_FLOPS * 1e3
+    least_tc_ms = step_flops / BF16_TC_FLOPS * 1e3
+    print(f"[phase 15c] profiled {NERFPP_PROFILE_STEPS} steps of {n} rays: device busy "
+          f"{dev_ms:.1f} ms of {prof_wall_ms:.1f} ms wall ({100 * dev_ms / prof_wall_ms:.1f}%), "
+          f"{dev_ms / NERFPP_PROFILE_STEPS:.2f} ms of device time a step; f32 FLOPs a step "
+          f"{step_flops:.4e} = 3 (forward + backward) x 2 x ({macs['fg']} fg + {macs['bg']} bg "
+          f"multiply-adds a sample) x {pts} samples of each MLP ({n} rays x ({samples[0]} + "
+          f"{samples[0] + samples[1]})); least time at {F32_FLOPS / 1e12:.0f} TFLOP/s: "
+          f"{least_ms:.2f} ms a step, {100 * least_ms * NERFPP_PROFILE_STEPS / dev_ms:.1f}% of "
+          f"the device time; at {BF16_TC_FLOPS / 1e12:.0f} TFLOP/s (bf16 tensor cores, which "
+          f"take the bf16 operands exactly): {least_tc_ms:.3f} ms a step, "
+          f"{100 * least_tc_ms * NERFPP_PROFILE_STEPS / dev_ms:.2f}% of the device time; top "
+          f"operations by device time:", flush=True)
+    for e in dev_events[:14]:
+        print(f"[phase 15c]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
+              f"{e.key[:90]}")
+    del trainer, prof
+    tmp.cleanup()
+    return res["psnr"]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1997,6 +2206,7 @@ def main():
                                 lattice_k5_err)
     kernels += sorted_rows[:2] + lattice_rows + sorted_rows[2:]
     nerf_phases(dev)
+    nerfpp_phases(dev)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -27,6 +27,12 @@ out], "b": [out]}`` leaves, ``pts_linears`` a list, then ``views_linear``,
 ``feature_linear``, ``alpha_linear`` and ``rgb_linear`` (or
 ``output_linear``).  It crosses to ``models/nerf_mlp.NerfMLP``'s
 ``state_dict`` (``nn.Linear`` names, weights [out, in]) and back.
+
+NeRF++ (``flnerf_tpu/models/nerfpp.py`` params): a tuple with one tree per
+cascade level, ``{"fg": mlp, "bg": mlp}`` and, with autoexpo, ``"autoexpo"``
+[n_images, 2]; each mlp is ``{"base": [{"w": [in, out], "b"}, ...],
+"sigma", "base_remap", "rgb0", "rgb1"}``.  Each level crosses to a
+``models/nerfpp.NerfNet`` ``state_dict`` and back.
 """
 
 from __future__ import annotations
@@ -186,3 +192,46 @@ def nerf_params_to_numpy(module) -> dict:
         if f"{name}.weight" in sd:
             params[key] = layer(name)
     return params
+
+
+_MLPNET_HEAD = ("sigma", "base_remap", "rgb0", "rgb1")
+
+
+def nerfpp_params_from_numpy(levels, device="cpu") -> list:
+    """The reference's NeRF++ params tuple -> one ``NerfNet`` state dict a
+    cascade level."""
+    out = []
+    for params in levels:
+        sd = {}
+        for net in ("fg", "bg"):
+            mlp = params[net]
+            groups = [(f"base.{i}", layer) for i, layer in enumerate(mlp["base"])]
+            groups += [(name, mlp[name]) for name in _MLPNET_HEAD]
+            for name, layer in groups:
+                sd[f"{net}.{name}.weight"] = _f32(np.asarray(layer["w"], np.float32).T, device)
+                sd[f"{net}.{name}.bias"] = _f32(layer["b"], device)
+        if "autoexpo" in params:
+            sd["autoexpo"] = _f32(params["autoexpo"], device)
+        out.append(sd)
+    return out
+
+
+def nerfpp_params_to_numpy(nets) -> tuple:
+    """``NerfNet`` modules, one a cascade level -> the reference's NeRF++
+    params tuple (numpy leaves, weights [in, out])."""
+    levels = []
+    for module in nets:
+        sd = {k: v.detach().cpu().numpy() for k, v in module.state_dict().items()}
+
+        def layer(name):
+            return {"w": np.ascontiguousarray(sd[f"{name}.weight"].T), "b": sd[f"{name}.bias"]}
+
+        params = {}
+        for net in ("fg", "bg"):
+            n_base = len(getattr(module, net).base)
+            params[net] = {"base": [layer(f"{net}.base.{i}") for i in range(n_base)]}
+            params[net].update({name: layer(f"{net}.{name}") for name in _MLPNET_HEAD})
+        if "autoexpo" in sd:
+            params["autoexpo"] = sd["autoexpo"]
+        levels.append(params)
+    return tuple(levels)

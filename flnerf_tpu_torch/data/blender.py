@@ -5,8 +5,8 @@ Port of ``flnerf_tpu/data/blender.py`` (numpy, copied; images read through
 
 Parity target: nerf-ours/load_blender.py:37-91 — same split handling,
 testskip, white-background compositing hook (done by the caller, as in
-run_nerf.py:199-201), half_res area-resize, and the 40-pose spherical render
-path.
+run_nerf.py:199-201), half_res area-resize (``data/resize.py``, OpenCV's
+INTER_AREA in numpy), and the 40-pose spherical render path.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from typing import Tuple
 import numpy as np
 
 from flnerf_tpu_torch.data.png import imread
+from flnerf_tpu_torch.data.resize import area_resize
 from flnerf_tpu_torch.rays.camera import pose_spherical
 
 
@@ -56,13 +57,9 @@ def load_blender_data(basedir: str, half_res: bool = False, testskip: int = 1):
     )
 
     if half_res:
-        import cv2
-
         H, W = H // 2, W // 2
         focal = focal / 2.0
-        imgs = np.stack(
-            [cv2.resize(im, (W, H), interpolation=cv2.INTER_AREA) for im in imgs], 0
-        ).astype(np.float32)
+        imgs = np.stack([area_resize(im, (W, H)) for im in imgs], 0).astype(np.float32)
 
     return imgs, poses, render_poses, [H, W, focal], i_split
 

@@ -15,8 +15,9 @@ fixture test in tests/test_llff.py (the reference's) and held against
 the reference by tests/test_torch_cli_run_nerf.py.
 
 Intentional differences from the reference implementation:
-  * image downsampling uses cv2 INTER_AREA instead of shelling out to
-    imagemagick ``mogrify`` (same output resolution);
+  * image downsampling computes OpenCV's INTER_AREA (``data/resize.py``,
+    in numpy) instead of shelling out to imagemagick ``mogrify`` (same
+    output resolution);
   * pose math is vectorized (no per-view / per-frame Python loops).
 """
 
@@ -139,6 +140,7 @@ def spherify_poses(poses: np.ndarray, bds: np.ndarray):
 
 def _load_images(basedir: str, factor: int) -> np.ndarray:
     from flnerf_tpu_torch.data.png import imread
+    from flnerf_tpu_torch.data.resize import area_resize
 
     imgdir = os.path.join(basedir, "images")
     if factor is not None and factor > 1:
@@ -153,11 +155,8 @@ def _load_images(basedir: str, factor: int) -> np.ndarray:
     for f in files:
         im = imread(os.path.join(imgdir, f))
         if factor is not None and factor > 1:
-            import cv2
-
             h, w = im.shape[:2]
-            im = cv2.resize(im, (w // factor, h // factor),
-                            interpolation=cv2.INTER_AREA)
+            im = area_resize(im, (w // factor, h // factor))
         imgs.append(im[..., :3] / 255.0)
     return np.stack(imgs, 0).astype(np.float32)
 

@@ -100,6 +100,40 @@ def test_cuda_entry_points_raise_without_a_card(monkeypatch, tmp_path):
         run_nerf.main(["--config", os.path.join(ROOT, "configs", "synthetic_smoke.txt"),
                        "--basedir", str(tmp_path)])
     assert not os.path.exists(tmp_path / "synthetic_smoke")
+    from flnerf_tpu_torch.cli import ddp_train_nerf
+    from flnerf_tpu_torch.models.nerfpp import NerfPPConfig
+    from flnerf_tpu_torch.train import nerfpp_trainer
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        nerfpp_trainer.NerfPPTrainer(NerfPPConfig(), nerfpp_trainer.NerfPPTrainConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ddp_train_nerf.main(["--datadir", "synthetic", "--scene", "any", "--expname", "npp",
+                             "--basedir", str(tmp_path)])
+    assert not os.path.exists(tmp_path / "npp")
+
+
+def test_no_source_imports_an_image_library():
+    """The card's machine has no cv2 or imageio: no module of the port
+    imports cv2, and imageio only in data/png.py's fallback for formats
+    other than 8-bit PNG and in train/eval.py's video writer, which skips
+    the video without it."""
+    for path in _sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            tops = {n.split(".")[0] for n in names}
+            rel = os.path.relpath(path, ROOT)
+            assert "cv2" not in tops, f"{rel}:{node.lineno} imports cv2"
+            if "imageio" in tops:
+                assert rel in (os.path.join("flnerf_tpu_torch", "data", "png.py"),
+                               os.path.join("flnerf_tpu_torch", "train", "eval.py")), (
+                    f"{rel}:{node.lineno} imports imageio")
+        with open(path) as f:
+            assert "import cv2" not in f.read(), os.path.relpath(path, ROOT)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
