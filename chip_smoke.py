@@ -187,7 +187,35 @@ Phases (any failure raises, and the script exits non-zero):
      15c. train rays/s over the 10 epochs, each epoch's wall time, peak
      memory, and a 16-step profile: the device's busy share, the top
      operations by device time, the f32 FLOPs a step beside the least time
-     at 67 TFLOP/s and at 989 TFLOP/s.
+     at 67 TFLOP/s and at 989 TFLOP/s;
+ 16. TensoRF and CCNeRF (cli/main_tensorf.py, cli/main_ccnerf.py; no
+     kernel of the port on their path):
+     16a. the VM field at 300^3 (ranks 16/48, feature 27, colour MLP 3 x
+     128), the CP field (128^3, ranks 32/32) and the CCNeRF field (128^3,
+     the CLI's ranks, colour MLP 3 x 64) at each of its 3 levels, bf16
+     operands, on the kept samples of one 4096-ray batch of the synthetic
+     scene marched on a refreshed occupancy grid, on the card and on the
+     CPU with the same weights and uniforms: sigma (relative), the colour
+     feature, rgb and every parameter gradient within phase 14a's
+     tolerances;
+     16b. the main path: main_tensorf.main synthetic -O --iters 1024
+     --upsample_model_steps 128 192 256 352 448 (the reference's schedule
+     cut by 16: every shrink and upsample, 128^3 to 300^3) with every
+     kernel counter set to 0 just before and read just after: all read 0;
+     the last resolution within 5% of 300^3, the last chunk's loss below
+     the first's, a finite test PSNR and SSIM (printed beside the JAX
+     package's BENCH_time_to_psnr_tensorf.json), the checkpoint loaded
+     into a fresh trainer gives the same test PSNR within 1e-3 dB; then
+     --cp for 256 steps with the same checks;
+     16c. main_ccnerf.main synthetic -O --iters 512: three finite level
+     PSNRs and an object.pkl; --compose of two copies at offsets 0,0,0 and
+     0.6,0,0: 2 objects, a finite PSNR and a PNG per test view; every
+     kernel counter 0;
+     16d. train rays/s over the steps after the last upsample, peak
+     memory, the factor gather's backward by index_add_ and by index_put_
+     on one corner set of the step, a 16-step profile at 300^3 (device
+     busy share, top operations) beside the step's bound (factor bytes at
+     3.35 TB/s, MLP and basis FLOPs at 67 and 989 TFLOP/s).
 
 The last lines are one JSON object describing the kernels, the card's name
 and power limit as nvidia-smi gives them, and
@@ -279,6 +307,15 @@ NERF_GRAD_TOL = 2e-2
 # cascade levels card against CPU at phase 14a's tolerances
 NERFPP_CONFIG = os.path.join("configs", "tat_training_truck.txt")
 NERFPP_PROFILE_STEPS = 16
+# phase 16: TensoRF and CCNeRF at the CLIs' widths.  The VM schedule is the
+# reference's 2000, 3000, 4000, 5500 and 7000 of 30,000 steps cut by 16 and
+# rounded to whole 16-step chunks: every shrink and upsample, 128^3 to 300^3
+TENSORF_ITERS = 1024
+TENSORF_UPSAMPLE = (128, 192, 256, 352, 448)
+TENSORF_CP_ITERS = 256
+TENSORF_CCNERF_ITERS = 512
+TENSORF_PROFILE_STEPS = 16
+TENSORF_RES_TOL = 0.05     # the last resolution's product against 300^3
 
 
 def check(cond, msg):
@@ -1738,6 +1775,303 @@ def nerfpp_phases(dev):
     return res["psnr"]
 
 
+def _tensorf_outputs(field, marched, d, gt, rcfg):
+    """The field on the marched samples: (the kept samples' sigma and colour
+    feature and the rays' rgb on the host, {parameter: gradient of the mean
+    squared error on the host})."""
+    import torch
+
+    from flnerf_tpu_torch.render.ngp import render_marched
+
+    with torch.no_grad():
+        sigma, feat = field.density(marched[2])
+    out = render_marched(field, marched, d, rcfg)
+    loss = torch.mean((out["rgb"] - gt) ** 2)
+    names = [n for n, _ in field.named_parameters()]
+    grads = torch.autograd.grad(loss, list(field.parameters()))
+    return ({"sigma": sigma.cpu(), "feat": feat.cpu(), "rgb": out["rgb"].detach().cpu()},
+            {n: g.cpu() for n, g in zip(names, grads)})
+
+
+def tensorf_phases(dev):
+    """Phase 16: TensoRF (VM, CP) and CCNeRF (cli/main_tensorf.py,
+    cli/main_ccnerf.py) on the card.  Their path launches none of the port's
+    kernels (no TPU kernel lies on it in the reference: jnp gathers for the
+    factor samples, dot_general for the basis and the colour MLP)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from flnerf_tpu_torch.cli import main_ccnerf, main_tensorf
+    from flnerf_tpu_torch.cli.main_nerf import load_ngp_dataset
+    from flnerf_tpu_torch.models.tensorf import TensoRFConfig, TensoRFField
+    from flnerf_tpu_torch.models.tensorf_variants import (
+        CCNeRFConfig,
+        CCNeRFField,
+        CPConfig,
+        CPField,
+    )
+    from flnerf_tpu_torch.ops import hash_kernel as hk, hash_lattice as hl, hash_sorted as hs
+    from flnerf_tpu_torch.ops import sort_kernel as sk, voxel_kernel as vk
+    from flnerf_tpu_torch.render.ngp import march
+    from flnerf_tpu_torch.train.ngp_trainer import NGPSampler, NGPTrainer
+
+    def reset():
+        for mod in (hk, hl, hs, sk, vk):
+            mod.reset_launch_counts()
+
+    def launches():
+        return {"K1": vk.FWD_LAUNCHES, "K2": vk.BWD_LAUNCHES, "K3": hk.HASH_FWD_LAUNCHES,
+                "K4": hk.HASH_BWD_LAUNCHES, "K5": sk.SORT_LAUNCHES,
+                "K6": hl.LATTICE_FWD_LAUNCHES, "K7": hl.LATTICE_BWD_LAUNCHES,
+                "K8": hs.SORTED_FWD_LAUNCHES, "K9": hs.SORTED_BWD_LAUNCHES}
+
+    t_phase = time.time()
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.TemporaryDirectory()
+    base = ["synthetic", "-O"]
+    args = main_tensorf.parse_o(main_tensorf.make_tensorf_parser(), base)
+    images, poses, hwf, K, i_split = load_ngp_dataset(args)
+    i_train = i_split[0]
+    rcfg, tcfg = main_tensorf.render_train_configs(args)
+    bf16 = torch.bfloat16
+
+    # ---- phase 16a: the fields at full width, card against CPU ----
+    vm = TensoRFField(TensoRFConfig(resolution=(args.resolution1,) * 3, bound=args.bound), bf16,
+                      torch.Generator().manual_seed(0))
+    cp = CPField(CPConfig(resolution=(args.resolution0,) * 3, bound=args.bound), bf16,
+                 torch.Generator().manual_seed(1))
+    cc_args = main_ccnerf.make_ccnerf_parser().parse_args(base)
+    cc = CCNeRFField(CCNeRFConfig(resolution=(cc_args.resolution0,) * 3,
+                                  rank_vec_density=tuple(cc_args.rank_vec_density),
+                                  rank_mat_density=tuple(cc_args.rank_mat_density),
+                                  rank_vec=tuple(cc_args.rank_vec),
+                                  rank_mat=tuple(cc_args.rank_mat), bound=args.bound), bf16,
+                     torch.Generator().manual_seed(2))
+    trainer = NGPTrainer(copy.deepcopy(vm), rcfg, tcfg, device=dev)
+    trainer.refresh_occupancy(partial=False)
+    o, d, rgb, _, _ = NGPSampler(images[i_train], poses[i_train], K, tcfg,
+                                 seed=args.seed).sample_chunk(1, tcfg.batch_rays)
+    noise = np.random.default_rng(0).random((tcfg.batch_rays, rcfg.n_candidates),
+                                            dtype=np.float32)
+    with torch.no_grad():
+        marched = march(trainer.occ, torch.as_tensor(o[0], device=dev),
+                        torch.as_tensor(d[0], device=dev), rcfg, perturb=True,
+                        noise=torch.as_tensor(noise, device=dev))
+    occupied = float(marched[1].float().mean())
+    del trainer
+    n_rays, n_keep = tcfg.batch_rays, rcfg.n_keep
+    cases = [("VM", vm, None), ("CP", cp, None)] + [
+        (f"CCNeRF level {k}", cc, k) for k in range(cc.cfg.K, 0, -1)]
+    worst = {"sigma": 0.0, "feat": 0.0, "rgb": 0.0, "grad": 0.0}
+    for name, field, level in cases:
+        got, secs = {}, {}
+        for where in (str(dev), "cpu"):
+            f = copy.deepcopy(field).to(where)
+            if level is not None:
+                f.level = level
+            t0 = time.time()
+            got[where] = _tensorf_outputs(
+                f, [m.to(where) for m in marched], torch.as_tensor(d[0], device=where),
+                torch.as_tensor(rgb[0], device=where), rcfg)
+            if where != "cpu":
+                torch.cuda.synchronize()
+            secs[where] = time.time() - t0
+            del f
+        (out_c, g_c), (out_h, g_h) = got[str(dev)], got["cpu"]
+        errs = {"sigma": float(((out_c["sigma"] - out_h["sigma"]).abs()
+                                / out_h["sigma"].abs().clamp(min=1e-6)).max()),
+                "feat": float((out_c["feat"] - out_h["feat"]).abs().max()
+                              / out_h["feat"].abs().max()),
+                "rgb": float((out_c["rgb"] - out_h["rgb"]).abs().max())}
+        grad_err = {k: float((g_c[k] - g_h[k]).norm() / g_h[k].norm().clamp(min=1e-30))
+                    for k in g_h}
+        gworst = max(grad_err, key=grad_err.get)
+        errs["grad"] = grad_err[gworst]
+        worst = {k: max(worst[k], errs[k]) for k in worst}
+        print(f"[phase 16a] {name} ({field.cfg.resolution[0]}^3, bf16) on {n_rays} rays x "
+              f"{n_keep} kept samples ({100 * occupied:.1f}% occupied): card "
+              f"{secs[str(dev)]:.2f} s "
+              f"(first call), CPU {secs['cpu']:.2f} s; sigma max relative err "
+              f"{errs['sigma']:.3e}, colour feature max abs err {errs['feat']:.3e} of its "
+              f"largest entry, ray rgb max abs err {errs['rgb']:.3e} (tolerance {NERF_RGB_TOL} "
+              f"each); parameter gradients norm-wise: median "
+              f"{float(np.median(list(grad_err.values()))):.3e}, largest {errs['grad']:.3e} "
+              f"({gworst}; tolerance {NERF_GRAD_TOL})", flush=True)
+        for k in ("sigma", "feat", "rgb"):
+            check(errs[k] <= NERF_RGB_TOL, f"phase 16a: {name} {k} differs card/CPU by {errs[k]}")
+        check(errs["grad"] <= NERF_GRAD_TOL,
+              f"phase 16a: {name} gradient {gworst} differs card/CPU by {errs['grad']}")
+        del got, g_c, g_h
+    del vm, cp, cc
+
+    # ---- phase 16b: the VM main path, through the CLI on the card ----
+    with open(os.path.join(root, "BENCH_time_to_psnr_tensorf.json")) as f:
+        jax_psnr = json.load(f)["samples"][-1]["psnr"]
+    ws = os.path.join(tmp.name, "vm")
+    vm_argv = base + ["--iters", str(TENSORF_ITERS), "--upsample_model_steps",
+                      *map(str, TENSORF_UPSAMPLE), "--workspace", ws]
+    reset()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    res = main_tensorf.main(vm_argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts = launches()
+    cfg = res["field_cfg"]
+    hist = res["history"]
+    res_ratio = float(np.prod(cfg.resolution)) / args.resolution1 ** 3
+    print(f"[phase 16b] main_tensorf.main {' '.join(vm_argv[:-2])} (VM, ranks "
+          f"{cfg.sigma_rank}/{cfg.color_rank}, feature {cfg.color_feat_dim}, colour MLP "
+          f"{cfg.num_layers} x {cfg.hidden_dim}, {tcfg.batch_rays} rays x {rcfg.n_candidates} "
+          f"candidates / {rcfg.n_keep} kept, grid {rcfg.grid_size}): kernel launches {counts}; "
+          f"main {wall:.1f} s; the last resolution {cfg.resolution} ({100 * res_ratio:.2f}% "
+          f"of {args.resolution1}^3), aabb {cfg.aabb}; segments "
+          f"{[(sg['steps'], round(sg['wall_s'], 2)) for sg in res['segments']]}", flush=True)
+    print(f"[phase 16b]   chunk losses (mean over each chunk): first {hist[0]['chunk_loss']:.5f}, "
+          f"last {hist[-1]['chunk_loss']:.5f}; every 8th "
+          f"{[round(h['chunk_loss'], 5) for h in hist[::8]]}")
+    print(f"[phase 16b] test PSNR {res['psnr']:.3f} SSIM {res['ssim']:.4f}; the JAX package's "
+          f"BENCH_time_to_psnr_tensorf.json (its last sample; no band gates it, ROADMAP R1): "
+          f"{jax_psnr:.3f} dB", flush=True)
+    check(all(v == 0 for v in counts.values()), f"the TensoRF path launched a kernel: {counts}")
+    check(res["steps"] == TENSORF_ITERS and len(res["segments"]) == len(TENSORF_UPSAMPLE) + 1,
+          f"phase 16b: {res['steps']} steps, segments {res['segments']}")
+    check(abs(res_ratio - 1.0) <= TENSORF_RES_TOL,
+          f"phase 16b: the last resolution {cfg.resolution} is not within 5% of 300^3")
+    check(all(math.isfinite(h["chunk_loss"]) for h in hist), f"phase 16b: history {hist}")
+    check(hist[-1]["chunk_loss"] < hist[0]["chunk_loss"], "phase 16b: the loss did not fall")
+    check(math.isfinite(res["psnr"]) and math.isfinite(res["ssim"]),
+          f"phase 16b: test PSNR {res['psnr']}, SSIM {res['ssim']}")
+    trainer = NGPTrainer(TensoRFField(cfg, bf16), rcfg, tcfg, device=dev)
+    trainer.load_checkpoint(ws)
+    H, W, _ = hwf
+    i_test = i_split[2]
+    psnr_r, _ = trainer.eval_images(poses[i_test], images[i_test], H, W, K,
+                                    chunk=args.max_ray_batch)
+    print(f"[phase 16b] the checkpoint (step {trainer.step}) loaded into a fresh trainer: test "
+          f"PSNR {psnr_r:.4f} (trained run {res['psnr']:.4f}, difference "
+          f"{abs(psnr_r - res['psnr']):.2e} dB)", flush=True)
+    check(abs(psnr_r - res["psnr"]) <= 1e-3, "phase 16b: the reloaded checkpoint renders "
+          "another test PSNR")
+    seg = res["segments"][-1]
+    rays_s = seg["steps"] * tcfg.batch_rays / seg["wall_s"]
+
+    ws_cp = os.path.join(tmp.name, "cp")
+    reset()
+    res_cp = main_tensorf.main(base + ["--cp", "--iters", str(TENSORF_CP_ITERS),
+                                       "--workspace", ws_cp])
+    counts = launches()
+    hist_cp = res_cp["history"]
+    t_cp = NGPTrainer(CPField(res_cp["field_cfg"], bf16), rcfg, tcfg, device=dev)
+    t_cp.load_checkpoint(ws_cp)
+    psnr_cp, _ = t_cp.eval_images(poses[i_test], images[i_test], H, W, K,
+                                  chunk=args.max_ray_batch)
+    del t_cp
+    cp_rays_s = res_cp["segments"][0]["steps"] * tcfg.batch_rays / res_cp["segments"][0]["wall_s"]
+    print(f"[phase 16b] --cp --iters {TENSORF_CP_ITERS} (ranks "
+          f"{res_cp['field_cfg'].sigma_rank}/{res_cp['field_cfg'].color_rank} at "
+          f"{res_cp['field_cfg'].resolution[0]}^3): kernel launches {counts}; chunk losses first "
+          f"{hist_cp[0]['chunk_loss']:.5f}, last {hist_cp[-1]['chunk_loss']:.5f}; test PSNR "
+          f"{res_cp['psnr']:.3f} SSIM {res_cp['ssim']:.4f}, reloaded {psnr_cp:.4f}; "
+          f"{cp_rays_s:.1f} train rays/s", flush=True)
+    check(all(v == 0 for v in counts.values()), f"the CP path launched a kernel: {counts}")
+    check(hist_cp[-1]["chunk_loss"] < hist_cp[0]["chunk_loss"],
+          "phase 16b: the CP loss did not fall")
+    check(math.isfinite(res_cp["psnr"]) and abs(psnr_cp - res_cp["psnr"]) <= 1e-3,
+          f"phase 16b: CP test PSNR {res_cp['psnr']}, reloaded {psnr_cp}")
+
+    # ---- phase 16c: CCNeRF through the CLI: three levels, then two objects ----
+    ws_cc = os.path.join(tmp.name, "cc")
+    reset()
+    t0 = time.time()
+    levels = main_ccnerf.main(base + ["--iters", str(TENSORF_CCNERF_ITERS), "--workspace", ws_cc])
+    cc_s = time.time() - t0
+    obj = os.path.join(ws_cc, "object.pkl")
+    ws_co = os.path.join(tmp.name, "compose")
+    composed = main_ccnerf.main(base + ["--compose", obj, obj, "--offsets", "0,0,0", "0.6,0,0",
+                                        "--iters", "0", "--workspace", ws_co])
+    counts = launches()
+    pngs = sorted(f for f in os.listdir(ws_co) if f.endswith(".png"))
+    print(f"[phase 16c] main_ccnerf.main synthetic -O --iters {TENSORF_CCNERF_ITERS} (ranks "
+          f"{cc_args.rank_vec_density}/{cc_args.rank_mat_density}, {cc_args.resolution0}^3, "
+          f"colour MLP 3 x 64; {cc_s:.1f} s): test PSNR by level {levels}; --compose of two "
+          f"copies at offsets 0,0,0 and 0.6,0,0: {composed['n_objects']} objects, PSNR "
+          f"{composed['psnr']:.3f}, PNGs {pngs}; kernel launches {counts}", flush=True)
+    check(all(v == 0 for v in counts.values()), f"the CCNeRF path launched a kernel: {counts}")
+    check(len(levels) == 3 and all(math.isfinite(p) for p in levels.values()),
+          f"phase 16c: level PSNRs {levels}")
+    check(os.path.exists(obj), "phase 16c: no object.pkl")
+    check(composed["n_objects"] == 2 and math.isfinite(composed["psnr"])
+          and len(pngs) == len(i_test), f"phase 16c: composed {composed}, PNGs {pngs}")
+
+    # ---- phase 16d: speed, the gather's backward, a profile, the bound ----
+    n = tcfg.batch_rays * rcfg.n_keep
+    gen = torch.Generator(device=dev).manual_seed(3)
+    table = torch.randn((args.resolution1 ** 2, 48), device=dev, requires_grad=True)
+    idx = torch.randint(0, args.resolution1 ** 2, (4 * n,), generator=gen, device=dev)
+    g_out = torch.randn((4 * n, 48), generator=gen, device=dev)
+    gather_ms = {}
+    for name, fn in (("index_select / index_add_", lambda: torch.index_select(table, 0, idx)),
+                     ("advanced indexing / index_put_", lambda: table[idx])):
+        with torch.no_grad():
+            fwd = cuda_ms(fn, 10)
+        both = cuda_ms(lambda: torch.autograd.grad(fn(), [table], g_out), 10)
+        gather_ms[name] = (fwd, both - fwd)
+    sampler = NGPSampler(images[i_train], poses[i_train], K, tcfg, seed=args.seed + 1)
+    trainer.fit(sampler, verbose=False, n_steps=TENSORF_PROFILE_STEPS)      # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        trainer.fit(sampler, verbose=False, n_steps=TENSORF_PROFILE_STEPS)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.time() - t0) * 1e3
+    dev_events = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                        key=lambda e: -e.self_device_time_total)
+    dev_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
+    check(math.isfinite(dev_ms) and dev_ms > 0, "phase 16d: the profile saw no device time")
+    ranks = sum(cfg.sigma_rank) + sum(cfg.color_rank)
+    # a sample reads 4 corners of axis i's plane and 2 of its line at axis
+    # i's sigma and colour ranks, once (forward), and adds as many into the
+    # gradients
+    gather_bytes = n * (4 + 2) * ranks * 4
+    in_dim = cfg.color_feat_dim * 5 + 15
+    macs = (in_dim * cfg.hidden_dim + cfg.hidden_dim ** 2 * (cfg.num_layers - 2)
+            + cfg.hidden_dim * 3 + sum(cfg.color_rank) * cfg.color_feat_dim)
+    step_flops = 3 * 2 * n * macs
+    bytes_ms = 2 * gather_bytes / HBM_BYTES_PER_S * 1e3
+    f32_ms, tc_ms = step_flops / F32_FLOPS * 1e3, step_flops / BF16_TC_FLOPS * 1e3
+    step_ms = dev_ms / TENSORF_PROFILE_STEPS
+    print(f"[phase 16d] VM train rays/s over the {seg['steps']} steps after the last upsample "
+          f"(refreshes included): {rays_s:.1f}; peak memory {peak_gb:.2f} GB "
+          f"({peak_gb - base_gb:.2f} "
+          f"GB above the {base_gb:.2f} GB held before phase 16b)", flush=True)
+    for name, (fwd, bwd) in gather_ms.items():
+        print(f"[phase 16d] gather of {4 * n} rows of a [{args.resolution1 ** 2}, 48] f32 table "
+              f"(one corner set of the colour planes' step) by {name}: forward {fwd:.4f} ms, "
+              f"backward {bwd:.4f} ms")
+    print(f"[phase 16d] profiled {TENSORF_PROFILE_STEPS} steps at {cfg.resolution}: device busy "
+          f"{dev_ms:.1f} ms of {prof_wall_ms:.1f} ms wall ({100 * dev_ms / prof_wall_ms:.1f}%), "
+          f"{step_ms:.3f} ms of device time a step; bound a step: factor bytes "
+          f"{gather_bytes / 1e9:.3f} GB gathered + as many added ({n} samples x (4 plane + 2 line "
+          f"corners) x {ranks} ranks over the 3 axes x 4 B) -> {bytes_ms:.3f} ms at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; MLP "
+          f"and basis FLOPs {step_flops:.4e} ({macs} multiply-adds a sample, x 2 x 3) -> "
+          f"{f32_ms:.3f} ms at {F32_FLOPS / 1e12:.0f} TFLOP/s, {tc_ms:.4f} ms at "
+          f"{BF16_TC_FLOPS / 1e12:.0f} TFLOP/s; bound {max(bytes_ms, f32_ms):.3f} ms by "
+          f"{'bytes' if bytes_ms >= f32_ms else 'operations'} "
+          f"({100 * max(bytes_ms, f32_ms) / step_ms:.1f}% "
+          f"of the device time a step); top operations by device time:", flush=True)
+    for e in dev_events[:14]:
+        print(f"[phase 16d]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
+              f"{e.key[:90]}")
+    print(f"[phase 16] {time.time() - t_phase:.1f} s", flush=True)
+    del trainer, prof
+    tmp.cleanup()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2207,6 +2541,7 @@ def main():
     kernels += sorted_rows[:2] + lattice_rows + sorted_rows[2:]
     nerf_phases(dev)
     nerfpp_phases(dev)
+    tensorf_phases(dev)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -33,6 +33,16 @@ cascade level, ``{"fg": mlp, "bg": mlp}`` and, with autoexpo, ``"autoexpo"``
 [n_images, 2]; each mlp is ``{"base": [{"w": [in, out], "b"}, ...],
 "sigma", "base_remap", "rgb0", "rgb1"}``.  Each level crosses to a
 ``models/nerfpp.NerfNet`` ``state_dict`` and back.
+
+TensoRF, CP and CCNeRF (``flnerf_tpu/models/tensorf.py``,
+``tensorf_variants.py`` params): a dict of arrays and lists of arrays, as
+``jax.tree_util.tree_map(np.asarray, params)`` gives it: VM ``sigma_mat``,
+``sigma_vec``, ``color_mat``, ``color_vec`` (3 each), ``basis`` and
+``color_net`` [in, out] x L; CP ``sigma_lines`` and ``color_lines``;
+CCNeRF adds ``*_mat_line`` (3 each), ``sigma_vec_scale`` and
+``sigma_mat_scale`` (3).  The port's fields register the same keys with
+the same shapes (``ParameterList`` for a list), so a parameter's name
+``key.i`` is its place in the tree.
 """
 
 from __future__ import annotations
@@ -235,3 +245,34 @@ def nerfpp_params_to_numpy(nets) -> tuple:
             params["autoexpo"] = sd["autoexpo"]
         levels.append(params)
     return tuple(levels)
+
+
+def tensorf_tree_from_numpy(tree, device="cpu") -> dict:
+    """The reference's TensoRF/CP/CCNeRF params tree -> the same tree of f32
+    tensors (a field's ``params=``)."""
+    return {k: [_f32(a, device) for a in v] if isinstance(v, (list, tuple)) else _f32(v, device)
+            for k, v in tree.items()}
+
+
+def tensorf_params_from_numpy(field, tree, device="cpu") -> list:
+    """The tree's arrays as tensors in ``field.named_parameters()`` order."""
+    out = []
+    for name, _ in field.named_parameters():
+        key, _, i = name.partition(".")
+        out.append(_f32(tree[key][int(i)] if i else tree[key], device))
+    return out
+
+
+def tensorf_params_to_numpy(field, tensors=None) -> dict:
+    """Tensors in ``field.named_parameters()`` order (default: the field's
+    own) -> the reference's tree of numpy arrays."""
+    tensors = list(field.parameters()) if tensors is None else tensors
+    tree = {}
+    for (name, _), t in zip(field.named_parameters(), tensors):
+        key, _, i = name.partition(".")
+        a = t.detach().cpu().numpy()
+        if i:
+            tree.setdefault(key, []).append(a)
+        else:
+            tree[key] = a
+    return tree

@@ -294,8 +294,14 @@ def ngp_render_rays(field, occ: OccupancyState, rays_o: torch.Tensor,
     ``color``).  Returns dict(rgb, depth, acc), differentiable in the
     field's parameters; the occupancy state is a constant.  ``bg_color`` is
     a scalar or an [N, 3] tensor (default cfg.bg_color)."""
-    zk, mk, xyzk, sample_dist = march(occ, rays_o, rays_d, cfg, perturb, noise, generator)
+    marched = march(occ, rays_o, rays_d, cfg, perturb, noise, generator)
+    return render_marched(field, marched, rays_d, cfg, bg_color)
 
+
+def render_marched(field, marched, rays_d: torch.Tensor, cfg: NGPRenderConfig,
+                   bg_color=None):
+    """The field on ``march``'s kept samples, alpha-composited."""
+    zk, mk, xyzk, sample_dist = marched
     sigma, geo = field.density(xyzk)                                # [N,K], [N,K,F]
     sigma = torch.where(mk, sigma, 0.0)
 

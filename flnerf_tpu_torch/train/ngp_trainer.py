@@ -12,12 +12,18 @@ behavior (ngp-ours):
 
 ``NGPSampler`` is a numpy port that draws from ``np.random.default_rng(seed)``
 in the reference's call order, so its rays equal the reference's bit for
-bit.  The step counter (which is also Adam's count) lives on the host: no
-device read is ever needed for it, so the reference's host step mirror and
-its invalidation (ADVICE.md item 1) reduce to this one integer.  The device
+bit.  The step counter and Adam's count live on the host: no device read is
+ever needed for them, so the reference's host step mirror and its
+invalidation (ADVICE.md item 1) reduce to two integers (equal until
+``replace_field`` resets Adam's).  The device
 queue is drained once per ``fit`` (the loss history, one stacked transfer),
 once per chunk with ``--error_map`` (the per-ray errors, as in the
 reference) and at the verbose prints.
+
+The trainer takes an ``NGPConfig`` or any field module (``density``,
+``color``, ``device``, ``parameters()``), and ``replace_field`` swaps the
+field mid-run: the port of the reference's generic field protocol, which
+the TensoRF, CP and CCNeRF CLIs drive.
 
 Not ported yet (each raises ``NotImplementedError``): the time-dependent
 (D-NeRF) path and multi-device data parallelism.
@@ -184,11 +190,15 @@ class NGPSampler:
 
 
 class NGPTrainer:
-    """Trains an ``NGPField`` built from ``field_cfg`` with parameters drawn
-    from ``torch.Generator`` seeded with ``train_cfg.seed`` (and the
-    per-step noise from a second one seeded with seed + 1)."""
+    """Trains a field: an ``NGPField`` built from an ``NGPConfig``, with
+    parameters drawn from ``torch.Generator`` seeded with ``train_cfg.seed``,
+    or any field module given whole (the reference's generic
+    ``(init_fn, density_fn, rgb_fn)`` protocol: TensoRF, CP, CCNeRF).  A
+    field has ``density(x) -> (sigma, feat)``, ``color(d, feat) -> rgb``,
+    ``device`` and ``parameters()``; the trainer moves it to its device.  The
+    per-step noise comes from a second generator seeded with seed + 1."""
 
-    def __init__(self, field_cfg: NGPConfig, render_cfg: NGPRenderConfig,
+    def __init__(self, field, render_cfg: NGPRenderConfig,
                  train_cfg: NGPTrainConfig, device="cuda",
                  compute_dtype=torch.bfloat16):
         if train_cfg.time_dependent:
@@ -198,17 +208,29 @@ class NGPTrainer:
         self.device = resolve_device(device)
         self.rcfg = render_cfg
         self.cfg = train_cfg
-        gen = torch.Generator(device=self.device).manual_seed(train_cfg.seed)
-        self.field = NGPField(field_cfg, compute_dtype, gen, self.device)
-        self.params = list(self.field.parameters())
-        self.mu = [torch.zeros_like(p) for p in self.params]
-        self.nu = [torch.zeros_like(p) for p in self.params]
-        self.ema = ([p.detach().clone() for p in self.params]
-                    if train_cfg.ema_decay > 0 else None)
+        if isinstance(field, NGPConfig):
+            gen = torch.Generator(device=self.device).manual_seed(train_cfg.seed)
+            field = NGPField(field, compute_dtype, gen, self.device)
+        self.replace_field(field)
         self.step = 0
         self.occ = init_occupancy(render_cfg, self.device)
         self.gen = torch.Generator(device=self.device).manual_seed(train_cfg.seed + 1)
         self.history = []
+
+    def replace_field(self, field):
+        """Take ``field``, on the trainer's device, with Adam reset to zero
+        moments and count 0 and, with EMA on, an EMA copied from its
+        parameters.  Mid-run this is the reference's ``replace_field`` (the
+        TensoRF shrink and upsample boundaries, tensoRF/utils.py:112-128:
+        'reset optimizer since params changed', :127): the step, and so the
+        lr decay over cfg.max_steps, and the occupancy grid carry over."""
+        self.field = field.to(self.device)
+        self.params = list(self.field.parameters())
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.count = 0
+        self.ema = ([p.detach().clone() for p in self.params]
+                    if self.cfg.ema_decay > 0 else None)
 
     # ------------------------------------------------------------------
     def lr_at(self, step: int) -> float:
@@ -247,7 +269,7 @@ class NGPTrainer:
         """optax.scale_by_adam(0.9, 0.99, 1e-15), then -lr * update, then the
         EMA; in place."""
         lr = self.lr_at(self.step)
-        count = self.step + 1
+        count = self.count + 1
         c1 = float(1.0 - np.float32(ADAM_B1) ** count)
         c2 = float(1.0 - np.float32(ADAM_B2) ** count)
         for p, g, m, v in zip(self.params, grads, self.mu, self.nu):
@@ -258,7 +280,8 @@ class NGPTrainer:
             d = self.cfg.ema_decay
             for e, p in zip(self.ema, self.params):
                 e.mul_(d).add_(p, alpha=1.0 - d)
-        self.step = count
+        self.count = count
+        self.step += 1
 
     def refresh_occupancy(self, partial: bool):
         self.occ = update_occupancy(self.occ, self.field, self.rcfg, partial=partial,
@@ -335,28 +358,41 @@ class NGPTrainer:
         return self
 
     # ------------------------------------------------------------------
+    def _tree(self, tensors):
+        """Parameter-ordered tensors -> the reference's numpy tree: the NGP
+        params dict for an ``NGPField``, the TensoRF/CP/CCNeRF dict of
+        arrays and lists of arrays for any other field."""
+        from flnerf_tpu_torch.core.convert import ngp_params_to_numpy, tensorf_params_to_numpy
+
+        if isinstance(self.field, NGPField):
+            return ngp_params_to_numpy(tensors, self.field.cfg.num_layers,
+                                       engine_kind(self.field.spec))
+        return tensorf_params_to_numpy(self.field, tensors)
+
+    def _tensors(self, tree):
+        """Inverse of ``_tree``, onto the trainer's device."""
+        from flnerf_tpu_torch.core.convert import ngp_params_from_numpy, tensorf_params_from_numpy
+
+        if isinstance(self.field, NGPField):
+            return ngp_params_from_numpy(tree, self.device)
+        return tensorf_params_from_numpy(self.field, tree, self.device)
+
     def save_checkpoint(self, workspace: str, name: str = None, max_keep: int = 2) -> str:
         """Trainer.save_checkpoint analog (nerf/utils.py:1014-1074): params,
         EMA, Adam moments, occupancy and step, in the reference's numpy
         layouts, with max_keep rotation."""
-        from flnerf_tpu_torch.core.convert import ngp_params_to_numpy
-
         ckpt_dir = os.path.join(workspace, "checkpoints")
         os.makedirs(ckpt_dir, exist_ok=True)
         name = name or f"ngp_ep{self.step:07d}"
-        ns = self.field.cfg.num_layers
-        engine = engine_kind(self.field.spec)
         payload = {
             "format": CKPT_FORMAT,
             "step": self.step,
-            "params": ngp_params_to_numpy(self.params, ns, engine),
-            "ema_params": (ngp_params_to_numpy(self.ema, ns, engine)
-                           if self.ema is not None else None),
+            "params": self._tree(self.params),
+            "ema_params": self._tree(self.ema) if self.ema is not None else None,
             "occ_density": self.occ.density.cpu().numpy(),
             "occ_mean": float(self.occ.mean_density),
-            "opt_state": {"count": self.step,
-                          "mu": ngp_params_to_numpy(self.mu, ns, engine),
-                          "nu": ngp_params_to_numpy(self.nu, ns, engine)},
+            "opt_state": {"count": self.count, "mu": self._tree(self.mu),
+                          "nu": self._tree(self.nu)},
         }
         path = os.path.join(ckpt_dir, f"{name}.pkl")
         with open(path, "wb") as f:
@@ -367,12 +403,9 @@ class NGPTrainer:
 
     def load_checkpoint(self, path_or_workspace: str) -> str:
         """load_checkpoint analog (utils.py:1076+): a file, or the latest
-        checkpoint of a workspace.  Reads only files this package wrote."""
-        from flnerf_tpu_torch.core.convert import (
-            load_ngp_params,
-            ngp_params_from_numpy,
-            occupancy_from_numpy,
-        )
+        checkpoint of a workspace, into the trainer's field (whose shapes
+        it must have).  Reads only files this package wrote."""
+        from flnerf_tpu_torch.core.convert import occupancy_from_numpy
 
         path = path_or_workspace
         if os.path.isdir(path_or_workspace):
@@ -385,14 +418,19 @@ class NGPTrainer:
             d = pickle.load(f)
         if d.get("format") != CKPT_FORMAT:
             raise ValueError(f"{path} is not a {CKPT_FORMAT} checkpoint")
-        dev = self.device
-        load_ngp_params(self.field, d["params"])
+        with torch.no_grad():
+            for p, v in zip(self.params, self._tensors(d["params"])):
+                if p.shape != v.shape:
+                    raise ValueError(f"{path}: a parameter of shape {tuple(v.shape)} "
+                                     f"for the field's {tuple(p.shape)}")
+                p.copy_(v)
         if d["ema_params"] is not None and self.ema is not None:
-            self.ema = ngp_params_from_numpy(d["ema_params"], dev)
-        self.mu = ngp_params_from_numpy(d["opt_state"]["mu"], dev)
-        self.nu = ngp_params_from_numpy(d["opt_state"]["nu"], dev)
+            self.ema = self._tensors(d["ema_params"])
+        self.mu = self._tensors(d["opt_state"]["mu"])
+        self.nu = self._tensors(d["opt_state"]["nu"])
+        self.count = int(d["opt_state"]["count"])
         self.step = int(d["step"])
-        self.occ = occupancy_from_numpy(d["occ_density"], d["occ_mean"], self.rcfg, dev)
+        self.occ = occupancy_from_numpy(d["occ_density"], d["occ_mean"], self.rcfg, self.device)
         return path
 
     def eval_images(self, poses, images, H, W, K, chunk: int = 8192,

@@ -111,6 +111,32 @@ def test_cuda_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     assert not os.path.exists(tmp_path / "npp")
 
 
+
+def test_tensorf_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    """The TensoRF and CCNeRF CLIs, and the NGP trainer given a field, raise
+    with no card before they write anything; their modules import no JAX."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from flnerf_tpu_torch.cli import main_ccnerf, main_tensorf
+    from flnerf_tpu_torch.models.tensorf import TensoRFConfig, TensoRFField
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ngp_trainer.NGPTrainer(TensoRFField(TensoRFConfig(resolution=(4, 4, 4))),
+                               NGPRenderConfig(grid_size=8), ngp_trainer.NGPTrainConfig())
+    for argv in (["synthetic", "-O"], ["synthetic", "-O", "--cp"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main_tensorf.main(argv + ["--workspace", str(tmp_path / "vm")])
+    for argv in (["synthetic", "-O"], ["synthetic", "--compose", "a.pkl", "b.pkl"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main_ccnerf.main(argv + ["--workspace", str(tmp_path / "cc")])
+    assert not os.listdir(tmp_path)
+    code = ("import sys\n"
+            "import flnerf_tpu_torch.cli.main_tensorf, flnerf_tpu_torch.cli.main_ccnerf\n"
+            "import flnerf_tpu_torch.models.tensorf_variants, flnerf_tpu_torch.core.losses\n"
+            "bad = [n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'flnerf_tpu')]\n"
+            "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
 def test_no_source_imports_an_image_library():
     """The card's machine has no cv2 or imageio: no module of the port
     imports cv2, and imageio only in data/png.py's fallback for formats
