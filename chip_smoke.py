@@ -215,9 +215,53 @@ Phases (any failure raises, and the script exits non-zero):
      memory, the factor gather's backward by index_add_ and by index_put_
      on one corner set of the step, a 16-step profile at 300^3 (device
      busy share, top operations) beside the step's bound (factor bytes at
-     3.35 TB/s, MLP and basis FLOPs at 67 and 989 TFLOP/s).
+     3.35 TB/s, MLP and basis FLOPs at 67 and 989 TFLOP/s);
+ 17. D-NeRF (cli/main_dnerf.py) on the NGP trainer's time path, at the
+     CLI's widths (a 16 x 2^15 canonical grid on K3/K4, bf16, 4096 rays x
+     96 kept samples):
+     17a. the deform, basis and hyper fields on the kept samples of one
+     batch of the synthetic scene marched on a refreshed grid, at their
+     frames' times, card against CPU with the same weights: sigma
+     (relative), geo, rgb and every parameter gradient within phase 14a's
+     tolerances (the deform field's geo on the card's canonical points, its
+     deform MLP's dx apart within 2e-2 of the largest; the deform field on
+     the CPU with the encoding's points
+     given no gradient, as K3/K4 give them none: the deform net's
+     gradient is exactly 0 on the card, printed beside the plain
+     encode's, R7); on fresh weights each renders another image at t = 0
+     and t = 1; K3/K4 against their plain versions on the deform field's
+     canonical points x + dx with the train, a dense and a zero gradient;
+     17b. main_dnerf.main synthetic -O --iters 512 (deform), then --variant
+     basis and --variant hyper for 256 steps, each with every counter set
+     to 0 just before and read just after: K3 == steps + refresh chunks +
+     eval chunks and K4 == steps for deform and basis, 0 for hyper, the
+     rest 0; the loss falls; a finite test PSNR and SSIM (beside phase 6's);
+     the trainer's checkpoint in a fresh trainer renders the same test PSNR
+     within 1e-3 dB;
+     17c. deform train rays/s over steps 257-512, a 16-step profile (busy
+     share, top operations) beside the step's bound (the deform MLP's
+     FLOPs at 67 and 989 TFLOP/s, the table's bytes at 3.35 TB/s); the
+     hyper step's time, the plain 4-D encode's share of it (and of its
+     earlier torch.prod form, tools/hyper_probe.py), peak memory;
+ 18. SDF fitting and meshes:
+     18a. the SDF field (16 x 2^15, MLP 3 x 64, f32) on 4096 points of
+     sample_sdf_batch, card against CPU (sdf within 1e-5 of the largest
+     output, gradients 1e-4 norm-wise); K3/K4 on those points;
+     18b. main_sdf.main sphere --iters 1000 with the counters: K3 == 1000 +
+     32 mesh chunks, K4 == 1000, the rest 0; the last loss below half the
+     first, mean |pred - sdf| < 0.05 on a fresh batch, the mesh's mean
+     vertex radius within 0.05 of 0.5; MeshSDF on a 1280-face sphere OBJ
+     against the analytic sphere (the faceting) and against MeshSDF on the
+     CPU (1e-5); main_sdf.main on that OBJ for 200 steps: the loss falls,
+     K3 == 200 + 32, K4 == 200, mesh.obj written;
+     18c. extract_mesh on phase 14's last .tar and on a 2-epoch cli/opt.py
+     .npz at their sigma's 99th percentile: non-empty meshes, every
+     counter 0;
+     18d. the SDF step's time and K3/K4's share, MeshSDF's time for a
+     batch.
 
-The last lines are one JSON object describing the kernels, the card's name
+The last lines are one JSON object describing the kernels (each row with
+its launches on phases 17b and 18b's runs as "launches_by_path"), the card's name
 and power limit as nvidia-smi gives them, and
 {"ok": true, "device": {...}}.  With no CUDA device, or with the port
 missing, it exits non-zero and prints no result.
@@ -227,6 +271,8 @@ import copy
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -316,6 +362,20 @@ TENSORF_CP_ITERS = 256
 TENSORF_CCNERF_ITERS = 512
 TENSORF_PROFILE_STEPS = 16
 TENSORF_RES_TOL = 0.05     # the last resolution's product against 300^3
+# phase 17: D-NeRF at main_dnerf's widths (16 x 2^15 canonical grid, deform
+# MLP 5 x 128, basis and ambient MLPs 5 x 128, bf16); 30,000 steps cut as
+# the NGP phases' are
+DNERF_VARIANTS = ("deform", "basis", "hyper")
+DNERF_ITERS = 512
+DNERF_VARIANT_ITERS = 256
+DNERF_WINDOW = 256         # steps per fit of the rays/s window
+DNERF_PROFILE_STEPS = 16
+# phase 18: SDF at main_sdf's widths (16 x 2^15, MLP 3 x 64, f32, batch
+# 4096, a 128^3 mesh grid); 20,000 steps cut to 1000, the mesh path to 200
+SDF_ITERS = 1000
+SDF_MESH_ITERS = 200
+SDF_BATCH = 4096
+SDF_MESH_RESO = 128
 
 
 def check(cond, msg):
@@ -377,6 +437,24 @@ def ptxas_kernels(log):
             out.append(f"{name}: {m.group(1)} registers, {m.group(2) or 0} bytes smem, {spill}")
             name, spill = None, ""
     return out
+
+
+def reset_counts():
+    """Every kernel wrapper's launch counter to 0."""
+    from flnerf_tpu_torch.ops import hash_kernel, hash_lattice, hash_sorted, sort_kernel
+    from flnerf_tpu_torch.ops import voxel_kernel
+    for mod in (hash_kernel, hash_lattice, hash_sorted, sort_kernel, voxel_kernel):
+        mod.reset_launch_counts()
+
+
+def launch_counts():
+    """{K1..K9: launches since the last reset_counts}."""
+    from flnerf_tpu_torch.ops import hash_kernel as hk, hash_lattice as hl, hash_sorted as hs
+    from flnerf_tpu_torch.ops import sort_kernel as sk, voxel_kernel as vk
+    return {"K1": vk.FWD_LAUNCHES, "K2": vk.BWD_LAUNCHES, "K3": hk.HASH_FWD_LAUNCHES,
+            "K4": hk.HASH_BWD_LAUNCHES, "K5": sk.SORT_LAUNCHES,
+            "K6": hl.LATTICE_FWD_LAUNCHES, "K7": hl.LATTICE_BWD_LAUNCHES,
+            "K8": hs.SORTED_FWD_LAUNCHES, "K9": hs.SORTED_BWD_LAUNCHES}
 
 
 def cuda_ms(fn, iters):
@@ -651,7 +729,9 @@ def next_batch_encode(trainer, sampler, to_dev, encoder):
     import torch
     from flnerf_tpu_torch.models import hash_ngp
     from flnerf_tpu_torch.render.ngp import ngp_render_rays
-    bo, bd, brgb, _, _ = copy.deepcopy(sampler).sample_chunk(1, trainer.cfg.batch_rays)
+    drawn = copy.deepcopy(sampler).sample_chunk(1, trainer.cfg.batch_rays)
+    bo, bd, brgb = drawn[:3]
+    times = to_dev(drawn[5][0]) if len(drawn) == 6 else None      # a D-NeRF sampler's
     seen = {}
     inner = getattr(hash_ngp, encoder)
 
@@ -664,7 +744,7 @@ def next_batch_encode(trainer, sampler, to_dev, encoder):
     setattr(hash_ngp, encoder, capture)
     try:
         out = ngp_render_rays(trainer.field, trainer.occ, to_dev(bo[0]), to_dev(bd[0]),
-                              trainer.rcfg, generator=trainer.gen)
+                              trainer.rcfg, generator=trainer.gen, times=times)
         torch.autograd.grad(torch.mean((out["rgb"] - to_dev(brgb[0])) ** 2),
                             [next(trainer.field.parameters())])
     finally:
@@ -1425,18 +1505,17 @@ def _time_png_decode(tmp_dir):
     return seconds
 
 
-def nerf_phases(dev):
+def nerf_phases(dev, keep_tar=None):
     """Phase 14: quadtree NeRF (cli/run_nerf.py) on the card.  Its path
     launches none of the port's kernels (no TPU kernel lies on it in the
-    reference: a dot_general chain and jnp sampling and compositing)."""
+    reference: a dot_general chain and jnp sampling and compositing).
+    ``keep_tar``: where to copy the trained run's last .tar (phase 18c)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from flnerf_tpu_torch.cli import run_nerf
     from flnerf_tpu_torch.data.synthetic import write_blender_fixture
-    from flnerf_tpu_torch.ops import hash_kernel as hk, hash_lattice as hl, hash_sorted as hs
-    from flnerf_tpu_torch.ops import sort_kernel as sk, voxel_kernel as vk
     from flnerf_tpu_torch.rays.camera import get_rays_np
     from flnerf_tpu_torch.rays.quadtree import RayBudgeter
     from flnerf_tpu_torch.render.renderer import render_rays
@@ -1493,18 +1572,14 @@ def nerf_phases(dev):
     del trainer, got, g_c, g_h
 
     # ---- phase 14b: the main path, through the CLI on the card ----
-    for mod in (hk, hl, hs, sk, vk):
-        mod.reset_launch_counts()
+    reset_counts()
     base_gb = torch.cuda.memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     res = run_nerf.main(base + ["--no_reload"])
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {"K1": vk.FWD_LAUNCHES, "K2": vk.BWD_LAUNCHES, "K3": hk.HASH_FWD_LAUNCHES,
-                "K4": hk.HASH_BWD_LAUNCHES, "K5": sk.SORT_LAUNCHES,
-                "K6": hl.LATTICE_FWD_LAUNCHES, "K7": hl.LATTICE_BWD_LAUNCHES,
-                "K8": hs.SORTED_FWD_LAUNCHES, "K9": hs.SORTED_BWD_LAUNCHES}
+    launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     hist = res["history"]
     files = sorted(os.listdir(res["run_dir"]))
@@ -1584,6 +1659,8 @@ def nerf_phases(dev):
               f"{e.key[:90]}")
     print(f"[phase 14c] host decode of an 800 x 800 RGBA PNG, every row Paeth-filtered, "
           f"through data/png.py: {_time_png_decode(tmp.name):.3f} s", flush=True)
+    if keep_tar is not None:
+        shutil.copy(os.path.join(res["run_dir"], tars[-1]), keep_tar)
     del trainer, prof
     tmp.cleanup()
     return res["psnr"]
@@ -1622,8 +1699,6 @@ def nerfpp_phases(dev):
 
     from flnerf_tpu_torch.cli import ddp_train_nerf
     from flnerf_tpu_torch.data.nerfpp_dataset import write_nerfpp_fixture
-    from flnerf_tpu_torch.ops import hash_kernel as hk, hash_lattice as hl, hash_sorted as hs
-    from flnerf_tpu_torch.ops import sort_kernel as sk, voxel_kernel as vk
     from flnerf_tpu_torch.rays.quadtree import RayBudgeter, RayEpoch
 
     tmp = tempfile.TemporaryDirectory()
@@ -1671,18 +1746,14 @@ def nerfpp_phases(dev):
     del got, g_c, g_h
 
     # ---- phase 15b: the main path, through the CLI on the card ----
-    for mod in (hk, hl, hs, sk, vk):
-        mod.reset_launch_counts()
+    reset_counts()
     base_gb = torch.cuda.memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     res = ddp_train_nerf.main(base)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {"K1": vk.FWD_LAUNCHES, "K2": vk.BWD_LAUNCHES, "K3": hk.HASH_FWD_LAUNCHES,
-                "K4": hk.HASH_BWD_LAUNCHES, "K5": sk.SORT_LAUNCHES,
-                "K6": hl.LATTICE_FWD_LAUNCHES, "K7": hl.LATTICE_BWD_LAUNCHES,
-                "K8": hs.SORTED_FWD_LAUNCHES, "K9": hs.SORTED_BWD_LAUNCHES}
+    launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     hist = res["history"]
     files = sorted(os.listdir(res["run_dir"]))
@@ -1775,22 +1846,42 @@ def nerfpp_phases(dev):
     return res["psnr"]
 
 
-def _tensorf_outputs(field, marched, d, gt, rcfg):
-    """The field on the marched samples: (the kept samples' sigma and colour
-    feature and the rays' rgb on the host, {parameter: gradient of the mean
-    squared error on the host})."""
+def _field_outputs(field, marched, d, gt, rcfg, times=None):
+    """The field on the marched samples (at the rays' ``times`` for a
+    D-NeRF field): (the kept samples' sigma and colour feature and the rays'
+    rgb on the host, {parameter: gradient of the mean squared error on the
+    host}, zero for a parameter the loss does not reach)."""
     import torch
 
     from flnerf_tpu_torch.render.ngp import render_marched
 
     with torch.no_grad():
-        sigma, feat = field.density(marched[2])
-    out = render_marched(field, marched, d, rcfg)
+        sigma, feat = (field.density(marched[2]) if times is None else
+                       field.density(marched[2], times[:, None].expand(marched[0].shape)))
+    out = render_marched(field, marched, d, rcfg, times=times)
     loss = torch.mean((out["rgb"] - gt) ** 2)
-    names = [n for n, _ in field.named_parameters()]
-    grads = torch.autograd.grad(loss, list(field.parameters()))
+    named = list(field.named_parameters())
+    grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
     return ({"sigma": sigma.cpu(), "feat": feat.cpu(), "rgb": out["rgb"].detach().cpu()},
-            {n: g.cpu() for n, g in zip(names, grads)})
+            {n: (torch.zeros_like(p) if g is None else g).cpu()
+             for (n, p), g in zip(named, grads)})
+
+
+def field_errors(out_c, g_c, out_h, g_h):
+    """Card (c) against CPU (h) outputs of ``_field_outputs``: ({sigma: max
+    relative, feat: max absolute over the largest entry, rgb: max absolute,
+    grad: the largest norm-wise}, {parameter: norm-wise error}, the
+    parameter of the largest)."""
+    errs = {"sigma": float(((out_c["sigma"] - out_h["sigma"]).abs()
+                            / out_h["sigma"].abs().clamp(min=1e-6)).max()),
+            "feat": float((out_c["feat"] - out_h["feat"]).abs().max()
+                          / out_h["feat"].abs().max()),
+            "rgb": float((out_c["rgb"] - out_h["rgb"]).abs().max())}
+    grad_err = {k: float((g_c[k] - g_h[k]).norm() / g_h[k].norm().clamp(min=1e-30))
+                for k in g_h}
+    gworst = max(grad_err, key=grad_err.get)
+    errs["grad"] = grad_err[gworst]
+    return errs, grad_err, gworst
 
 
 def tensorf_phases(dev):
@@ -1811,20 +1902,8 @@ def tensorf_phases(dev):
         CPConfig,
         CPField,
     )
-    from flnerf_tpu_torch.ops import hash_kernel as hk, hash_lattice as hl, hash_sorted as hs
-    from flnerf_tpu_torch.ops import sort_kernel as sk, voxel_kernel as vk
     from flnerf_tpu_torch.render.ngp import march
     from flnerf_tpu_torch.train.ngp_trainer import NGPSampler, NGPTrainer
-
-    def reset():
-        for mod in (hk, hl, hs, sk, vk):
-            mod.reset_launch_counts()
-
-    def launches():
-        return {"K1": vk.FWD_LAUNCHES, "K2": vk.BWD_LAUNCHES, "K3": hk.HASH_FWD_LAUNCHES,
-                "K4": hk.HASH_BWD_LAUNCHES, "K5": sk.SORT_LAUNCHES,
-                "K6": hl.LATTICE_FWD_LAUNCHES, "K7": hl.LATTICE_BWD_LAUNCHES,
-                "K8": hs.SORTED_FWD_LAUNCHES, "K9": hs.SORTED_BWD_LAUNCHES}
 
     t_phase = time.time()
     root = os.path.dirname(os.path.abspath(__file__))
@@ -1871,7 +1950,7 @@ def tensorf_phases(dev):
             if level is not None:
                 f.level = level
             t0 = time.time()
-            got[where] = _tensorf_outputs(
+            got[where] = _field_outputs(
                 f, [m.to(where) for m in marched], torch.as_tensor(d[0], device=where),
                 torch.as_tensor(rgb[0], device=where), rcfg)
             if where != "cpu":
@@ -1879,15 +1958,7 @@ def tensorf_phases(dev):
             secs[where] = time.time() - t0
             del f
         (out_c, g_c), (out_h, g_h) = got[str(dev)], got["cpu"]
-        errs = {"sigma": float(((out_c["sigma"] - out_h["sigma"]).abs()
-                                / out_h["sigma"].abs().clamp(min=1e-6)).max()),
-                "feat": float((out_c["feat"] - out_h["feat"]).abs().max()
-                              / out_h["feat"].abs().max()),
-                "rgb": float((out_c["rgb"] - out_h["rgb"]).abs().max())}
-        grad_err = {k: float((g_c[k] - g_h[k]).norm() / g_h[k].norm().clamp(min=1e-30))
-                    for k in g_h}
-        gworst = max(grad_err, key=grad_err.get)
-        errs["grad"] = grad_err[gworst]
+        errs, grad_err, gworst = field_errors(out_c, g_c, out_h, g_h)
         worst = {k: max(worst[k], errs[k]) for k in worst}
         print(f"[phase 16a] {name} ({field.cfg.resolution[0]}^3, bf16) on {n_rays} rays x "
               f"{n_keep} kept samples ({100 * occupied:.1f}% occupied): card "
@@ -1911,7 +1982,7 @@ def tensorf_phases(dev):
     ws = os.path.join(tmp.name, "vm")
     vm_argv = base + ["--iters", str(TENSORF_ITERS), "--upsample_model_steps",
                       *map(str, TENSORF_UPSAMPLE), "--workspace", ws]
-    reset()
+    reset_counts()
     base_gb = torch.cuda.memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
@@ -1919,7 +1990,7 @@ def tensorf_phases(dev):
     torch.cuda.synchronize()
     wall = time.time() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    counts = launches()
+    counts = launch_counts()
     cfg = res["field_cfg"]
     hist = res["history"]
     res_ratio = float(np.prod(cfg.resolution)) / args.resolution1 ** 3
@@ -1960,10 +2031,10 @@ def tensorf_phases(dev):
     rays_s = seg["steps"] * tcfg.batch_rays / seg["wall_s"]
 
     ws_cp = os.path.join(tmp.name, "cp")
-    reset()
+    reset_counts()
     res_cp = main_tensorf.main(base + ["--cp", "--iters", str(TENSORF_CP_ITERS),
                                        "--workspace", ws_cp])
-    counts = launches()
+    counts = launch_counts()
     hist_cp = res_cp["history"]
     t_cp = NGPTrainer(CPField(res_cp["field_cfg"], bf16), rcfg, tcfg, device=dev)
     t_cp.load_checkpoint(ws_cp)
@@ -1985,7 +2056,7 @@ def tensorf_phases(dev):
 
     # ---- phase 16c: CCNeRF through the CLI: three levels, then two objects ----
     ws_cc = os.path.join(tmp.name, "cc")
-    reset()
+    reset_counts()
     t0 = time.time()
     levels = main_ccnerf.main(base + ["--iters", str(TENSORF_CCNERF_ITERS), "--workspace", ws_cc])
     cc_s = time.time() - t0
@@ -1993,7 +2064,7 @@ def tensorf_phases(dev):
     ws_co = os.path.join(tmp.name, "compose")
     composed = main_ccnerf.main(base + ["--compose", obj, obj, "--offsets", "0,0,0", "0.6,0,0",
                                         "--iters", "0", "--workspace", ws_co])
-    counts = launches()
+    counts = launch_counts()
     pngs = sorted(f for f in os.listdir(ws_co) if f.endswith(".png"))
     print(f"[phase 16c] main_ccnerf.main synthetic -O --iters {TENSORF_CCNERF_ITERS} (ranks "
           f"{cc_args.rank_vec_density}/{cc_args.rank_mat_density}, {cc_args.resolution0}^3, "
@@ -2070,6 +2141,519 @@ def tensorf_phases(dev):
     print(f"[phase 16] {time.time() - t_phase:.1f} s", flush=True)
     del trainer, prof
     tmp.cleanup()
+
+
+def _profile_fit(trainer, sampler, n_steps):
+    """A profiled fit of ``n_steps`` (after a warm one): (device ms, wall ms,
+    device events by self time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer.fit(sampler, verbose=False, n_steps=n_steps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        trainer.fit(sampler, verbose=False, n_steps=n_steps)
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    events = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: -e.self_device_time_total)
+    return sum(e.self_device_time_total for e in events) / 1e3, wall_ms, events
+
+
+def _capture_encode(module, name, fn):
+    """Run ``fn()`` with ``module.name`` (an encode) wrapped: returns (fn's
+    result, the first call's (x01, output))."""
+    inner = getattr(module, name)
+    seen = {}
+
+    def capture(x01, table, spec):
+        out = inner(x01, table, spec)
+        seen.setdefault("call", (x01.detach().contiguous(), out))
+        return out
+
+    setattr(module, name, capture)
+    try:
+        res = fn()
+    finally:
+        setattr(module, name, inner)
+    return res, seen["call"]
+
+
+def dnerf_phases(dev, to_dev, ngp_psnr):
+    """Phase 17: D-NeRF (cli/main_dnerf.py) on the time path of the NGP
+    trainer.  The deform and basis fields encode through K3/K4 (the packed
+    2^15 spec main_dnerf always builds, R6); hyper's 4-D grid through the
+    plain encode.  Returns {run: launch counts} of 17b's three runs."""
+    import torch
+
+    from flnerf_tpu_torch.cli import main_dnerf
+    from flnerf_tpu_torch.cli.main_nerf import load_ngp_dataset
+    from flnerf_tpu_torch.models import dnerf, hash_ngp
+    from flnerf_tpu_torch.models.dnerf import DNeRFConfig, make_dnerf_variant_field
+    from flnerf_tpu_torch.models.hash_ngp import NGPConfig
+    from flnerf_tpu_torch.ops import hash_kernel as hk
+    from flnerf_tpu_torch.render.ngp import march, ngp_render_rays
+    from flnerf_tpu_torch.tools import hyper_probe
+    from flnerf_tpu_torch.train.ngp_trainer import NGPSampler, NGPTrainer
+
+    t_phase = time.time()
+    tmp = tempfile.TemporaryDirectory()
+    bf16 = torch.bfloat16
+    args = main_dnerf.parse_args(["synthetic", "-O", "--iters", str(DNERF_ITERS)])
+    images, poses, hwf, K, (i_train, _, i_test) = load_ngp_dataset(args)
+    H, W, _ = hwf
+    times = main_dnerf.frame_times(images.shape[0])
+    cfgs = {v: DNeRFConfig(ngp=NGPConfig(bound=args.bound), variant=v) for v in DNERF_VARIANTS}
+
+    # ---- phase 17a: the three fields at full width, card against CPU ----
+    trainer = main_dnerf.build(args)
+    trainer.refresh_occupancy(partial=False)
+    sampler = NGPSampler(images[i_train], poses[i_train], K, trainer.cfg, seed=args.seed,
+                         times=times[i_train])
+    o, d, rgb, _, _, tt = copy.deepcopy(sampler).sample_chunk(1, trainer.cfg.batch_rays)
+    noise = np.random.default_rng(0).random((trainer.cfg.batch_rays, trainer.rcfg.n_candidates),
+                                            dtype=np.float32)
+    rcfg = trainer.rcfg
+    with torch.no_grad():
+        marched = march(trainer.occ, to_dev(o[0]), to_dev(d[0]), rcfg, perturb=True,
+                        noise=to_dev(noise))
+    occupied = float(marched[1].float().mean())
+    worst = {"sigma": 0.0, "feat": 0.0, "rgb": 0.0, "grad": 0.0}
+    encode = hash_ngp.hash_encode
+    encodes = {"kernel": encode,
+               # the CPU as the card computes: the encoding's points take no
+               # gradient (K3/K4, as the reference's TPU kernel; R7)
+               "points cut": lambda x01, table, spec_: encode(x01.detach(), table, spec_),
+               # the plain version on the card: they do (the reference's CPU)
+               "plain": hk.hash_encode_plain}
+    for i, v in enumerate(DNERF_VARIANTS):
+        field = make_dnerf_variant_field(cfgs[v], bf16, torch.Generator().manual_seed(i))
+        runs = [(str(dev), "kernel"), ("cpu", "points cut" if v == "deform" else "kernel")]
+        runs += [(str(dev), "plain")] if v == "deform" else []
+        got, secs = {}, {}
+        for where, how in runs:
+            f = copy.deepcopy(field).to(where)
+            hash_ngp.hash_encode = encodes[how]
+            t0 = time.time()
+            try:
+                got[where, how] = _field_outputs(
+                    f, [m_.to(where) for m_ in marched], torch.as_tensor(d[0], device=where),
+                    torch.as_tensor(rgb[0], device=where), rcfg,
+                    times=torch.as_tensor(tt[0], device=where))
+            finally:
+                hash_ngp.hash_encode = encode
+            if where != "cpu":
+                torch.cuda.synchronize()
+            secs[where] = secs.get(where, time.time() - t0)
+            del f
+        (out_c, g_c), (out_h, g_h) = got[runs[0]], got[runs[1]]
+        errs, grad_err, gworst = field_errors(out_c, g_c, out_h, g_h)
+        if v == "deform":
+            # geo is held on the canonical points the card used: one bf16
+            # rounding that the deform MLP's other sum order flips moves a
+            # point ~1e-4, and the fresh field's geo (~4e-5) by a few % at
+            # the fine levels (a float64 sum order on the CPU alone moves it
+            # 2%); the deform MLP's dx is held apart
+            chain_geo = errs["feat"]
+            fc, fh = copy.deepcopy(field).to(dev), copy.deepcopy(field)
+            tk = to_dev(tt[0])[:, None, None].expand(*marched[0].shape, 1)
+            with torch.no_grad():
+                dx_c = fc.deform(marched[2], tk)
+                dx_h = fh.deform(marched[2].cpu(), tk.cpu())
+                x_can = torch.clamp(marched[2] + dx_c, -args.bound, args.bound)
+                geo_c = fc.canonical.density(x_can)[1].cpu()
+                geo_h = fh.canonical.density(x_can.cpu())[1]
+            errs["feat"] = float((geo_c - geo_h).abs().max() / geo_h.abs().max())
+            errs["dx"] = float((dx_c.cpu() - dx_h).abs().max() / dx_h.abs().max())
+            print(f"[phase 17a] deform: dx (the deform MLP) max abs err {errs['dx']:.3e} of its "
+                  f"largest entry (tolerance {NERF_GRAD_TOL}); geo through the whole chain "
+                  f"{chain_geo:.3e} of its largest entry, on the card's canonical points "
+                  f"{errs['feat']:.3e}", flush=True)
+            check(errs["dx"] <= NERF_GRAD_TOL, f"phase 17a: dx differs card/CPU by {errs['dx']}")
+            del fc, fh, dx_c, dx_h, x_can
+        worst = {k: max(worst[k], errs[k]) for k in worst}
+        print(f"[phase 17a] {v} (16 x 2^15, bf16) on {trainer.cfg.batch_rays} rays x "
+              f"{rcfg.n_keep} kept samples ({100 * occupied:.1f}% occupied) at their frames' "
+              f"times: card {secs[str(dev)]:.2f} s (first call), CPU "
+              f"{secs['cpu']:.2f} s; sigma max relative err "
+              f"{errs['sigma']:.3e}, geo ({out_c['feat'].shape[-1]} wide) max abs err "
+              f"{errs['feat']:.3e} of its largest entry, ray rgb max abs err {errs['rgb']:.3e} "
+              f"(tolerance {NERF_RGB_TOL} each); parameter gradients norm-wise: median "
+              f"{float(np.median(list(grad_err.values()))):.3e}, largest {errs['grad']:.3e} "
+              f"({gworst}; tolerance {NERF_GRAD_TOL})", flush=True)
+        for k in ("sigma", "feat", "rgb"):
+            check(errs[k] <= NERF_RGB_TOL, f"phase 17a: {v} {k} differs card/CPU by {errs[k]}")
+        check(errs["grad"] <= NERF_GRAD_TOL,
+              f"phase 17a: {v} gradient {gworst} differs card/CPU by {errs['grad']}")
+        if v == "deform":
+            deform_keys = [k for k in g_c if k.startswith("deform_net")]
+            plain = sum(float(got[str(dev), "plain"][1][k].norm()) ** 2
+                        for k in deform_keys) ** 0.5
+            print(f"[phase 17a] deform net's gradient (R7): through K3/K4 "
+                  f"{sum(float(g_c[k].norm()) ** 2 for k in deform_keys) ** 0.5:.3e} (they "
+                  f"give the points none, as the reference's TPU kernel does), through the "
+                  f"plain encode's point gradient {plain:.3e} (the reference's CPU path)",
+                  flush=True)
+            check(all(not bool(g_c[k].any()) for k in deform_keys),
+                  "phase 17a: the card gave the deform net a gradient")
+        # fresh weights render another image at t = 0 and at t = 1
+        f = copy.deepcopy(field).to(dev)
+        with torch.no_grad():
+            rgbs = [ngp_render_rays(f, trainer.occ, to_dev(o[0]), to_dev(d[0]), rcfg,
+                                    perturb=False,
+                                    times=torch.full((len(o[0]),), tv, device=dev))["rgb"]
+                    for tv in (0.0, 1.0)]
+        diff = float((rgbs[0] - rgbs[1]).abs().max())
+        print(f"[phase 17a] {v}: the render at t = 0 against t = 1 on fresh weights, max "
+              f"|rgb difference| {diff:.3e}", flush=True)
+        check(diff > 0, f"phase 17a: the {v} render does not depend on the time")
+        del got, g_c, g_h, f, field
+
+    # K3 and K4 on the deform field's canonical points x + dx (the trainer's
+    # next batch at its times, its train loss's gradient)
+    x_can, g_train = next_batch_encode(trainer, sampler, to_dev, "hash_encode")
+    spec = trainer.field.canonical.spec
+    table = trainer.field.canonical.table.detach().clone()
+    gen = torch.Generator(device=dev).manual_seed(17)
+    g_dense = torch.randn(g_train.shape, generator=gen, device=dev)
+    k3_err, k4_err = hold_hash_kernels(spec, table, [
+        ("the deform field's canonical points, the train gradient", x_can,
+         g_train.contiguous()),
+        ("the deform field's canonical points, a dense gradient", x_can, g_dense),
+        ("the deform field's canonical points, a zero gradient", x_can,
+         torch.zeros_like(g_dense))], "phase 17a")
+    del trainer, marched, x_can, g_train, g_dense
+
+    # ---- phase 17b: the main path, through the CLI on the card ----
+    counts_by_run, psnrs = {}, {}
+    for v, iters in (("deform", DNERF_ITERS), ("basis", DNERF_VARIANT_ITERS),
+                     ("hyper", DNERF_VARIANT_ITERS)):
+        ws = os.path.join(tmp.name, v)
+        argv = ["synthetic", "-O", "--iters", str(iters), "--variant", v, "--workspace", ws]
+        reset_counts()
+        base_gb = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        res = main_dnerf.main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        counts_by_run[f"17b {v}"] = counts
+        tr = res["trainer"]
+        losses = [h["chunk_loss"] for h in res["history"]]
+        want_k3, n_refresh, n_eval = expected_hash_launches(tr, len(i_test), hwf)
+        if v == "hyper":
+            want_k3 = 0
+        want = {k: 0 for k in counts}
+        want.update({"K3": want_k3, "K4": 0 if v == "hyper" else iters})
+        print(f"[phase 17b] main_dnerf.main {' '.join(argv[:-2])}: kernel launches {counts} "
+              f"(predicted {want}: steps {iters}, refresh chunks {n_refresh}, eval chunks "
+              f"{n_eval}); main {wall:.1f} s; peak memory {peak_gb:.2f} GB "
+              f"({peak_gb - base_gb:.2f} GB above the {base_gb:.2f} GB held before); mean "
+              f"train loss per chunk first {losses[0]:.5f} last {losses[-1]:.5f}; test PSNR "
+              f"{res['psnr']:.3f} SSIM {res['ssim']:.4f} (phase 6's NGP at 2^15: "
+              f"{ngp_psnr:.3f}; ROADMAP R1)", flush=True)
+        check(counts == want, f"phase 17b: {v} launches {counts} != {want}")
+        check(res["steps"] == iters and all(math.isfinite(x) for x in losses),
+              f"phase 17b: {v} steps {res['steps']}, losses {losses}")
+        check(losses[-1] < losses[0], f"phase 17b: the {v} loss did not fall: {losses}")
+        check(math.isfinite(res["psnr"]) and math.isfinite(res["ssim"]),
+              f"phase 17b: {v} test PSNR {res['psnr']}, SSIM {res['ssim']}")
+        # main_dnerf writes no checkpoint (as the reference): save the
+        # trainer's and load it into a fresh trainer of a fresh field
+        path = tr.save_checkpoint(ws)
+        t2 = NGPTrainer(make_dnerf_variant_field(cfgs[v], bf16, device=dev), tr.rcfg, tr.cfg,
+                        device=dev)
+        t2.load_checkpoint(path)
+        psnr_r, _ = t2.eval_images(poses[i_test], images[i_test], H, W, K,
+                                   chunk=args.max_ray_batch, times=times[i_test])
+        print(f"[phase 17b] {v}: the checkpoint (step {t2.step}) in a fresh trainer: test "
+              f"PSNR {psnr_r:.4f} (difference {abs(psnr_r - res['psnr']):.2e} dB)", flush=True)
+        check(abs(psnr_r - res["psnr"]) <= 1e-3,
+              f"phase 17b: the reloaded {v} checkpoint renders another test PSNR")
+        psnrs[v] = res["psnr"]
+        del res, tr, t2
+
+    # ---- phase 17c: speed (printed, not gated) ----
+    trainer = main_dnerf.build(args)
+    sampler = NGPSampler(images[i_train], poses[i_train], K, trainer.cfg, seed=args.seed,
+                         times=times[i_train])
+    trainer.fit(sampler, verbose=False, n_steps=DNERF_WINDOW)               # steps 1-256
+    torch.cuda.synchronize()
+    t0 = time.time()
+    trainer.fit(sampler, verbose=False, n_steps=DNERF_WINDOW)               # steps 257-512
+    torch.cuda.synchronize()
+    win_s = time.time() - t0
+    dev_ms, wall_ms, events = _profile_fit(trainer, sampler, DNERF_PROFILE_STEPS)
+    n = trainer.cfg.batch_rays * trainer.rcfg.n_keep
+    canon = trainer.field.canonical
+    deform_macs = sum(w.numel() for w in trainer.field.deform_net)
+    ngp_macs = sum(w.numel() for w in list(canon.sigma_net) + list(canon.color_net))
+    deform_flops, ngp_flops = 3 * 2 * n * deform_macs, 3 * 2 * n * ngp_macs
+    table_bytes = 2 * spec.num_levels * spec.t_cap * 2 * 4     # read + gradient
+    step_ms = dev_ms / DNERF_PROFILE_STEPS
+    print(f"[phase 17c] deform train rays/s over steps {DNERF_WINDOW + 1}-{2 * DNERF_WINDOW}: "
+          f"{DNERF_WINDOW * trainer.cfg.batch_rays / win_s:.1f} ({win_s:.3f} s, refreshes "
+          f"included); profiled {DNERF_PROFILE_STEPS} steps: device busy {dev_ms:.1f} ms of "
+          f"{wall_ms:.1f} ms wall ({100 * dev_ms / wall_ms:.1f}%), {step_ms:.3f} ms of device "
+          f"time a step", flush=True)
+    print(f"[phase 17c] a deform step's bound: the deform MLP {deform_flops:.4e} FLOPs ({n} "
+          f"samples x {deform_macs} multiply-adds x 2 x 3) -> "
+          f"{deform_flops / F32_FLOPS * 1e3:.3f} ms at {F32_FLOPS / 1e12:.0f} TFLOP/s, "
+          f"{deform_flops / BF16_TC_FLOPS * 1e3:.4f} ms at {BF16_TC_FLOPS / 1e12:.0f} TFLOP/s; "
+          f"the canonical MLPs {ngp_flops:.4e} FLOPs -> {ngp_flops / F32_FLOPS * 1e3:.3f} ms at "
+          f"{F32_FLOPS / 1e12:.0f}; the table {table_bytes / 1e6:.1f} MB read and its gradient "
+          f"written -> {table_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; top operations by device time:", flush=True)
+    for e in events[:14] + [e for e in events[14:] if "hash_" in e.key]:
+        print(f"[phase 17c]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
+              f"{e.key[:90]}")
+    del trainer, sampler
+
+    hyper_args = main_dnerf.parse_args(["synthetic", "-O", "--iters", str(DNERF_ITERS),
+                                        "--variant", "hyper"])
+    trainer = main_dnerf.build(hyper_args)
+    sampler = NGPSampler(images[i_train], poses[i_train], K, trainer.cfg, seed=args.seed,
+                         times=times[i_train])
+    trainer.fit(sampler, verbose=False, n_steps=DNERF_PROFILE_STEPS)        # warm
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    trainer.fit(sampler, verbose=False, n_steps=DNERF_PROFILE_STEPS)
+    torch.cuda.synchronize()
+    hyper_ms = (time.time() - t0) * 1e3 / DNERF_PROFILE_STEPS
+    hyper_peak = torch.cuda.max_memory_allocated() / 1e9
+    drawn = copy.deepcopy(sampler).sample_chunk(1, trainer.cfg.batch_rays)
+    with torch.no_grad():
+        _, (x4, _) = _capture_encode(dnerf, "hash_encode", lambda: ngp_render_rays(
+            trainer.field, trainer.occ, to_dev(drawn[0][0]), to_dev(drawn[1][0]),
+            trainer.rcfg, generator=trainer.gen, times=to_dev(drawn[5][0])))
+    hp = hyper_probe.probe(x4, trainer.field.table, trainer.field.spec)
+    enc_ms = hp["chain"][1]
+    print(f"[phase 17c] hyper: {hyper_ms:.2f} ms a train step (host clock over "
+          f"{DNERF_PROFILE_STEPS} steps, refresh included); the plain 4-D encode's forward and "
+          f"backward (table and points) on one step's {x4.shape[0]} lifted points "
+          f"{enc_ms:.2f} ms ({100 * enc_ms / hyper_ms:.1f}% of the step), forward alone "
+          f"{hp['chain'][0]:.2f} ms; with the corner weight as torch.prod (its earlier form, "
+          f"flnerf_tpu_torch/tools/hyper_probe.py) {hp['prod'][1]:.2f} ms and "
+          f"{hp['prod'][0]:.2f} ms (forwards {hp['max_abs_err']:.1e} apart); peak memory "
+          f"{hyper_peak:.2f} GB ({hyper_peak - base_gb:.2f} GB above the {base_gb:.2f} GB "
+          f"held before)", flush=True)
+    check(hp["max_abs_err"] <= 1e-6, "phase 17c: the two 4-D encodes differ")
+    print(f"[phase 17] test PSNRs {psnrs}; {time.time() - t_phase:.1f} s", flush=True)
+    del trainer, sampler, x4
+    tmp.cleanup()
+    return counts_by_run, (k3_err, k4_err)
+
+
+def icosphere(subdiv, radius=0.5):
+    """A sphere mesh: an icosahedron subdivided ``subdiv`` times (20 * 4^s
+    outward-wound faces), vertices on the sphere."""
+    g = (1 + 5 ** 0.5) / 2
+    v = [[-1, g, 0], [1, g, 0], [-1, -g, 0], [1, -g, 0], [0, -1, g], [0, 1, g], [0, -1, -g],
+         [0, 1, -g], [g, 0, -1], [g, 0, 1], [-g, 0, -1], [-g, 0, 1]]
+    f = [[0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11], [1, 5, 9], [5, 11, 4],
+         [11, 10, 2], [10, 7, 6], [7, 1, 8], [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8],
+         [3, 8, 9], [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1]]
+    v = [np.asarray(p, np.float64) / np.linalg.norm(p) for p in v]
+    for _ in range(subdiv):
+        mid, nf = {}, []
+
+        def midpoint(a, b):
+            k = (min(a, b), max(a, b))
+            if k not in mid:
+                p = v[a] + v[b]
+                v.append(p / np.linalg.norm(p))
+                mid[k] = len(v) - 1
+            return mid[k]
+
+        for a, b, c in f:
+            ab, bc, ca = midpoint(a, b), midpoint(b, c), midpoint(c, a)
+            nf += [[a, ab, ca], [b, bc, ab], [c, ca, bc], [ab, bc, ca]]
+        f = nf
+    return (np.asarray(v) * radius).astype(np.float32), np.asarray(f, np.int32)
+
+
+def sdf_phases(dev, nerf_tar):
+    """Phase 18: SDF fitting (cli/main_sdf.py) through K3/K4 and mesh export
+    (cli/extract_mesh.py, which launches no kernel).  Returns {run: launch
+    counts} of 18b's two runs."""
+    import torch
+
+    from flnerf_tpu_torch.cli import extract_mesh, main_sdf, opt
+    from flnerf_tpu_torch.core.losses import mape_loss
+    from flnerf_tpu_torch.data.mesh_sdf import MeshSDF, SDFMeshDataset
+    from flnerf_tpu_torch.models import sdf
+    from flnerf_tpu_torch.models.nerf_mlp import make_nerf_mlp
+    from flnerf_tpu_torch.core.checkpoint import load_nerf_query_network
+    from flnerf_tpu_torch.models.voxel_sh import load_npz
+    from flnerf_tpu_torch.ops.marching import save_obj
+
+    t_phase = time.time()
+    tmp = tempfile.TemporaryDirectory()
+    sphere = main_sdf._analytic_oracle("sphere")
+    cfg = sdf.SDFConfig()
+    gen = torch.Generator(device=dev).manual_seed(18)
+
+    # ---- phase 18a: the SDF field at full width, card against CPU ----
+    field = sdf.SDFField(cfg, torch.float32, torch.Generator().manual_seed(0))
+    pts, gt = sdf.sample_sdf_batch(np.random.default_rng(0), sphere, SDF_BATCH)
+    got = {}
+    for where in (str(dev), "cpu"):
+        f = copy.deepcopy(field).to(where)
+        pred, call = _capture_encode(sdf, "hash_encode", lambda: f(torch.as_tensor(
+            pts, device=where)))
+        call[1].retain_grad()
+        mape_loss(pred, torch.as_tensor(gt, device=where)).backward()
+        got[where] = (pred.detach().cpu(), [p.grad.cpu() for p in f.parameters()],
+                      call[0], call[1].grad)
+    (p_c, g_c, x01, g_enc), (p_h, g_h, _, _) = got[str(dev)], got["cpu"]
+    scale = float(p_h.abs().max())
+    err = float((p_c - p_h).abs().max())
+    gerr = max(float((a - b).norm() / b.norm()) for a, b in zip(g_c, g_h))
+    print(f"[phase 18a] SDF field (16 x 2^15, MLP 3 x 64, f32) on {SDF_BATCH} points of "
+          f"sample_sdf_batch: sdf max abs err {err:.3e} (largest output {scale:.4e}, "
+          f"tolerance 1e-5 of it); parameter gradients norm-wise largest {gerr:.3e} "
+          f"(tolerance 1e-4)", flush=True)
+    check(err <= 1e-5 * scale, f"phase 18a: sdf differs card/CPU by {err}")
+    check(gerr <= 1e-4, f"phase 18a: a gradient differs card/CPU by {gerr} norm-wise")
+    table = field.table.detach().to(dev)
+    g_dense = torch.randn(g_enc.shape, generator=gen, device=dev)
+    k3_err, k4_err = hold_hash_kernels(field.spec, table, [
+        ("the SDF batch, the train gradient", x01, g_enc.contiguous()),
+        ("the SDF batch, a dense gradient", x01, g_dense),
+        ("the SDF batch, a zero gradient", x01, torch.zeros_like(g_dense))], "phase 18a")
+    del got, field, f
+
+    # ---- phase 18b: the main path, through the CLI on the card ----
+    counts_by_run = {}
+    ws = os.path.join(tmp.name, "sphere")
+    argv = ["sphere", "--iters", str(SDF_ITERS), "--batch", str(SDF_BATCH), "--mesh_reso",
+            str(SDF_MESH_RESO), "--workspace", ws]
+    reset_counts()
+    t0 = time.time()
+    res = main_sdf.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = launch_counts()
+    counts_by_run["18b sphere"] = counts
+    mesh_chunks = -(-SDF_MESH_RESO ** 3 // (1 << 16))
+    want = {k: 0 for k in counts}
+    want.update({"K3": SDF_ITERS + mesh_chunks, "K4": SDF_ITERS})
+    losses = res["losses"]
+    trainer = res["trainer"]
+    pts, gt = sdf.sample_sdf_batch(np.random.default_rng(1), sphere, SDF_BATCH)
+    with torch.no_grad():
+        mae = float(np.abs(trainer.field(torch.as_tensor(pts, device=dev)).cpu().numpy()
+                           - gt).mean())
+    verts, tris = res["mesh"]
+    radius = float(np.linalg.norm(verts, axis=-1).mean())
+    print(f"[phase 18b] main_sdf.main {' '.join(argv[:-2])}: "
+          f"kernel launches {counts} (predicted {want}: {SDF_ITERS} steps, {mesh_chunks} mesh "
+          f"chunks); main {wall:.1f} s; mape loss first {losses[0]:.5f} last {losses[-1]:.5f}; "
+          f"on a fresh batch mean |pred - sdf| {mae:.5f} (gate 0.05); {len(verts)} vertices, "
+          f"{len(tris)} triangles, mean vertex radius {radius:.5f} (gate 0.5 +- 0.05)",
+          flush=True)
+    check(counts == want, f"phase 18b: launches {counts} != {want}")
+    check(losses[-1] < 0.5 * losses[0], f"phase 18b: loss {losses[0]} -> {losses[-1]}")
+    check(mae < 0.05, f"phase 18b: mean |pred - sdf| {mae}")
+    check(len(tris) > 0 and abs(radius - 0.5) < 0.05, f"phase 18b: mesh radius {radius}")
+    step_pts = torch.as_tensor(pts, device=dev)
+    step_ms = cuda_ms(lambda: trainer.step(step_pts, gt), 20)
+    x01 = torch.clamp((step_pts + 1.0) * 0.5, 0.0, 1.0)
+    g_enc = torch.randn((SDF_BATCH, trainer.field.spec.output_dim), generator=gen, device=dev)
+    from flnerf_tpu_torch.ops import hash_kernel as hk
+    k3_ms = cuda_ms(lambda: hk.hash_encode_forward(x01, trainer.field.table.detach(),
+                                                   trainer.field.spec), 20)
+    k4_ms = cuda_ms(lambda: hk.hash_encode_backward(x01, g_enc, trainer.field.spec), 20)
+    print(f"[phase 18d] SDF train step {step_ms:.4f} ms by CUDA events over 20 steps (its "
+          f"host-side batch draw apart); K3 {k3_ms:.4f} ms and K4 {k4_ms:.4f} ms on its "
+          f"{SDF_BATCH} points ({100 * (k3_ms + k4_ms) / step_ms:.1f}% of the step)",
+          flush=True)
+    del res, trainer
+
+    # the mesh path: a sphere OBJ written here
+    verts, faces = icosphere(3)
+    obj = os.path.join(tmp.name, "sphere.obj")
+    save_obj(obj, verts, faces)
+    mesh_c = MeshSDF(verts, faces, device=dev)
+    mesh_h = MeshSDF(verts, faces, device="cpu")
+    q = np.random.default_rng(2).uniform(-1, 1, (SDF_BATCH, 3)).astype(np.float32)
+    s_c, s_h = mesh_c(q), mesh_h(q)
+    facet = float(np.abs(s_c + sphere(q)).max())
+    agree = float(np.abs(s_c - s_h).max())
+    mesh_ms = cuda_ms(lambda: mesh_c.query(torch.as_tensor(q[:SDF_BATCH // 2], device=dev)), 5)
+    print(f"[phase 18b] MeshSDF on a {len(faces)}-face sphere (radius 0.5) at {SDF_BATCH} "
+          f"uniform points: max |mesh sdf - analytic| {facet:.3e} (the faceting; gate 5e-3), "
+          f"card against CPU max abs err {agree:.3e} (gate 1e-5)", flush=True)
+    check(facet < 5e-3, f"phase 18b: MeshSDF is {facet} from the analytic sphere")
+    check(agree <= 1e-5, f"phase 18b: MeshSDF differs card/CPU by {agree}")
+    ws = os.path.join(tmp.name, "mesh")
+    argv = [obj, "--iters", str(SDF_MESH_ITERS), "--batch", str(SDF_BATCH), "--mesh_reso",
+            str(SDF_MESH_RESO), "--workspace", ws]
+    reset_counts()
+    t0 = time.time()
+    res = main_sdf.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = launch_counts()
+    counts_by_run["18b mesh"] = counts
+    want = {k: 0 for k in counts}
+    want.update({"K3": SDF_MESH_ITERS + mesh_chunks, "K4": SDF_MESH_ITERS})
+    losses = res["losses"]
+    print(f"[phase 18b] main_sdf.main sphere.obj --iters {SDF_MESH_ITERS}: kernel launches "
+          f"{counts} (predicted {want}); main {wall:.1f} s; mape loss first {losses[0]:.5f} "
+          f"last {losses[-1]:.5f}; {res['n_verts']} vertices in mesh.obj", flush=True)
+    check(counts == want, f"phase 18b: mesh path launches {counts} != {want}")
+    check(losses[-1] < losses[0], "phase 18b: the mesh path's loss did not fall")
+    check(os.path.exists(os.path.join(ws, "mesh.obj")) and res["n_verts"] > 0,
+          "phase 18b: no mesh.obj")
+    ds = SDFMeshDataset(obj, num_samples=SDF_BATCH, seed=3, device=dev)
+    t0 = time.time()
+    ds.sample_batch()
+    batch_ms = (time.time() - t0) * 1e3
+    print(f"[phase 18d] MeshSDF query of {SDF_BATCH // 2} points x {len(faces)} faces "
+          f"{mesh_ms:.3f} ms by CUDA events; one SDFMeshDataset batch of {SDF_BATCH} "
+          f"(surface draws and the query, host clock) {batch_ms:.2f} ms", flush=True)
+    del res, mesh_c, mesh_h, ds
+
+    # ---- phase 18c: extract_mesh on a NeRF .tar and a Plenoxels .npz ----
+    opt_dir = os.path.join(tmp.name, "opt")
+    opt.main(["synthetic", "-t", opt_dir, "--n_epochs", "2"])
+    npz = None
+    for name in sorted(os.listdir(opt_dir)):
+        if name.endswith(".npz"):
+            npz = os.path.join(opt_dir, name)
+    if npz is None:
+        raise RuntimeError("phase 18c: cli/opt.py wrote no .npz")
+    grid, _ = load_npz(npz)
+    grid_sigma = grid.density[grid.alive].numpy()
+    mlp = make_nerf_mlp(compute_dtype=torch.float32, device=dev)
+    load_nerf_query_network(nerf_tar, mlp)
+    nerf_sigma, _ = extract_mesh.density_grid_from_nerf(mlp, 1.2, 64)
+    del mlp, grid
+    for what, ckpt, sigma in (("the phase-14 NeRF .tar", nerf_tar, nerf_sigma),
+                              ("a 2-epoch cli/opt.py .npz", npz, grid_sigma)):
+        iso = float(np.percentile(sigma, 99))
+        out = os.path.join(tmp.name, "extracted.ply" if ckpt.endswith(".npz") else
+                           "extracted.obj")
+        reset_counts()
+        t0 = time.time()
+        nv, nt = extract_mesh.main(["--ckpt", ckpt, "--out", out, "--sigma_thresh", str(iso)])
+        wall = time.time() - t0
+        counts = launch_counts()
+        print(f"[phase 18c] extract_mesh on {what} at --sigma_thresh {iso:.4f} (its sigma's "
+              f"99th percentile): {nv} vertices, {nt} triangles in {os.path.basename(out)}, "
+              f"{wall:.1f} s; kernel launches {counts}", flush=True)
+        check(nv > 0 and nt > 0 and os.path.exists(out), f"phase 18c: empty mesh from {what}")
+        check(all(c == 0 for c in counts.values()), f"phase 18c: {what} launched {counts}")
+    print(f"[phase 18] {time.time() - t_phase:.1f} s", flush=True)
+    tmp.cleanup()
+    return counts_by_run, (k3_err, k4_err)
 
 
 def main():
@@ -2539,9 +3123,23 @@ def main():
                                          "2^19, lattice hash (phase 9)": lattice_psnr},
                                 lattice_k5_err)
     kernels += sorted_rows[:2] + lattice_rows + sorted_rows[2:]
-    nerf_phases(dev)
+    keep = tempfile.TemporaryDirectory()
+    nerf_tar = os.path.join(keep.name, "nerf.tar")
+    nerf_phases(dev, keep_tar=nerf_tar)
     nerfpp_phases(dev)
     tensorf_phases(dev)
+    dnerf_counts, dnerf_errs = dnerf_phases(dev, t, ngp_psnr)
+    sdf_counts, sdf_errs = sdf_phases(dev, nerf_tar)
+    keep.cleanup()
+    # each kernel's launches on the slice-8 paths (phases 17b and 18b),
+    # beside the main path's; K3/K4's error over every input they were held on
+    runs = {**dnerf_counts, **sdf_counts}
+    for row in kernels:
+        k = "K" + re.search(r"\(K(\d)", row["name"]).group(1)
+        row["launches_by_path"] = {run: c[k] for run, c in runs.items()}
+        if k in ("K3", "K4"):
+            i = 0 if k == "K3" else 1
+            row["max_abs_err"] = max(row["max_abs_err"], dnerf_errs[i], sdf_errs[i])
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

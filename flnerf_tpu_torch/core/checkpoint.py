@@ -99,6 +99,17 @@ def load_nerf_checkpoint(path: str, coarse, fine=None,
     return int(ckpt.get("global_epoch", 0)), int(ckpt.get("global_iter", 0))
 
 
+def load_nerf_query_network(path: str, module) -> str:
+    """Load into ``module`` the network a density query reads: the fine
+    network when the .tar has one, else the coarse one (extract_mesh's
+    choice).  Returns "fine" or "coarse"."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    which = "fine" if ckpt.get("network_fine_state_dict") is not None else "coarse"
+    key = "network_fine_state_dict" if which == "fine" else "network_fn_state_dict"
+    module.load_state_dict(_strip(ckpt[key]))
+    return which
+
+
 def find_latest_checkpoint(log_dir: str) -> Optional[str]:
     """Auto-resume: lexically-last *.tar in the run dir (run_nerf.py:112-118)."""
     if not os.path.isdir(log_dir):

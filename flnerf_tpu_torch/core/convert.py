@@ -43,6 +43,19 @@ CCNeRF adds ``*_mat_line`` (3 each), ``sigma_vec_scale`` and
 ``sigma_mat_scale`` (3).  The port's fields register the same keys with
 the same shapes (``ParameterList`` for a list), so a parameter's name
 ``key.i`` is its place in the tree.
+
+D-NeRF (``flnerf_tpu/models/dnerf.py`` params): ``deform`` is
+``{"canonical": <the NGP dict>, "deform_net": [...]}``; ``basis`` is
+``{"table", "basis_net", "sigma_net", "color_net"}`` with the NGP table
+(packed, or the lattice or sorted tuple); ``hyper`` is ``{"table",
+"ambient_net", "sigma_net", "color_net"}`` with a natural [T, C] table.  They
+cross to ``models/dnerf.py``'s fields in parameter order (the tables, then
+the nets in the order just named; the canonical field before
+``deform_net``).
+
+SDF (``flnerf_tpu/models/sdf.py`` params): ``{"table": packed [L, C, T_r,
+128], "net": [...]}``, kept by ``models/sdf.SDFField`` as [L, T_cap, C] and
+its net.
 """
 
 from __future__ import annotations
@@ -276,3 +289,67 @@ def tensorf_params_to_numpy(field, tensors=None) -> dict:
         else:
             tree[key] = a
     return tree
+
+
+def _arrays(tensors) -> list:
+    return [t.detach().cpu().numpy() for t in tensors]
+
+
+def dnerf_params_from_numpy(field, tree, device="cpu") -> list:
+    """The reference's D-NeRF params of ``field``'s variant -> tensors in
+    ``field.parameters()`` order."""
+    if field.variant == "deform":
+        return ngp_params_from_numpy(tree["canonical"], device) + [
+            _f32(w, device) for w in tree["deform_net"]]
+    if field.variant == "basis":
+        heads = list(tree["sigma_net"]) + list(tree["color_net"])
+        ngp = ngp_params_from_numpy({"table": tree["table"], "sigma_net": tree["sigma_net"],
+                                     "color_net": tree["color_net"]}, device)
+        n_tables = len(ngp) - len(heads)
+        return ngp[:n_tables] + [_f32(w, device) for w in tree["basis_net"]] + ngp[n_tables:]
+    return [_f32(w, device) for w in [tree["table"]] + list(tree["ambient_net"])
+            + list(tree["sigma_net"]) + list(tree["color_net"])]
+
+
+def dnerf_params_to_numpy(field, tensors=None) -> dict:
+    """Tensors in ``field.parameters()`` order (default: the field's own) ->
+    the reference's D-NeRF params of ``field``'s variant."""
+    from flnerf_tpu_torch.models.hash_ngp import engine_kind
+
+    tensors = list(field.parameters()) if tensors is None else list(tensors)
+    if field.variant == "deform":
+        n_deform = len(field.deform_net)
+        return {"canonical": ngp_params_to_numpy(tensors[:-n_deform],
+                                                 field.cfg.ngp.num_layers,
+                                                 engine_kind(field.canonical.spec)),
+                "deform_net": _arrays(tensors[-n_deform:])}
+    n_sigma = len(field.sigma_net)
+    heads = len(tensors) - n_sigma - len(field.color_net)     # where sigma_net starts
+    if field.variant == "basis":
+        n_tables = heads - len(field.basis_net)
+        ngp = ngp_params_to_numpy(tensors[:n_tables] + tensors[heads:], n_sigma,
+                                  engine_kind(field.spec))
+        ngp["basis_net"] = _arrays(tensors[n_tables:heads])
+        return ngp
+    arrs = _arrays(tensors)
+    return {"table": arrs[0], "ambient_net": arrs[1:heads],
+            "sigma_net": arrs[heads:heads + n_sigma], "color_net": arrs[heads + n_sigma:]}
+
+
+def load_dnerf_params(field, tree) -> None:
+    """Copy the reference's D-NeRF params into ``field``'s parameters."""
+    with torch.no_grad():
+        for p, v in zip(field.parameters(), dnerf_params_from_numpy(field, tree, field.device)):
+            p.copy_(v)
+
+
+def sdf_params_from_numpy(tree, device="cpu") -> list:
+    """The reference's SDF params -> [table [L, T_cap, C], *net]."""
+    return [torch.tensor(_natural_from_packed(tree["table"]), device=device)] + [
+        _f32(w, device) for w in tree["net"]]
+
+
+def sdf_params_to_numpy(tensors) -> dict:
+    """Inverse of ``sdf_params_from_numpy``."""
+    arrs = _arrays(tensors)
+    return {"table": _packed_from_natural(arrs[0]), "net": arrs[1:]}

@@ -1,17 +1,23 @@
 """Training losses (ngp-ours/loss.py parity).
 
 Port of ``flnerf_tpu/core/losses.py``:
+  * mape_loss (loss.py:7-15), the SDF trainer's loss;
   * huber_loss (loss.py:18-27), the NGP trainer's ``loss_type="huber"``;
   * eff_distloss (loss.py:30-76): the O(N) mip-NeRF-360 distortion loss of
     "Efficient distortion loss" (weights w at midpoints m with interval
     lengths dt):  L = sum_i sum_j w_i w_j |m_i - m_j| + (1/3) sum_i w_i^2 dt_i
     computed with prefix sums instead of the O(N^2) pairwise form.
-``mape_loss`` goes with the SDF slice (ROADMAP.md M18).
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def mape_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    """Mean absolute percentage error, |pred - gt| / (|gt| + 1e-2)
+    (loss.py:7-15)."""
+    return torch.mean(torch.abs(pred - gt) / (torch.abs(gt) + 1e-2))
 
 
 def huber_loss(pred: torch.Tensor, gt: torch.Tensor, delta: float = 0.1,

@@ -145,6 +145,29 @@ def init_ngp_table(spec, generator=None, device="cpu"):
     return init_packed_table(spec, generator, device)
 
 
+def register_tables(module: nn.Module, spec, generator=None, device="cpu") -> None:
+    """Register the spec's table parameters on ``module``, in the
+    reference's tuple order: ``table_small`` (None without small levels) and
+    ``table_big`` for a lattice or split spec, ``table`` [L, T_cap, C] for a
+    packed one."""
+    table = init_ngp_table(spec, generator, device)
+    if engine_kind(spec) != "packed":
+        ts, tb = table
+        module.table_small = None if ts is None else nn.Parameter(ts)
+        module.table_big = nn.Parameter(tb)
+    else:
+        module.table = nn.Parameter(table)
+
+
+def registered_tables(module: nn.Module, spec):
+    """The encoding's table argument of a module ``register_tables``
+    built: (table_small, table_big) for a lattice or split spec, ``table``
+    for a packed one."""
+    if engine_kind(spec) != "packed":
+        return module.table_small, module.table_big
+    return module.table
+
+
 def encode_with_spec(x01: torch.Tensor, table, spec) -> torch.Tensor:
     """x01 [N, 3] -> [N, L*C] features over the spec kind: the one place
     the field routes its encoding through."""
@@ -188,13 +211,7 @@ class NGPField(nn.Module):
         self.cfg = cfg
         self.spec = make_ngp_spec(cfg)
         self.compute_dtype = compute_dtype
-        table = init_ngp_table(self.spec, generator, device)
-        if engine_kind(self.spec) != "packed":
-            ts, tb = table
-            self.table_small = None if ts is None else nn.Parameter(ts)
-            self.table_big = nn.Parameter(tb)
-        else:
-            self.table = nn.Parameter(table)
+        register_tables(self, self.spec, generator, device)
         dims = [self.spec.output_dim] + [cfg.hidden_dim] * (cfg.num_layers - 1) + [
             1 + cfg.geo_feat_dim]
         self.sigma_net = nn.ParameterList(
@@ -206,11 +223,8 @@ class NGPField(nn.Module):
 
     @property
     def tables(self):
-        """The encoding's table argument: (table_small, table_big) for a
-        lattice or split spec, ``table`` for a packed one."""
-        if engine_kind(self.spec) != "packed":
-            return self.table_small, self.table_big
-        return self.table
+        """The encoding's table argument (``registered_tables``)."""
+        return registered_tables(self, self.spec)
 
     @property
     def device(self) -> torch.device:

@@ -167,12 +167,19 @@ def mark_untrained_grid(occ: OccupancyState, poses: np.ndarray, K: np.ndarray,
 
 
 def _density_sweep(field, cells: torch.Tensor, jitter: torch.Tensor, g: int,
-                   cfg: NGPRenderConfig, chunk: int) -> torch.Tensor:
+                   cfg: NGPRenderConfig, chunk: int, time=None) -> torch.Tensor:
     """Field sigma at jittered cell centers, ``chunk`` points per field call
-    (the last call takes the remainder)."""
+    (the last call takes the remainder).  With ``time`` (one scalar for the
+    whole sweep) the field is called as ``density(x, t)``."""
     xyz = ((cells + jitter) / g * 2.0 - 1.0) * cfg.bound
+    if time is not None:
+        time = torch.as_tensor(time, dtype=torch.float32, device=xyz.device)
+
+    def density(x):
+        return field.density(x) if time is None else field.density(x, time.expand(x.shape[:-1]))
+
     with torch.no_grad():
-        sigma = torch.cat([field.density(xyz[i:i + chunk])[0]
+        sigma = torch.cat([density(xyz[i:i + chunk])[0]
                            for i in range(0, xyz.shape[0], chunk)])
     return sigma * cfg.density_scale
 
@@ -185,7 +192,7 @@ def _cells(n: int, device) -> torch.Tensor:
 def update_occupancy(occ: OccupancyState, field, cfg: NGPRenderConfig,
                      chunk: int = 1 << 16, partial: bool = False, generator=None,
                      jitter: Optional[torch.Tensor] = None,
-                     parity: Optional[torch.Tensor] = None) -> OccupancyState:
+                     parity: Optional[torch.Tensor] = None, time=None) -> OccupancyState:
     """Refresh the density grid from the field at jittered cell centers, with
     EMA max decay (update_extra_state, renderer.py:445-538).
 
@@ -194,7 +201,8 @@ def update_occupancy(occ: OccupancyState, field, cfg: NGPRenderConfig,
     Cells pinned at -1 (mark_untrained_grid) stay pinned.  ``jitter`` (the
     [cells, 3] U(0,1) offsets) and ``parity`` ([3] ints in [0, stride))
     replace the draws from ``generator``; a grid not divisible by the stride
-    takes the full sweep."""
+    takes the full sweep.  ``time`` (a float or 0-d tensor) refreshes a
+    time-conditioned (D-NeRF) field at that one time for every cell."""
     g = cfg.grid_size
     dev = occ.density.device
     decayed = torch.where(occ.density < 0, occ.density, occ.density * cfg.decay)
@@ -204,7 +212,7 @@ def update_occupancy(occ: OccupancyState, field, cfg: NGPRenderConfig,
         cells = _cells(g, dev).to(torch.float32)
         if jitter is None:
             jitter = torch.rand(cells.shape, generator=generator, device=dev)
-        sigma = _density_sweep(field, cells, jitter, g, cfg, chunk).reshape(g, g, g)
+        sigma = _density_sweep(field, cells, jitter, g, cfg, chunk, time).reshape(g, g, g)
         new_density = torch.where(occ.density < 0, occ.density,
                                   torch.maximum(decayed, sigma))
     else:
@@ -215,7 +223,7 @@ def update_occupancy(occ: OccupancyState, field, cfg: NGPRenderConfig,
         cells = (_cells(gh, dev) * s + parity[None, :]).to(torch.float32)
         if jitter is None:
             jitter = torch.rand(cells.shape, generator=generator, device=dev)
-        sigma = _density_sweep(field, cells, jitter, g, cfg, chunk).reshape(gh, gh, gh)
+        sigma = _density_sweep(field, cells, jitter, g, cfg, chunk, time).reshape(gh, gh, gh)
         # the sampled parity class, written back by device index tensors
         ax = torch.arange(gh, device=dev) * s
         ix = (ax + parity[0])[:, None, None]
@@ -289,20 +297,25 @@ def march(occ: OccupancyState, rays_o: torch.Tensor, rays_d: torch.Tensor,
 def ngp_render_rays(field, occ: OccupancyState, rays_o: torch.Tensor,
                     rays_d: torch.Tensor, cfg: NGPRenderConfig, perturb: bool = True,
                     bg_color=None, noise: Optional[torch.Tensor] = None,
-                    generator=None):
+                    generator=None, times: Optional[torch.Tensor] = None):
     """Render [N] rays (unit rays_d) through ``field`` (``density`` and
     ``color``).  Returns dict(rgb, depth, acc), differentiable in the
     field's parameters; the occupancy state is a constant.  ``bg_color`` is
-    a scalar or an [N, 3] tensor (default cfg.bg_color)."""
+    a scalar or an [N, 3] tensor (default cfg.bg_color).  ``times`` [N]
+    renders a time-conditioned (D-NeRF) field, ``density(x, t)``."""
     marched = march(occ, rays_o, rays_d, cfg, perturb, noise, generator)
-    return render_marched(field, marched, rays_d, cfg, bg_color)
+    return render_marched(field, marched, rays_d, cfg, bg_color, times)
 
 
 def render_marched(field, marched, rays_d: torch.Tensor, cfg: NGPRenderConfig,
-                   bg_color=None):
-    """The field on ``march``'s kept samples, alpha-composited."""
+                   bg_color=None, times: Optional[torch.Tensor] = None):
+    """The field on ``march``'s kept samples, alpha-composited; with
+    ``times`` [N] each ray's time is broadcast over its kept samples."""
     zk, mk, xyzk, sample_dist = marched
-    sigma, geo = field.density(xyzk)                                # [N,K], [N,K,F]
+    if times is None:
+        sigma, geo = field.density(xyzk)                            # [N,K], [N,K,F]
+    else:
+        sigma, geo = field.density(xyzk, times[:, None].expand(zk.shape))
     sigma = torch.where(mk, sigma, 0.0)
 
     deltas = zk[:, 1:] - zk[:, :-1]
@@ -326,9 +339,10 @@ def render_marched(field, marched, rays_d: torch.Tensor, cfg: NGPRenderConfig,
 
 
 def ngp_render_image(field, occ: OccupancyState, cfg: NGPRenderConfig, H: int, W: int,
-                     K, c2w, chunk: int = 8192, bg_color=None):
-    """Full-image eval render, unperturbed, ``chunk`` rays per field call.
-    Returns (rgb [H, W, 3], depth [H, W]) as numpy."""
+                     K, c2w, chunk: int = 8192, bg_color=None, time: Optional[float] = None):
+    """Full-image eval render, unperturbed, ``chunk`` rays per field call;
+    ``time`` renders a D-NeRF frame at that time.  Returns (rgb [H, W, 3],
+    depth [H, W]) as numpy."""
     if bg_color is not None:
         cfg = cfg._replace(bg_color=float(bg_color))
     rays_o, rays_d = get_rays(H, W, K, c2w, field.device)
@@ -344,11 +358,13 @@ def ngp_render_image(field, occ: OccupancyState, cfg: NGPRenderConfig, H: int, W
         reps = -(-n_pad // n)
         rays_o = rays_o.repeat(reps, 1)[:n_pad]
         rays_d = rays_d.repeat(reps, 1)[:n_pad]
+    times = (None if time is None
+             else torch.full((chunk,), float(time), device=rays_o.device))
     rgbs, depths = [], []
     with torch.no_grad():
         for i in range(0, n_pad, chunk):
             out = ngp_render_rays(field, occ, rays_o[i:i + chunk], rays_d[i:i + chunk],
-                                  cfg, perturb=False)
+                                  cfg, perturb=False, times=times)
             rgbs.append(out["rgb"])
             depths.append(out["depth"])
     rgb = torch.cat(rgbs, 0)[:n].reshape(H, W, 3)

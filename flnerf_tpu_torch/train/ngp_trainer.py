@@ -25,8 +25,14 @@ The trainer takes an ``NGPConfig`` or any field module (``density``,
 field mid-run: the port of the reference's generic field protocol, which
 the TensoRF, CP and CCNeRF CLIs drive.
 
-Not ported yet (each raises ``NotImplementedError``): the time-dependent
-(D-NeRF) path and multi-device data parallelism.
+With ``time_dependent`` (D-NeRF) the field's density takes a time,
+``density(x, t)``: the sampler gives each ray its frame's time, the step
+renders at those times, each occupancy refresh draws one t ~ U(0, 1) (before
+the refresh's own draws, as the reference splits its key into (kt, ku)) and
+``eval_images`` renders frame i at ``times[i]``.
+
+Not ported yet: multi-device data parallelism (the trainer runs on one
+device; ROADMAP.md's NGP backlog).
 """
 
 from __future__ import annotations
@@ -42,7 +48,7 @@ import torch
 
 from flnerf_tpu_torch.core.losses import huber_loss
 from flnerf_tpu_torch.core.metrics import compute_ssim, mse2psnr
-from flnerf_tpu_torch.models.hash_ngp import NGP_BACKLOG, NGPConfig, NGPField, engine_kind
+from flnerf_tpu_torch.models.hash_ngp import NGPConfig, NGPField, engine_kind
 from flnerf_tpu_torch.rays.camera import get_rays_np
 from flnerf_tpu_torch.rays.sharpness import sharp_image
 from flnerf_tpu_torch.render.ngp import (
@@ -72,17 +78,19 @@ class NGPTrainConfig(NamedTuple):
                                    # reset to uniform (change_to_allpixel)
     bg_color: float = 1.0
     ema_decay: float = 0.0         # 0 disables; torch-ngp uses 0.95
-    time_dependent: bool = False   # D-NeRF: not ported, must stay False
+    time_dependent: bool = False   # D-NeRF: the field's density takes (x, t)
     loss_type: str = "mse"         # 'mse' | 'huber' (loss.py:18)
     huber_delta: float = 0.1
     seed: int = 0
 
 
 class NGPSampler:
-    """Per-image probability-map pixel sampler (provider.py:236-366)."""
+    """Per-image probability-map pixel sampler (provider.py:236-366).
+    ``times`` [n_images] gives each view its D-NeRF time."""
 
-    def __init__(self, images, poses, K, cfg: NGPTrainConfig, seed: int = 0):
+    def __init__(self, images, poses, K, cfg: NGPTrainConfig, seed: int = 0, times=None):
         self.cfg = cfg
+        self.times = None if times is None else np.asarray(times, np.float32)
         images = np.ascontiguousarray(images, np.float32)
         # RGBA inputs keep their alpha for random-background compositing
         self.alphas = (images[..., 3:4].reshape(images.shape[0], -1, 1)
@@ -160,7 +168,9 @@ class NGPSampler:
     def sample_chunk(self, n_steps: int, batch: int):
         """[n_steps] training batches, each of ``batch`` rays from one image
         (provider.py:289).  Returns (origins, dirs, rgb [n_steps, batch, 3|4
-        — alpha appended for RGBA], img_ids [n_steps], inds_coarse|None)."""
+        — alpha appended for RGBA], img_ids [n_steps], inds_coarse|None)
+        and, for a sampler given times, a sixth element: times [n_steps,
+        batch], each ray its image's time (no extra draw)."""
         origins = np.empty((n_steps, batch, 3), np.float32)
         dirs = np.empty((n_steps, batch, 3), np.float32)
         rgb = np.empty((n_steps, batch, 3 if self.alphas is None else 4), np.float32)
@@ -186,7 +196,10 @@ class NGPSampler:
             rgb[s, :, :3] = self.pixels[i, inds]
             if self.alphas is not None:
                 rgb[s, :, 3:] = self.alphas[i, inds]
-        return origins, dirs, rgb, img_ids, inds_coarse
+        if self.times is None:
+            return origins, dirs, rgb, img_ids, inds_coarse
+        times = np.repeat(self.times[img_ids][:, None], batch, axis=1)
+        return origins, dirs, rgb, img_ids, inds_coarse, times
 
 
 class NGPTrainer:
@@ -196,13 +209,12 @@ class NGPTrainer:
     ``(init_fn, density_fn, rgb_fn)`` protocol: TensoRF, CP, CCNeRF).  A
     field has ``density(x) -> (sigma, feat)``, ``color(d, feat) -> rgb``,
     ``device`` and ``parameters()``; the trainer moves it to its device.  The
-    per-step noise comes from a second generator seeded with seed + 1."""
+    per-step noise comes from a second generator seeded with seed + 1.  With
+    ``train_cfg.time_dependent`` the field's density is ``density(x, t)``."""
 
     def __init__(self, field, render_cfg: NGPRenderConfig,
                  train_cfg: NGPTrainConfig, device="cuda",
                  compute_dtype=torch.bfloat16):
-        if train_cfg.time_dependent:
-            raise NotImplementedError(f"the time-dependent (D-NeRF) path {NGP_BACKLOG}")
         if train_cfg.loss_type not in ("mse", "huber"):
             raise ValueError(f"unknown loss_type {train_cfg.loss_type!r} (mse|huber)")
         self.device = resolve_device(device)
@@ -238,10 +250,11 @@ class NGPTrainer:
         e = np.minimum(np.float32(step) / np.float32(self.cfg.max_steps), np.float32(1.0))
         return float(np.float32(self.cfg.lr) * np.float32(0.1) ** e)
 
-    def train_step(self, origins, dirs, rgb, noise=None, bg_noise=None):
+    def train_step(self, origins, dirs, rgb, noise=None, bg_noise=None, times=None):
         """One Adam step on a batch; returns (loss, per-ray loss) as device
         tensors.  ``noise`` [B, S] and ``bg_noise`` [B, 3] (RGBA data only)
-        replace the draws from the trainer's generator."""
+        replace the draws from the trainer's generator; ``times`` [B] are the
+        rays' times for a time-dependent field."""
         cfg = self.cfg
         with torch.enable_grad():
             if rgb.shape[-1] == 4:
@@ -253,14 +266,18 @@ class NGPTrainer:
                 bg, gt = cfg.bg_color, rgb
             out = ngp_render_rays(self.field, self.occ, origins, dirs, self.rcfg,
                                   perturb=True, bg_color=bg, noise=noise,
-                                  generator=self.gen)
+                                  generator=self.gen, times=times)
             if cfg.loss_type == "huber":
                 per_ray = torch.mean(huber_loss(out["rgb"], gt, cfg.huber_delta,
                                                 reduce=False), -1)
             else:
                 per_ray = torch.mean((out["rgb"] - gt) ** 2, -1)
             loss = torch.mean(per_ray)
-            grads = torch.autograd.grad(loss, self.params)
+            # a parameter the loss does not reach takes a zero gradient, as
+            # in the reference: the D-NeRF deform net on the card, where
+            # K3/K4 give the encoded points no gradient (ROADMAP.md R7)
+            grads = torch.autograd.grad(loss, self.params, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, self.params)]
         self._adam(grads)
         return loss.detach(), per_ray.detach()
 
@@ -283,9 +300,13 @@ class NGPTrainer:
         self.count = count
         self.step += 1
 
-    def refresh_occupancy(self, partial: bool):
+    def refresh_occupancy(self, partial: bool, time=None):
+        """One occupancy refresh.  A time-dependent trainer refreshes at one
+        time for the whole grid: ``time``, or t ~ U(0, 1) drawn first."""
+        if self.cfg.time_dependent and time is None:
+            time = torch.rand((), generator=self.gen, device=self.device)
         self.occ = update_occupancy(self.occ, self.field, self.rcfg, partial=partial,
-                                    generator=self.gen)
+                                    generator=self.gen, time=time)
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(a)
@@ -300,6 +321,8 @@ class NGPTrainer:
         over), in chunks of steps_per_chunk with an occupancy refresh before
         each: full for the first full_refreshes, then partial."""
         cfg = self.cfg
+        if cfg.time_dependent and sampler.times is None:
+            raise ValueError("a time-dependent trainer needs a sampler given times")
         spc = cfg.steps_per_chunk
         n_chunks = -((n_steps or cfg.max_steps) // -spc)
         t0 = time.time()
@@ -330,10 +353,13 @@ class NGPTrainer:
                 n_refresh = (base_step + ci * spc) // (cfg.occ_update_every * spc)
                 self.refresh_occupancy(partial=n_refresh >= cfg.full_refreshes)
 
-            origins, dirs, rgb, img_ids, inds_coarse = sampler.sample_chunk(
-                spc, cfg.batch_rays)
-            origins, dirs, rgb = (self._to_device(a) for a in (origins, dirs, rgb))
-            outs = [self.train_step(origins[k], dirs[k], rgb[k]) for k in range(spc)]
+            drawn = sampler.sample_chunk(spc, cfg.batch_rays)
+            img_ids, inds_coarse = drawn[3:5]
+            origins, dirs, rgb = (self._to_device(a) for a in drawn[:3])
+            times = self._to_device(drawn[5]) if cfg.time_dependent else None
+            outs = [self.train_step(origins[k], dirs[k], rgb[k],
+                                    times=None if times is None else times[k])
+                    for k in range(spc)]
             losses = torch.stack([o[0] for o in outs])
             per_ray = torch.stack([o[1] for o in outs])
             if pending is not None:
@@ -360,22 +386,29 @@ class NGPTrainer:
     # ------------------------------------------------------------------
     def _tree(self, tensors):
         """Parameter-ordered tensors -> the reference's numpy tree: the NGP
-        params dict for an ``NGPField``, the TensoRF/CP/CCNeRF dict of
-        arrays and lists of arrays for any other field."""
-        from flnerf_tpu_torch.core.convert import ngp_params_to_numpy, tensorf_params_to_numpy
+        params dict for an ``NGPField``, the D-NeRF variant's tree for a
+        D-NeRF field, the TensoRF/CP/CCNeRF dict of arrays and lists of
+        arrays for any other field."""
+        from flnerf_tpu_torch.core import convert
+        from flnerf_tpu_torch.models.dnerf import DNeRFBase
 
         if isinstance(self.field, NGPField):
-            return ngp_params_to_numpy(tensors, self.field.cfg.num_layers,
-                                       engine_kind(self.field.spec))
-        return tensorf_params_to_numpy(self.field, tensors)
+            return convert.ngp_params_to_numpy(tensors, self.field.cfg.num_layers,
+                                               engine_kind(self.field.spec))
+        if isinstance(self.field, DNeRFBase):
+            return convert.dnerf_params_to_numpy(self.field, tensors)
+        return convert.tensorf_params_to_numpy(self.field, tensors)
 
     def _tensors(self, tree):
         """Inverse of ``_tree``, onto the trainer's device."""
-        from flnerf_tpu_torch.core.convert import ngp_params_from_numpy, tensorf_params_from_numpy
+        from flnerf_tpu_torch.core import convert
+        from flnerf_tpu_torch.models.dnerf import DNeRFBase
 
         if isinstance(self.field, NGPField):
-            return ngp_params_from_numpy(tree, self.device)
-        return tensorf_params_from_numpy(self.field, tree, self.device)
+            return convert.ngp_params_from_numpy(tree, self.device)
+        if isinstance(self.field, DNeRFBase):
+            return convert.dnerf_params_from_numpy(self.field, tree, self.device)
+        return convert.tensorf_params_from_numpy(self.field, tree, self.device)
 
     def save_checkpoint(self, workspace: str, name: str = None, max_keep: int = 2) -> str:
         """Trainer.save_checkpoint analog (nerf/utils.py:1014-1074): params,
@@ -434,8 +467,9 @@ class NGPTrainer:
         return path
 
     def eval_images(self, poses, images, H, W, K, chunk: int = 8192,
-                    use_ema: bool = False):
-        """Mean PSNR and SSIM over the given views (metrics on the host)."""
+                    use_ema: bool = False, times=None):
+        """Mean PSNR and SSIM over the given views (metrics on the host);
+        ``times`` renders view i at times[i] (a time-dependent field)."""
         swap = use_ema and self.ema is not None
         if swap:
             saved = [p.detach().clone() for p in self.params]
@@ -446,7 +480,8 @@ class NGPTrainer:
             psnrs, ssims = [], []
             for i in range(poses.shape[0]):
                 rgb, _ = ngp_render_image(self.field, self.occ, self.rcfg, H, W, K,
-                                          poses[i][:3, :4], chunk=chunk)
+                                          poses[i][:3, :4], chunk=chunk,
+                                          time=None if times is None else float(times[i]))
                 gt = np.asarray(images[i], np.float32)
                 if gt.shape[-1] == 4:
                     # RGBA gt on the eval bg color (utils.py:471)

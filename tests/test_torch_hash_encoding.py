@@ -91,20 +91,28 @@ def test_corner_index_with_overflowing_coordinates(dim):
     np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
 
 
-@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("dim", [2, 3, 4])
 def test_flat_oracle_matches(dim):
-    spec = enc.make_hashgrid_spec(num_levels=4, base_resolution=4, log2_hashmap_size=8,
-                                  desired_resolution=64, input_dim=dim)
+    """The plain encode of 2-, 3- and 4-D points (D-NeRF hyper's lifted
+    points) and its table gradient; the 4-D grid has a dense first level
+    (5^4 = 625 entries in a 2^10 table) and hashed ones."""
+    kw = dict(num_levels=4, base_resolution=4, log2_hashmap_size=10 if dim == 4 else 8,
+              desired_resolution=64, input_dim=dim)
+    spec, ref_spec = enc.make_hashgrid_spec(**kw), ref_enc.make_hashgrid_spec(**kw)
+    if dim == 4:
+        assert not spec.use_hash[0] and spec.use_hash[1:].all()
     rng = np.random.default_rng(4)
     table = rng.uniform(-1, 1, (spec.table_size, spec.level_dim)).astype(np.float32)
     x = rng.random((200, dim)).astype(np.float32)
-    want = np.asarray(ref_enc.hash_encode(jnp.asarray(x), jnp.asarray(table),
-                                          ref_enc.make_hashgrid_spec(
-                                              num_levels=4, base_resolution=4,
-                                              log2_hashmap_size=8, desired_resolution=64,
-                                              input_dim=dim)))
-    got = enc.hash_encode(torch.from_numpy(x), torch.from_numpy(table), spec).numpy()
-    np.testing.assert_allclose(got, want, atol=1e-6)
+    g_out = rng.standard_normal((200, spec.output_dim)).astype(np.float32)
+    want, vjp = jax.vjp(lambda t: ref_enc.hash_encode(jnp.asarray(x), t, ref_spec),
+                        jnp.asarray(table))
+    tt = torch.from_numpy(table).requires_grad_(True)
+    got = enc.hash_encode(torch.from_numpy(x), tt, spec)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=1e-6)
+    (g,) = torch.autograd.grad(got, [tt], torch.from_numpy(g_out))
+    g_ref = np.asarray(vjp(jnp.asarray(g_out))[0])
+    np.testing.assert_allclose(g.numpy(), g_ref, atol=1e-5 * np.abs(g_ref).max())
 
 
 @pytest.mark.parametrize("kw", [SMALL, FULL])

@@ -137,6 +137,46 @@ def test_tensorf_entry_points_raise_without_a_card(monkeypatch, tmp_path):
                          text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
 
+def test_dnerf_and_sdf_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    """The D-NeRF, SDF and mesh CLIs, the SDF trainer, MeshSDF and the
+    time-dependent NGP trainer raise with no card before they write
+    anything; their modules import no JAX."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from flnerf_tpu_torch.cli import extract_mesh, main_dnerf, main_sdf
+    from flnerf_tpu_torch.data.mesh_sdf import MeshSDF
+    from flnerf_tpu_torch.models.dnerf import DNeRFConfig, DNeRFField
+    from flnerf_tpu_torch.models.sdf import SDFConfig, SDFTrainer
+    cfg = DNeRFConfig(ngp=NGPConfig(num_levels=2, log2_hashmap_size=8))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ngp_trainer.NGPTrainer(DNeRFField(cfg), NGPRenderConfig(grid_size=8),
+                               ngp_trainer.NGPTrainConfig(time_dependent=True))
+    for variant in ("deform", "basis", "hyper"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main_dnerf.main(["synthetic", "-O", "--variant", variant,
+                             "--workspace", str(tmp_path / "dn")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SDFTrainer(SDFConfig(num_levels=2, log2_hashmap_size=8))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MeshSDF(np.eye(3, dtype=np.float32), np.array([[0, 1, 2]], np.int32))
+    for shape in ("sphere", "mesh.obj", "samples.npz"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main_sdf.main([shape, "--workspace", str(tmp_path / "sdf")])
+    for ckpt in ("run/001.tar", "ckpt.npz"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            extract_mesh.main(["--ckpt", ckpt, "--out", str(tmp_path / "mesh.obj")])
+    assert not os.listdir(tmp_path)
+    code = ("import sys\n"
+            "import flnerf_tpu_torch.cli.main_dnerf, flnerf_tpu_torch.cli.main_sdf\n"
+            "import flnerf_tpu_torch.cli.extract_mesh, flnerf_tpu_torch.models.dnerf\n"
+            "import flnerf_tpu_torch.models.sdf, flnerf_tpu_torch.data.mesh_sdf\n"
+            "import flnerf_tpu_torch.ops.marching\n"
+            "bad = [n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'flnerf_tpu')]\n"
+            "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 def test_no_source_imports_an_image_library():
     """The card's machine has no cv2 or imageio: no module of the port
     imports cv2, and imageio only in data/png.py's fallback for formats

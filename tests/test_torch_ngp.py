@@ -128,9 +128,14 @@ def test_engine_choice_and_unported_options_raise():
         m.make_ngp_spec(m.NGPConfig(hash_engine="lattice"))
     with pytest.raises(NotImplementedError, match="NGP backlog"):
         m.NGPField(m.NGPConfig(bg_radius=1.0))
-    with pytest.raises(NotImplementedError, match="D-NeRF"):
-        t_ngp.NGPTrainer(m.NGPConfig(**FIELD_KW), r.NGPRenderConfig(),
+    # the time-dependent (D-NeRF) path is ported: a trainer of a static
+    # field with it set refuses a sampler without times
+    t = t_ngp.NGPTrainer(m.NGPConfig(**FIELD_KW), r.NGPRenderConfig(grid_size=8),
                          t_ngp.NGPTrainConfig(time_dependent=True), device="cpu")
+    images, poses, _, hwf, _ = load_synthetic_data(n_train=1, n_test=0, H=4, W=4)
+    with pytest.raises(ValueError, match="times"):
+        t.fit(t_ngp.NGPSampler(images, poses, intrinsics_matrix(4, 4, hwf[2]), t.cfg),
+              verbose=False)
 
 
 # f32: the same f32 products summed in another order; bf16: the operands and
