@@ -296,10 +296,44 @@ Phases (any failure raises, and the script exits non-zero):
      card cannot give one;
      21c. the port's dry run, dryrun_multichip(2) on the card (gloo): one
      step each of NeRF, Plenoxels, NGP 2^15 and the 2^16 lattice engine,
-     every rank holding the same weights after it.
+     every rank holding the same weights after it;
+ 22. the Plenoxels tools:
+     22a. cli/opt.py on the synthetic scene's 48x48 views written as an NSVF
+     scene (OpenCV poses, intrinsics.txt with the pixel-centre offset) at
+     256^3 for 3 epochs: K1 and K2 launch as in phase 3, the train PSNR
+     rises and stays within 1 dB of phase 3's each epoch (grid radius 1.5
+     against 1.2, 8-bit images), a finite test PSNR (its eval views flipped:
+     the reference's fault R8);
+     22b. cli/render_imgs.py on phase 3's last checkpoint: K1 = 2, K2 = 0,
+     its mean PSNR within 1e-4 dB of the trainer's eval of the checkpoint's
+     grid at render_imgs' max_steps (load_npz's default, 512: the
+     reference's fault R9), that grid at cli/opt.py's 1792 steps within
+     1e-4 dB of phase 3's test PSNR, the --timing FPS; cli/calc_metrics.py
+     on its PNGs against the ground truth as PNGs: within 0.1 dB (8-bit
+     rounding);
+     22c. cli/to_svox1.py on phase 18c's 128^3 checkpoint: lookup_octree at
+     10,000 seeded alive voxels equals the grid cast to f16; its wall time;
+     22d. cli/autotune.py with 2 variants (lambda_tv 1e-5, 1e-4) of
+     `cli/opt.py synthetic --n_epochs 1 --tune_nosave` at 256^3, each in a
+     subprocess (its launches not counted): a 2-row leaderboard; the rerun
+     skips both;
+ 23. CLIP guidance: the phase-5 trainer (`main_nerf synthetic -O`, 2^15,
+     bf16) after one chunk (16 steps) and after 256 renders 2 rand_poses
+     views at 64x64 through render/ngp.ngp_render_rays with autograd;
+     CLIPGuidance with a seeded stub encoder (224^2 average-pooled to 8^2,
+     a fixed map to 512) and one backward: K3 = K4 = 1 each; the loss and
+     every parameter gradient against the same step on the CPU (the plain
+     encode, the same marched samples) at phase 14a's tolerances, the
+     table's gradient nonzero after 16 steps (after 256 every gradient is
+     0 on both: R1); main_nerf's --clip_text and --rand_pose exit with the
+     reference's messages;
+ 24. cli/run_nerf.py at full width (D8 W256, 64 + 128, bf16) for one epoch
+     on the synthetic views written as a LINEMOD scene (48 px, the json's K
+     and near/far) and as a deepvoxels scene (512 px, the loader's size; one
+     train view): no K1-K9 launch, finite test PSNRs.
 
 The last lines are one JSON object describing the kernels (each row with
-its launches on the runs of phases 17b, 18b, 20 and 21 as "launches_by_path"), the card's name
+its launches on the runs of phases 17b, 18b and 20-24 as "launches_by_path"), the card's name
 and power limit as nvidia-smi gives them, and
 {"ok": true, "device": {...}}.  With no CUDA device, or with the port
 missing, it exits non-zero and prints no result.
@@ -2516,10 +2550,11 @@ def icosphere(subdiv, radius=0.5):
     return (np.asarray(v) * radius).astype(np.float32), np.asarray(f, np.int32)
 
 
-def sdf_phases(dev, nerf_tar):
+def sdf_phases(dev, nerf_tar, keep_npz=None):
     """Phase 18: SDF fitting (cli/main_sdf.py) through K3/K4 and mesh export
     (cli/extract_mesh.py, which launches no kernel).  Returns {run: launch
-    counts} of 18b's two runs."""
+    counts} of 18b's two runs.  ``keep_npz``: where to copy 18c's cli/opt.py
+    checkpoint (phase 22c)."""
     import torch
 
     from flnerf_tpu_torch.cli import extract_mesh, main_sdf, opt
@@ -2668,6 +2703,8 @@ def sdf_phases(dev, nerf_tar):
             npz = os.path.join(opt_dir, name)
     if npz is None:
         raise RuntimeError("phase 18c: cli/opt.py wrote no .npz")
+    if keep_npz:
+        shutil.copy(npz, keep_npz)
     grid, _ = load_npz(npz)
     grid_sigma = grid.density[grid.alive].numpy()
     mlp = make_nerf_mlp(compute_dtype=torch.float32, device=dev)
@@ -3175,6 +3212,354 @@ def ddp_phases(dev):
     return counts_by_run
 
 
+# phases 22-24: the loaders and tools.  22a trains cli/opt.py on the
+# synthetic scene written as an NSVF scene; its grid radius is 1.5 where the
+# synthetic scene's is 1.2 and its images are 8-bit, so its train PSNR is not
+# phase 3's: on the CPU (32^3 and 64^3, the same flags otherwise) the two
+# differed by at most 0.45 dB an epoch
+NSVF_TRAIN_TOL_DB = 1.0
+RENDER_IMGS_TOL_DB = 1e-4  # 22b: the same grid (SH stored in f16), views and march
+CALC_METRICS_TOL_DB = 0.1  # 22b: the renders and the ground truth rounded to 8 bits
+SVOX1_VOXELS = 10_000      # 22c: alive voxels looked up in the exported tree
+CLIP_VIEWS, CLIP_SIZE = 2, 64    # 23: rand_poses views rendered a guided step
+FLIP_YZ = np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32)   # OpenGL c2w <-> OpenCV c2w
+# 24: run_nerf at its defaults' widths (D8 W256, 64 + 128 samples, bf16)
+# for one epoch; a deepvoxels frame is 512 x 512, so one train view there
+LOADER_NERF_FLAGS = ("--use_viewdirs", "--N_importance", "128", "--N_rand", "1920",
+                     "--n_epoch", "1", "--init_level", "2", "--testskip", "1")
+
+
+def write_nsvf_scene(root, n_train=8, n_test=2, H=48):
+    """The synthetic scene's views as an NSVF scene (rgb/0_* train and
+    rgb/2_* test PNGs, pose/*.txt = c2w . diag(1, -1, -1, 1), intrinsics.txt
+    = f W/2+0.5 H/2+0.5): its OpenCV training rays, with pixel centres at
+    +0.5, are the synthetic scene's rays up to rounding.  Returns the scene
+    (images, poses, hwf, i_train, i_test)."""
+    from flnerf_tpu_torch.core.metrics import to8b
+    from flnerf_tpu_torch.data.png import write_png
+    from flnerf_tpu_torch.data.synthetic import load_synthetic_data
+
+    images, poses, _, hwf, (tr, _, te) = load_synthetic_data(n_train=n_train, n_test=n_test,
+                                                             H=H, W=H)
+    os.makedirs(os.path.join(root, "rgb"))
+    os.makedirs(os.path.join(root, "pose"))
+    for prefix, idx in (("0", tr), ("2", te)):
+        for j, i in enumerate(idx):
+            write_png(os.path.join(root, "rgb", f"{prefix}_{j:04d}.png"), to8b(images[i]))
+            np.savetxt(os.path.join(root, "pose", f"{prefix}_{j:04d}.txt"),
+                       poses[i].astype(np.float64) @ FLIP_YZ)
+    h, w, f = hwf
+    with open(os.path.join(root, "intrinsics.txt"), "w") as fh:
+        fh.write(f"{f} {w / 2 + 0.5} {h / 2 + 0.5}\n")
+    return images, poses, hwf, tr, te
+
+
+def tools_phases(dev, plx, npz_128):
+    """Phase 22: the Plenoxels tools on the card.  ``plx``: phase 3's run
+    (its last checkpoint, test PSNR, train PSNRs and K1/K2 launches);
+    ``npz_128``: phase 18c's 128^3 checkpoint.  Returns {run: launch
+    counts} of 22a and 22b."""
+    import contextlib
+    import io
+
+    import torch
+
+    from flnerf_tpu_torch.cli import autotune, calc_metrics, opt, render_imgs, to_svox1
+    from flnerf_tpu_torch.core.metrics import to8b
+    from flnerf_tpu_torch.core.svox1_export import lookup_octree
+    from flnerf_tpu_torch.data.png import write_png
+    from flnerf_tpu_torch.models.voxel_sh import load_npz
+    from flnerf_tpu_torch.rays.camera import intrinsics_matrix
+    from flnerf_tpu_torch.train.plenoxels_trainer import (
+        PlenoxelsState,
+        PlenoxelsTrainConfig,
+        PlenoxelsTrainer,
+    )
+
+    t_phase = time.time()
+    tmp = tempfile.TemporaryDirectory()
+    counts_by_run = {}
+    reso_arg = f"[[{RESO},{RESO},{RESO}]]"
+
+    # ---- phase 22a: cli/opt.py on an NSVF scene (OpenCV rays, R8 eval) ----
+    nsvf = os.path.join(tmp.name, "nsvf")
+    images, poses, hwf, _, i_test = write_nsvf_scene(nsvf)
+    reset_counts()
+    t0 = time.time()
+    res = opt.main([nsvf, "-t", os.path.join(tmp.name, "nsvf_run"), "--reso", reso_arg,
+                    "--n_epochs", "3", "--device", str(dev)])
+    wall = time.time() - t0
+    counts = counts_by_run["22a nsvf"] = launch_counts()
+    want = {k: 0 for k in counts}
+    want.update({"K1": plx["k1"], "K2": plx["k2"]})
+    train = [h["train_psnr"] for h in res["history"]]
+    gaps = [a - b for a, b in zip(train, plx["train"])]
+    print(f"[phase 22a] opt.main on the synthetic scene as NSVF (48x48, 8 + 2 views, {RESO}^3, "
+          f"3 epochs): launches {counts} (phase 3's K1 {plx['k1']}, K2 {plx['k2']}); train PSNR "
+          f"{[round(p, 4) for p in train]}, minus phase 3's {[round(g, 4) for g in gaps]} dB; "
+          f"test PSNR {res['psnr']:.4f} (R8: eval views flipped); main {wall:.1f} s", flush=True)
+    check(counts == want, f"phase 22a: launches {counts} != {want}")
+    check(train[-1] > train[0], f"phase 22a: train PSNR did not rise: {train}")
+    check(len(gaps) == 3 and max(abs(g) for g in gaps) <= NSVF_TRAIN_TOL_DB,
+          f"phase 22a: train PSNR {train} against phase 3's {plx['train']}")
+    check(math.isfinite(res["psnr"]), f"phase 22a: test PSNR {res['psnr']}")
+    del res
+
+    # ---- phase 22b: render_imgs on phase 3's checkpoint, calc_metrics ----
+    rd = os.path.join(tmp.name, "renders")
+    reset_counts()
+    t0 = time.time()
+    out = render_imgs.main([plx["ckpt"], "synthetic", "--render_dir", rd, "--device", str(dev)])
+    wall = time.time() - t0
+    counts = counts_by_run["22b render_imgs"] = launch_counts()
+    want = {k: 0 for k in counts}
+    want["K1"] = 2
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        timing = render_imgs.main([plx["ckpt"], "synthetic", "--timing", "--device", str(dev),
+                                   "--render_dir", os.path.join(tmp.name, "timing")])
+    gt = os.path.join(tmp.name, "gt")
+    os.makedirs(gt)
+    for j, i in enumerate(i_test):
+        write_png(os.path.join(gt, f"{j:04d}.png"), to8b(images[i]))
+    cm = calc_metrics.main([rd, gt])
+    # R9: render_imgs marches with load_npz's config, whose max_steps is the
+    # default 512, where opt.py marched 3.5 * 256 / 0.5 = 1792: the same
+    # checkpoint's grid through the trainer's eval at both budgets
+    evals = {}
+    grid, gcfg = load_npz(plx["ckpt"], device=dev)
+    K = intrinsics_matrix(48, 48, hwf[2])
+    opt_steps = int(3.5 * RESO / STEP)
+    for steps in (gcfg.max_steps, opt_steps):
+        tr = PlenoxelsTrainer(gcfg._replace(max_steps=steps), PlenoxelsTrainConfig(), device=dev)
+        tr.state = PlenoxelsState(grid, torch.zeros_like(grid.density),
+                                  torch.zeros_like(grid.sh), 0)
+        evals[steps] = tr.eval_images(poses[i_test], images[i_test], 48, 48, K)[0]
+    del grid, tr
+    print(f"[phase 22b] render_imgs on phase 3's {os.path.basename(plx['ckpt'])}: launches "
+          f"{counts}; mean PSNR {out['psnr']:.6f} SSIM {out['ssim']:.4f}; the checkpoint's grid "
+          f"through the trainer's eval at max_steps {gcfg.max_steps} (render_imgs' config) "
+          f"{evals[gcfg.max_steps]:.6f}, at {opt_steps} (opt.py's) {evals[opt_steps]:.6f}; "
+          f"phase 3's test PSNR {plx['psnr']:.6f} (render_imgs {out['psnr'] - plx['psnr']:+.3e} "
+          f"dB: R9); main {wall:.2f} s; --timing {buf.getvalue().strip()!r}; calc_metrics on "
+          f"its 8-bit PNGs against the 8-bit ground truth: PSNR {cm['psnr']:.4f} SSIM "
+          f"{cm['ssim']:.4f} ({cm['psnr'] - out['psnr']:+.4f} dB)", flush=True)
+    check(counts == want, f"phase 22b: launches {counts} != {want}")
+    check(abs(out["psnr"] - evals[gcfg.max_steps]) <= RENDER_IMGS_TOL_DB,
+          f"phase 22b: render_imgs PSNR {out['psnr']} against its config's eval "
+          f"{evals[gcfg.max_steps]}")
+    check(abs(evals[opt_steps] - plx["psnr"]) <= RENDER_IMGS_TOL_DB,
+          f"phase 22b: the checkpoint's grid at {opt_steps} steps {evals[opt_steps]} against "
+          f"phase 3's test PSNR {plx['psnr']}")
+    check(timing["fps"] > 0, "phase 22b: --timing gave no FPS")
+    check(abs(cm["psnr"] - out["psnr"]) <= CALC_METRICS_TOL_DB,
+          f"phase 22b: calc_metrics PSNR {cm['psnr']} against render_imgs' {out['psnr']}")
+
+    # ---- phase 22c: to_svox1 on phase 18c's 128^3 grid ----
+    t0 = time.time()
+    path = to_svox1.main([npz_128, "--out", os.path.join(tmp.name, "svox1.npz")])
+    wall = time.time() - t0
+    tree = dict(np.load(path, allow_pickle=True))
+    grid, _ = load_npz(npz_128)      # on the host, as to_svox1 loads it
+    reso = grid.alive.shape[0]
+    alive = np.argwhere(grid.alive.numpy())
+    pick = alive[np.random.default_rng(22).choice(len(alive), min(SVOX1_VOXELS, len(alive)),
+                                                  replace=False)]
+    dens = grid.density.numpy().astype(np.float16)
+    sh = grid.sh.numpy().astype(np.float16)
+    bad = sum(not (np.array_equal(leaf[:-1], sh[tuple(c)]) and leaf[-1] == dens[tuple(c)])
+              for c, leaf in ((c, lookup_octree(tree, c, reso)) for c in pick))
+    print(f"[phase 22c] to_svox1 on phase 18c's {reso}^3 grid ({len(alive)} alive voxels): "
+          f"{tree['child'].shape[0]} nodes, {os.path.getsize(path) / 1e6:.1f} MB compressed, "
+          f"{wall:.1f} s; lookup_octree at {len(pick)} seeded alive voxels: {bad} differ "
+          f"from the grid cast to f16", flush=True)
+    check(len(pick) > 0 and bad == 0, f"phase 22c: {bad} of {len(pick)} leaves differ")
+    del tree, grid, dens, sh
+
+    # ---- phase 22d: autotune, 2 variants of cli/opt.py in subprocesses ----
+    task = {"base_args": ["synthetic", "--n_epochs", "1", "--tune_nosave", "--reso", reso_arg,
+                          "--device", str(dev)],
+            "train_root": os.path.join(tmp.name, "tune"),
+            "grid": {"lambda_tv": [1e-5, 1e-4]}}
+    task_json = os.path.join(tmp.name, "task.json")
+    with open(task_json, "w") as f:
+        json.dump(task, f)
+    t0 = time.time()
+    rows = autotune.main([task_json])
+    wall = time.time() - t0
+    with open(os.path.join(task["train_root"], "leaderboard.txt")) as f:
+        board = f.read().splitlines()
+    t0 = time.time()
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        rerun = autotune.main([task_json])
+    rerun_s = time.time() - t0
+    skipped = buf.getvalue().count("skip finished")
+    print(f"[phase 22d] autotune of lambda_tv 1e-5, 1e-4 on `cli/opt.py synthetic --n_epochs 1 "
+          f"--tune_nosave` at {RESO}^3: leaderboard {board}, {wall:.1f} s (the variants' "
+          f"kernels launch in their subprocesses: not counted); the rerun skipped {skipped} in "
+          f"{rerun_s:.2f} s", flush=True)
+    check(len(rows) == 2 and len(board) == 2, f"phase 22d: leaderboard {board}")
+    check(all(math.isfinite(p) for p, _ in rows), f"phase 22d: {rows}")
+    check(skipped == 2 and "launch:" not in buf.getvalue() and rerun == rows,
+          f"phase 22d: the rerun skipped {skipped}")
+    tmp.cleanup()
+    print(f"[phase 22] {time.time() - t_phase:.1f} s", flush=True)
+    return counts_by_run
+
+
+def clip_phase(dev):
+    """Phase 23: CLIP guidance on NGP renders of rand_poses views, card
+    against CPU, after one chunk of training (a live field) and after
+    NGP_WINDOW steps (R1's dead sigma net at 2^15: every gradient exactly
+    0), and main_nerf's gate.  Returns {run: launch counts}."""
+    import torch
+    import torch.nn.functional as F
+
+    from flnerf_tpu_torch.cli import main_nerf
+    from flnerf_tpu_torch.core.clip_guidance import CLIPGuidance
+    from flnerf_tpu_torch.rays.camera import get_rays, intrinsics_matrix, rand_poses
+    from flnerf_tpu_torch.render.ngp import march, ngp_render_rays, render_marched
+
+    t_phase = time.time()
+    tmp = tempfile.TemporaryDirectory()
+    trainer, sampler, _, _ = ngp_setup(tmp.name)
+    _, poses, _, _, _ = main_nerf.load_ngp_dataset(main_nerf.parse_args(["synthetic", "-O"]))
+    radius = float(np.linalg.norm(poses[:, :3, 3], axis=-1).mean())
+    # rand_poses' forward column looks at the origin along +z (the
+    # reference's convention); get_rays' camera looks along -z
+    views = rand_poses(CLIP_VIEWS, np.random.default_rng(23), radius=radius) @ FLIP_YZ
+    K = intrinsics_matrix(CLIP_SIZE, CLIP_SIZE, 0.9 * CLIP_SIZE)
+    rays = [get_rays(CLIP_SIZE, CLIP_SIZE, K, v[:3, :4], dev) for v in views]
+    o = torch.cat([r[0].reshape(-1, 3) for r in rays])
+    d = torch.cat([r[1].reshape(-1, 3) for r in rays])
+    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    # the stub encoder: average-pool 224^2 -> 8^2, a fixed map to 512
+    gen = torch.Generator().manual_seed(23)
+    w, text = torch.randn((3 * 64, 512), generator=gen), torch.randn((1, 512), generator=gen)
+
+    def encoder(x):
+        return F.avg_pool2d(x, 28).reshape(x.shape[0], -1) @ w.to(x.device)
+
+    def guided(field, out):
+        guide = CLIPGuidance(encoder, text.to(out["rgb"].device))
+        loss = guide(out["rgb"].reshape(CLIP_VIEWS, CLIP_SIZE, CLIP_SIZE, 3))
+        named = list(field.named_parameters())
+        grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
+        return float(loss), {n: (torch.zeros_like(p) if g is None else g).cpu()
+                             for (n, p), g in zip(named, grads)}
+
+    counts_by_run = {}
+    for run, steps in (("23 clip at 16", trainer.cfg.steps_per_chunk),
+                       ("23 clip at 256", NGP_WINDOW)):
+        trainer.fit(sampler, verbose=False, n_steps=steps - trainer.step)
+        rcfg = trainer.rcfg
+        reset_counts()
+        t0 = time.time()
+        out = ngp_render_rays(trainer.field, trainer.occ, o, d, rcfg, perturb=False)
+        loss_c, g_c = guided(trainer.field, out)
+        torch.cuda.synchronize()
+        step_ms = (time.time() - t0) * 1e3
+        counts = counts_by_run[run] = launch_counts()
+        want = {k: 0 for k in counts}
+        want.update({"K3": 1, "K4": 1})
+        marched = march(trainer.occ, o, d, rcfg, perturb=False)
+        acc = float(out["acc"].max())
+        field_h = copy.deepcopy(trainer.field).to("cpu")
+        loss_h, g_h = guided(field_h, render_marched(field_h, tuple(m.cpu() for m in marched),
+                                                     d.cpu(), rcfg))
+        norms = {k: float(g_h[k].norm()) for k in g_h}
+        grad_err = {k: float((g_c[k] - g_h[k]).norm()) / norms[k] if norms[k] > 0
+                    else float(g_c[k].abs().max()) for k in g_h}
+        worst = max(grad_err, key=grad_err.get)
+        print(f"[phase {run}] a guided step on {CLIP_VIEWS} rand_poses views at "
+              f"{CLIP_SIZE}x{CLIP_SIZE} ({o.shape[0]} rays, {int(marched[1].sum())} kept "
+              f"samples, max acc {acc:.4f}) of the 2^15 -O trainer after {trainer.step} steps: "
+              f"launches {counts}; loss card {loss_c:.7f} CPU {loss_h:.7f}; the CPU's gradient "
+              f"norms {({k: float(f'{v:.4g}') for k, v in norms.items()})}; the largest card "
+              f"error {grad_err[worst]:.2e} ({worst}; norm-wise, absolute where the CPU's is 0); "
+              f"step {step_ms:.1f} ms (host clock, synchronized)", flush=True)
+        check(counts == want, f"phase {run}: launches {counts} != {want}")
+        check(math.isfinite(loss_c) and abs(loss_c - loss_h) <= NERF_RGB_TOL,
+              f"phase {run}: loss {loss_c} against the CPU's {loss_h}")
+        check(grad_err[worst] <= NERF_GRAD_TOL, f"phase {run}: {worst} gradient {grad_err[worst]}")
+        if run == "23 clip at 16":
+            check(norms["table"] > 0, f"phase {run}: the table's gradient is 0 on the CPU")
+    gate = {}
+    for flags, expect in ((["--clip_text", "x"], "CLIP encoder"),
+                          (["--rand_pose", "0"], "rand_pose needs --clip_text")):
+        try:
+            main_nerf.main(["synthetic", "--workspace", os.path.join(tmp.name, "gate")] + flags)
+            gate[flags[0]] = None
+        except SystemExit as e:
+            gate[flags[0]] = str(e)
+        check(gate[flags[0]] is not None and expect in gate[flags[0]],
+              f"phase 23: main_nerf {flags} gave {gate[flags[0]]!r}")
+    print(f"[phase 23] main_nerf's gate: {gate}", flush=True)
+    tmp.cleanup()
+    print(f"[phase 23] {time.time() - t_phase:.1f} s", flush=True)
+    return counts_by_run
+
+
+def loader_phases(dev):
+    """Phase 24: cli/run_nerf.py on the synthetic views written as a
+    LINEMOD scene (48 px) and as a deepvoxels scene (512 px, its loader's
+    size), at full width for one epoch each.  Returns {run: launch counts}."""
+    from flnerf_tpu_torch.cli import run_nerf
+    from flnerf_tpu_torch.core.metrics import to8b
+    from flnerf_tpu_torch.data.png import write_png
+    from flnerf_tpu_torch.data.synthetic import load_synthetic_data
+
+    t_phase = time.time()
+    tmp = tempfile.TemporaryDirectory()
+    counts_by_run = {}
+
+    lm = os.path.join(tmp.name, "linemod")
+    os.makedirs(os.path.join(lm, "rgb"))
+    images, poses, _, (H, W, focal), (tr, _, te) = load_synthetic_data(n_train=8, n_test=2,
+                                                                       H=48, W=48)
+    K = [[focal, 0.0, W / 2], [0.0, focal, H / 2], [0.0, 0.0, 1.0]]
+    for split, idx in (("train", tr), ("val", te[:1]), ("test", te)):
+        frames = []
+        for i in idx:
+            name = f"rgb/{split}_{i:03d}.png"
+            write_png(os.path.join(lm, name), to8b(images[i]))
+            frames.append({"file_path": name, "transform_matrix": poses[i].tolist(),
+                           "intrinsic_matrix": K})
+        with open(os.path.join(lm, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": float(2 * np.arctan(W / (2 * focal))),
+                       "near": 2.0, "far": 6.0, "frames": frames}, f)
+
+    dv = os.path.join(tmp.name, "deepvoxels")
+    images, poses, _, (H, W, focal), _ = load_synthetic_data(n_train=1, n_test=2, H=512, W=512)
+    for split, i in (("train", 0), ("validation", 1), ("test", 2)):
+        base = os.path.join(dv, split, "synthetic")
+        os.makedirs(os.path.join(base, "rgb"))
+        os.makedirs(os.path.join(base, "pose"))
+        write_png(os.path.join(base, "rgb", "0000.png"), to8b(images[i]))
+        np.savetxt(os.path.join(base, "pose", "0000.txt"), poses[i].reshape(1, -1))
+    with open(os.path.join(dv, "train", "synthetic", "intrinsics.txt"), "w") as f:
+        f.write(f"{focal} {W / 2} {H / 2} 0.\n0 0 0\n1.\n1.\n{H}. {W}.\n0\n")
+    del images
+
+    for name, argv in (("24 LINEMOD", ["--dataset_type", "LINEMOD", "--datadir", lm]),
+                       ("24 deepvoxels", ["--dataset_type", "deepvoxels", "--datadir", dv,
+                                          "--shape", "synthetic"])):
+        reset_counts()
+        t0 = time.time()
+        res = run_nerf.main(argv + ["--basedir", os.path.join(tmp.name, "logs"), "--expname",
+                                    name.split()[1], "--device", str(dev), *LOADER_NERF_FLAGS])
+        wall = time.time() - t0
+        counts = counts_by_run[name] = launch_counts()
+        h = res["history"][0]
+        print(f"[phase {name}] run_nerf.main (D8 W256, 64 + 128, bf16, 1 epoch): launches "
+              f"{counts}; {h['rays']} rays, train PSNR {h['train_psnr']:.3f}, test PSNR "
+              f"{res['psnr']:.3f}; main {wall:.1f} s", flush=True)
+        check(all(c == 0 for c in counts.values()), f"phase {name}: launched {counts}")
+        check(math.isfinite(res["psnr"]), f"phase {name}: test PSNR {res['psnr']}")
+    tmp.cleanup()
+    print(f"[phase 24] {time.time() - t_phase:.1f} s", flush=True)
+    return counts_by_run
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3272,6 +3657,9 @@ def main():
         wall = time.time() - t0
         fwd_launches, bwd_launches = vk.FWD_LAUNCHES, vk.BWD_LAUNCHES
         ckpts = sorted(f for f in os.listdir(tmp) if f.endswith(".npz"))
+        keep = tempfile.TemporaryDirectory()      # phase 22b renders the last one
+        if ckpts:
+            shutil.copy(os.path.join(tmp, ckpts[-1]), keep.name)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     hist = res["history"]
     psnrs = [h["train_psnr"] for h in hist]
@@ -3288,6 +3676,8 @@ def main():
     check(psnrs[-1] > psnrs[0], f"train PSNR did not rise: {psnrs}")
     check(math.isfinite(res["psnr"]), f"test PSNR not finite: {res['psnr']}")
     check(len(ckpts) == 3, f"expected 3 checkpoints, got {ckpts}")
+    plx = {"ckpt": os.path.join(keep.name, ckpts[-1]), "psnr": res["psnr"], "train": psnrs,
+           "k1": fwd_launches, "k2": bwd_launches}
 
     # ---- phase 3b: where the main path's device time goes (a profiled
     # rerun of 2 epochs without checkpoints; its launches are not counted) ----
@@ -3642,21 +4032,25 @@ def main():
                                          "2^19, lattice hash (phase 9)": lattice_psnr},
                                 lattice_k5_err)
     kernels += sorted_rows[:2] + lattice_rows + sorted_rows[2:]
-    keep = tempfile.TemporaryDirectory()
     nerf_tar = os.path.join(keep.name, "nerf.tar")
+    npz_128 = os.path.join(keep.name, "opt128.npz")
     nerf_phases(dev, keep_tar=nerf_tar)
     nerfpp_phases(dev)
     tensorf_phases(dev)
     dnerf_counts, dnerf_errs = dnerf_phases(dev, t, ngp_psnr)
-    sdf_counts, sdf_errs = sdf_phases(dev, nerf_tar)
-    keep.cleanup()
+    sdf_counts, sdf_errs = sdf_phases(dev, nerf_tar, keep_npz=npz_128)
     resunet_phase(dev)
     gui_counts = gui_phases(dev)
     ddp_counts = ddp_phases(dev)
-    # each kernel's launches on the paths of slices 8 and 9 (phases 17b,
-    # 18b, 20 and 21), beside the main path's; K3/K4's error over every
-    # input they were held on
-    runs = {**dnerf_counts, **sdf_counts, **gui_counts, **ddp_counts}
+    tools_counts = tools_phases(dev, plx, npz_128)
+    keep.cleanup()
+    clip_counts = clip_phase(dev)
+    loader_counts = loader_phases(dev)
+    # each kernel's launches on the paths of slices 8-10 (phases 17b, 18b,
+    # 20-24), beside the main path's; K3/K4's error over every input they
+    # were held on
+    runs = {**dnerf_counts, **sdf_counts, **gui_counts, **ddp_counts, **tools_counts,
+            **clip_counts, **loader_counts}
     for row in kernels:
         k = "K" + re.search(r"\(K(\d)", row["name"]).group(1)
         row["launches_by_path"] = {run: c[k] for run, c in runs.items()}

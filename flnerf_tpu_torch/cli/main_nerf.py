@@ -18,8 +18,13 @@ dearpygui window when that package is importable; otherwise the same session
 headless, training frames until ``--iters`` (then a checkpoint), or 4
 preview frames under ``--test``.
 
-Not ported yet (each raises ``NotImplementedError``): ``--clip_text`` /
-``--rand_pose`` and ``--bg_radius > 0``.
+``--clip_text`` / ``--rand_pose`` gate as the reference's do (cli/
+main_nerf.py:178-193): ``--rand_pose`` without ``--clip_text`` exits, and
+``--clip_text`` exits unless ``core/clip_guidance.clip_loss_fn`` finds a
+local CLIP encoder.  Text-guided training goes through the library:
+``CLIPGuidance`` on views of ``rays/camera.rand_poses``.
+
+Not ported yet (raises ``NotImplementedError``): ``--bg_radius > 0``.
 
 Usage:
   python -m flnerf_tpu_torch.cli.main_nerf data/nerf_synthetic/lego -O --bound 1 --scale 0.8
@@ -150,12 +155,10 @@ def build(args):
     (trainer, field_cfg, render_cfg, train_cfg)."""
     import torch
 
-    from flnerf_tpu_torch.models.hash_ngp import NGP_BACKLOG, NGPConfig
+    from flnerf_tpu_torch.models.hash_ngp import NGPConfig
     from flnerf_tpu_torch.render.ngp import NGPRenderConfig
     from flnerf_tpu_torch.train.ngp_trainer import NGPTrainConfig, NGPTrainer
 
-    if args.clip_text or args.rand_pose >= 0:
-        raise NotImplementedError(f"--clip_text / --rand_pose (CLIP guidance) {NGP_BACKLOG}")
     cfg = NGPConfig(bound=args.bound, desired_resolution=2048,
                     log2_hashmap_size=args.log2_hashmap_size,
                     hash_engine=args.hash_engine,
@@ -211,6 +214,22 @@ def main(argv=None):
     from flnerf_tpu_torch.train.ngp_trainer import NGPSampler
 
     args = parse_args(argv)
+    if args.clip_text or args.rand_pose >= 0:
+        # rand-pose batches have no gt pixels; they train on the CLIP
+        # loss only (utils.py:429-437) — so both flags gate together
+        if not args.clip_text:
+            raise SystemExit(
+                "--rand_pose needs --clip_text: rand-pose batches have "
+                "no ground truth and train on the CLIP loss")
+        from flnerf_tpu_torch.core.clip_guidance import clip_loss_fn
+
+        if clip_loss_fn([args.clip_text]) is None:
+            raise SystemExit(
+                "--clip_text needs a local CLIP encoder (none in this "
+                "offline environment; core/clip_guidance.py documents "
+                "the gate).  Differentiable text-guided training needs "
+                "a torch encoder injected through the library API "
+                "(CLIPGuidance + rays.camera.rand_poses).")
     trainer, _, _, tcfg = build(args)
     os.makedirs(args.workspace, exist_ok=True)
     images, poses, hwf, K, i_split = load_ngp_dataset(args)

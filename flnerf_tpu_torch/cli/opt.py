@@ -6,6 +6,9 @@ Port of ``flnerf_tpu/cli/opt.py``: the same flags and JSON config merge
 dataset -> dense grid init -> quadtree budgeter -> epoch loop (tree rays ->
 train steps -> subdivision -> ckpt{epoch:02d}.npz + treeDivide_{epoch:04d}.pkl
 -> scheduled upsample) -> test-split eval, time_mins.txt and test_psnr.txt.
+``--dataset_type`` auto detects blender (transforms_train.json) and NSVF
+(intrinsics.txt; OpenCV training rays from the file's own intrinsics,
+``--scene_scale``, grid radius 1.5) scenes.
 
 Usage:
   python -m flnerf_tpu_torch.cli.opt <datadir> -t ckpt_dir -c configs/syn.json
@@ -114,7 +117,7 @@ def maybe_merge_config_file(args, parser) -> None:
 
 
 def main(argv=None):
-    from flnerf_tpu_torch.models.voxel_sh import LATER_SLICE, VoxelGridConfig, save_npz
+    from flnerf_tpu_torch.models.voxel_sh import VoxelGridConfig, save_npz
     from flnerf_tpu_torch.rays.camera import get_rays_np, intrinsics_matrix
     from flnerf_tpu_torch.rays.quadtree import RayBudgeter
     from flnerf_tpu_torch.train.plenoxels_trainer import (
@@ -139,13 +142,27 @@ def main(argv=None):
         elif os.path.exists(os.path.join(args.data_dir, "poses_bounds.npy")):
             dtype = "llff"
 
+    opencv_rays = False
     if args.data_dir == "synthetic":
         from flnerf_tpu_torch.data.synthetic import load_synthetic_data
 
         images, poses, _, hwf, i_split = load_synthetic_data(n_train=8, n_test=2, H=48, W=48)
         radius = (1.2, 1.2, 1.2)
     elif dtype == "nsvf":
-        raise NotImplementedError(f"the NSVF loader {LATER_SLICE}")
+        from flnerf_tpu_torch.data.extra_loaders import load_nsvf_data
+
+        scale = args.scene_scale or 1.0
+        imgs_tr, poses_tr, K_nsvf, hwf = load_nsvf_data(args.data_dir, "train", scale)
+        imgs_te, poses_te, _, _ = load_nsvf_data(args.data_dir, "test", scale)
+        images = np.concatenate([imgs_tr, imgs_te], 0)
+        poses = np.concatenate([poses_tr, poses_te], 0)
+        i_split = [
+            np.arange(len(imgs_tr)),
+            np.arange(len(imgs_tr), len(images)),
+            np.arange(len(imgs_tr), len(images)),
+        ]
+        radius = (1.5, 1.5, 1.5)
+        opencv_rays = True  # NSVF poses use the OpenCV camera convention
     else:
         from flnerf_tpu_torch.data.blender import composite_white_bkgd, load_blender_data
 
@@ -156,7 +173,14 @@ def main(argv=None):
     H, W, focal = [int(hwf[0]), int(hwf[1]), hwf[2]]
     K = intrinsics_matrix(H, W, focal)
     i_train, _, i_test = i_split
-    rays = [get_rays_np(H, W, K, p[:3, :4]) for p in poses[i_train]]
+    if opencv_rays:
+        from flnerf_tpu_torch.data.nerfpp_dataset import get_rays_opencv_np
+
+        K4 = np.eye(4, dtype=np.float32)
+        K4[:3, :3] = K_nsvf[:3, :3]
+        rays = [get_rays_opencv_np(H, W, K4, p) for p in poses[i_train]]
+    else:
+        rays = [get_rays_np(H, W, K, p[:3, :4]) for p in poses[i_train]]
     origins = np.stack([r[0] for r in rays], 0)
     dirs = np.stack([r[1] for r in rays], 0)
     budgeter = RayBudgeter(
@@ -223,6 +247,8 @@ def main(argv=None):
     with open(os.path.join(args.train_dir, "time_mins.txt"), "w") as f:
         f.write(f"{mins:.3f}\n")
 
+    # NSVF as well: the centred K and the OpenGL rays of eval_images, as the
+    # reference evaluates it (ROADMAP R8: its training rays are OpenCV's)
     psnr, ssim = trainer.eval_images(
         poses[i_test], images[i_test], H, W, K, chunk=args.eval_chunk
     )

@@ -9,8 +9,9 @@ card it raises unless ``--device cpu``).
 
 As in the reference, the fine network takes ``--netdepth``/``--netwidth``;
 ``--netdepth_fine``/``--netwidth_fine`` are parsed and unused (ROADMAP
-fault R3 of the reference).  ``LINEMOD`` and ``deepvoxels`` raise
-``NotImplementedError`` (their loaders are ROADMAP M21).
+fault R3 of the reference).  ``--dataset_type`` takes llff, blender,
+LINEMOD (the loader's K and near/far), deepvoxels (near/far at the mean
+camera distance +- 1) and synthetic, as the reference does.
 
 Usage:
   python -m flnerf_tpu_torch.cli.run_nerf --config configs/lego.txt
@@ -25,8 +26,6 @@ import shutil
 import time
 
 import numpy as np
-
-LOADER_BACKLOG = "is not ported yet (ROADMAP M21: data/extra_loaders.py)"
 
 
 def config_parser():
@@ -141,8 +140,24 @@ def load_dataset(args):
         i_train, i_val, i_test = i_split
         near, far = 2.0, 6.0
         images = composite_white_bkgd(images, args.white_bkgd)
-    elif args.dataset_type in ("LINEMOD", "deepvoxels"):
-        raise NotImplementedError(f"--dataset_type {args.dataset_type} {LOADER_BACKLOG}")
+    elif args.dataset_type == "LINEMOD":
+        from flnerf_tpu_torch.data.blender import composite_white_bkgd
+        from flnerf_tpu_torch.data.extra_loaders import load_linemod_data
+
+        images, poses, render_poses, hwf, K, i_split, near, far = load_linemod_data(
+            args.datadir, args.half_res, args.testskip
+        )
+        i_train, i_val, i_test = i_split
+        images = composite_white_bkgd(images, args.white_bkgd)
+    elif args.dataset_type == "deepvoxels":
+        from flnerf_tpu_torch.data.extra_loaders import load_dv_data
+
+        images, poses, render_poses, hwf, i_split = load_dv_data(
+            scene=args.shape, basedir=args.datadir, testskip=args.testskip
+        )
+        i_train, i_val, i_test = i_split
+        hemi_r = float(np.mean(np.linalg.norm(poses[:, :3, -1], axis=-1)))
+        near, far = hemi_r - 1.0, hemi_r + 1.0
     elif args.dataset_type == "synthetic":
         from flnerf_tpu_torch.data.synthetic import load_synthetic_data
 

@@ -1,8 +1,9 @@
 """Camera models and ray generation.
 
 Port of ``flnerf_tpu/rays/camera.py``: ``get_rays`` and ``ndc_rays`` in
-torch on the caller's device, ``get_rays_np``, ``intrinsics_matrix`` and
-``pose_spherical`` in numpy (host precompute for the quadtree).
+torch on the caller's device, ``get_rays_np``, ``intrinsics_matrix``,
+``pose_spherical`` and ``rand_poses`` in numpy (host precompute for the
+quadtree; ``rand_poses`` bit for bit the reference's).
 
 Parity targets:
   * get_rays / get_rays_np — nerf-ours/run_nerf_helpers.py:68-88
@@ -10,6 +11,7 @@ Parity targets:
     direction [(i-cx)/fx, -(j-cy)/fy, -1] rotated by c2w).
   * ndc_rays — nerf-ours/run_nerf_helpers.py:91-108 (LLFF forward-facing).
   * pose_spherical — nerf-ours/load_blender.py:29-34 (orbit render path).
+  * rand_poses — ngp-ours/nerf/provider.py:58-93 (CLIP guidance's views).
 """
 
 from __future__ import annotations
@@ -89,6 +91,34 @@ def pose_spherical(theta: float, phi: float, radius: float) -> np.ndarray:
     c2w = rot_theta(theta / 180.0 * np.pi) @ c2w
     c2w = np.array([[-1, 0, 0, 0], [0, 0, 1, 0], [0, 1, 0, 0], [0, 0, 0, 1]], dtype=np.float32) @ c2w
     return c2w
+
+
+def rand_poses(size: int, rng: np.random.Generator, radius: float = 1.0,
+               theta_range=(np.pi / 3, 2 * np.pi / 3),
+               phi_range=(0.0, 2 * np.pi)) -> np.ndarray:
+    """Random orbit-camera poses, [size, 4, 4] c2w — the rand_pose pool
+    for text-guided (CLIP) training (ngp-ours/nerf/provider.py:58-93):
+    uniform theta/phi on the sphere shell, look-at origin with the
+    reference's (0, -1, 0) up convention; columns (right, up, forward)."""
+    thetas = rng.random(size) * (theta_range[1] - theta_range[0]) + theta_range[0]
+    phis = rng.random(size) * (phi_range[1] - phi_range[0]) + phi_range[0]
+    centers = np.stack([
+        radius * np.sin(thetas) * np.sin(phis),
+        radius * np.cos(thetas),
+        radius * np.sin(thetas) * np.cos(phis),
+    ], axis=-1).astype(np.float32)
+
+    def norm(v):
+        return v / (np.linalg.norm(v, axis=-1, keepdims=True) + 1e-10)
+
+    fwd = -norm(centers)
+    up = np.tile(np.array([0.0, -1.0, 0.0], np.float32), (size, 1))
+    right = norm(np.cross(fwd, up))
+    up = norm(np.cross(right, fwd))
+    poses = np.tile(np.eye(4, dtype=np.float32), (size, 1, 1))
+    poses[:, :3, :3] = np.stack((right, up, fwd), axis=-1)
+    poses[:, :3, 3] = centers
+    return poses
 
 
 def intrinsics_matrix(H: int, W: int, focal: float) -> np.ndarray:

@@ -68,12 +68,20 @@ def test_main_trains_evaluates_and_writes_results(tmp_path, capsys, engine):
 def test_unported_flags_raise(flags, tmp_path):
     """The flags the port does not run raise.  The test keeps its name and
     its cases: --gui (flags0) was one of them and now runs, so that case
-    checks that it runs."""
+    checks that it runs; --clip_text and --rand_pose (flags1, flags2) now
+    gate as the reference's do (cli/main_nerf.py:178-193), so those cases
+    check the reference's two exits (no CLIP encoder is installed)."""
     if flags == ["--gui"]:
         # ported: the session runs headless (no dearpygui), 4 preview frames
         res = main_nerf.main(["synthetic", "-O", "--test", "--W", "32", "--H", "24",
                               "--workspace", str(tmp_path)] + TINY + flags)
         assert res == {"step": 0, "spp": 4}
+        return
+    gate = {"--clip_text": "CLIP encoder", "--rand_pose": "rand_pose needs --clip_text"}
+    if flags[0] in gate:
+        with pytest.raises(SystemExit, match=gate[flags[0]]):
+            main_nerf.main(["synthetic", "--workspace", str(tmp_path)] + TINY + flags)
+        assert not os.listdir(tmp_path)
         return
     with pytest.raises(NotImplementedError, match="not ported yet"):
         main_nerf.main(["synthetic", "--workspace", str(tmp_path)] + TINY + flags)
