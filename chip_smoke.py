@@ -330,10 +330,39 @@ Phases (any failure raises, and the script exits non-zero):
  24. cli/run_nerf.py at full width (D8 W256, 64 + 128, bf16) for one epoch
      on the synthetic views written as a LINEMOD scene (48 px, the json's K
      and near/far) and as a deepvoxels scene (512 px, the loader's size; one
-     train view): no K1-K9 launch, finite test PSNRs.
+     train view): no K1-K9 launch, finite test PSNRs;
+ 25. the Plenoxels MSI background: cli/opt.py on phase 3's scene with
+     configs/tnt.json's settings (n_epochs cut to 3) and svox2's
+     Tanks&Temples background, --background_nlayers 64 --background_reso
+     1024, at 256^3, SH degree 3: K1 = steps + 2 test renders, K2 = steps
+     (phase 3's printed beside), rising train PSNR, the peak memory, the
+     step time and a profiled epoch; K2 against its plain version on phase
+     2's batch and the trained grid, with the cotangents of the background
+     composite (log-T channel nonzero) on the trained background and on an
+     opaque one, within 1e-4 of the largest gradient entry;
+     render_imgs (K1 = 2) and render_orbit (8 frames at 48x48, K1 = 8) on
+     its last checkpoint, which carries the background;
+ 26. NGP's background env-map: `main_nerf synthetic -O --log2_hashmap_size
+     19 --iters 512 --bg_radius 32` on the lattice engine: launches equal
+     phase 9's exactly (the 2-D background encode is plain torch), test
+     PSNR beside phase 9's, and the trained field's test views on the
+     env-map and on a white fill, their error split between the gt-white
+     and the object's pixels; the trained background on one 4096-ray batch,
+     card against CPU (bf16 operands: phase 14a's rgb tolerance);
+ 27. the Plenoxels options, each for one epoch at 256^3: the renders no
+     kernel computes on the plain path, nvol and svox1 (cli/opt.py
+     --renderer_backend) and a 3d_texture and an mlp basis (the trainer),
+     K1 = K2 = 0 asserted, the path "plain"; the lumisphere TV on the
+     kernel path (it reads the SH grid beside K1/K2), K1 = steps + the
+     eval's chunks and K2 = steps asserted; step ms beside phase 3's;
+     then weight_prune_grid over the 8 training cameras on phase 3's grid;
+ 28. the inspection tools: rays/visualize.save_debug_images (PNG) on
+     phase 3's last quadtree, PhaseTimers around phases 25-28, BenchRecorder
+     over phase 25's epochs, view_data's detection, scene load and cam-dict
+     and inspect_cameras' epipolar lines without matplotlib.
 
 The last lines are one JSON object describing the kernels (each row with
-its launches on the runs of phases 17b, 18b and 20-24 as "launches_by_path"), the card's name
+its launches on the runs of phases 17b, 18b and 20-28 as "launches_by_path"), the card's name
 and power limit as nvidia-smi gives them, and
 {"ok": true, "device": {...}}.  With no CUDA device, or with the port
 missing, it exits non-zero and prints no result.
@@ -448,6 +477,11 @@ SDF_ITERS = 1000
 SDF_MESH_ITERS = 200
 SDF_BATCH = 4096
 SDF_MESH_RESO = 128
+# phase 25: svox2's Tanks&Temples MSI background (opt/configs/tnt.json)
+MSI_LAYERS = 64
+MSI_RESO = 1024
+ORBIT_FRAMES = 8
+BG_RADIUS = 32             # torch-ngp's --bg_radius for unbounded scenes
 
 
 def check(cond, msg):
@@ -658,7 +692,7 @@ def hold_k1_bitwise(grid, cfg, o, d, what):
     from flnerf_tpu_torch.ops import voxel_kernel as vk
     from flnerf_tpu_torch.tools import voxel_probe
     ray_in = vk.ray_inputs(cfg, o, d)
-    new = vk.cuvol_forward(*grid, *ray_in, cfg)
+    new = vk.cuvol_forward(*grid.tensors, *ray_in, cfg)
     old = torch.full_like(new, float("nan"))
     voxel_probe.launch(voxel_probe.REPLACED, grid, ray_in, cfg, None, old)
     torch.cuda.synchronize()
@@ -682,9 +716,9 @@ def hold_k2(grid, cfg, o, d, gt, what):
     from flnerf_tpu_torch.tools import voxel_probe
     ray_in = vk.ray_inputs(cfg, o, d)
     occ = vk.skip_occupancy(grid.density, grid.alive, cfg)
-    out = vk.cuvol_forward(*grid, *ray_in, cfg, occ=occ)
+    out = vk.cuvol_forward(*grid.tensors, *ray_in, cfg, occ=occ)
     grad_out = upstream_grad(out, gt)
-    got = vk.cuvol_backward(*grid, *ray_in, out, grad_out, cfg, occ=occ)
+    got = vk.cuvol_backward(*grid.tensors, *ray_in, out, grad_out, cfg, occ=occ)
     dens = grid.density.clone().requires_grad_(True)
     sh = grid.sh.clone().requires_grad_(True)
     plain = torch.autograd.grad(vk.render_rays_plain(VoxelGrid(dens, sh, grid.alive), o, d, cfg),
@@ -745,11 +779,11 @@ def kernel_ms(grid, cfg, o, d, gt, iters=20):
     from flnerf_tpu_torch.ops import voxel_kernel as vk
     ray_in = vk.ray_inputs(cfg, o, d)
     occ = vk.skip_occupancy(grid.density, grid.alive, cfg)
-    out = vk.cuvol_forward(*grid, *ray_in, cfg, occ=occ)
+    out = vk.cuvol_forward(*grid.tensors, *ray_in, cfg, occ=occ)
     grad_out = upstream_grad(out, gt)
     grads = (torch.zeros_like(grid.density), torch.zeros_like(grid.sh))
-    k1 = cuda_ms(lambda: vk.cuvol_forward(*grid, *ray_in, cfg), iters)
-    k2 = cuda_ms(lambda: vk.cuvol_backward(*grid, *ray_in, out, grad_out, cfg,
+    k1 = cuda_ms(lambda: vk.cuvol_forward(*grid.tensors, *ray_in, cfg), iters)
+    k2 = cuda_ms(lambda: vk.cuvol_backward(*grid.tensors, *ray_in, out, grad_out, cfg,
                                            grads=grads, occ=occ), iters)
     return k1, k2
 
@@ -913,8 +947,8 @@ def print_probe(tag, what, ms, gnames):
 def lattice_phases(dev, to_dev):
     """Phases 8-10, the hash-NGP path at 2^19 (the lattice engine: K3, K4,
     K6, K7; K5 is gated on its keys but no longer on the path).  Returns
-    phase 9's test PSNR, K5's largest key error and the K6 and K7 rows of
-    the kernels line."""
+    phase 9's test PSNR, K5's largest key error, phase 9's launches (K1-K7)
+    and the K6 and K7 rows of the kernels line."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1217,7 +1251,8 @@ def lattice_phases(dev, to_dev):
     print_probe("phase 10", "the 2^19 small levels", ms_small, ("train", "dense"))
 
     src = "flnerf_tpu_torch/ops/csrc/hash_lattice.cu"
-    return res["psnr"], k5_err, [
+    phase9 = dict(launches, K1=vk.FWD_LAUNCHES, K2=vk.BWD_LAUNCHES)
+    return res["psnr"], k5_err, phase9, [
         {"name": "lattice_encode_forward (K6)", "route": "cuda", "source": src,
          "replaces": "flnerf_tpu/ops/hash_lattice.py:415", "launches": launches["K6"],
          "max_abs_err": k6_err, "ms": ms["K6"], "plain_ms": k6_plain_ms,
@@ -3027,20 +3062,20 @@ def _ddp_rank(rank, world, out_dir):
     o, d, rgb = to(batch.origins), to(batch.dirs), to(batch.rgb)
     mask = torch.ones(o.shape[0], device=dev)
     one = _plx_trainer(dev, DDP_PLX_BATCH, group=solo)
-    g1 = one._grads(o, d, rgb, mask)
+    grads1, mse1, _, err1 = one._grads(o, d, rgb, mask)
     del one
     two = _plx_trainer(dev, DDP_PLX_BATCH)
     check(two.shard_kernel and two.world == 2, "phase 21b: the Plenoxels step is not sharded")
     reset_counts()
-    g2 = two._grads(o, d, rgb, mask)             # the same function, this rank's slice
+    grads2, mse2, _, err2 = two._grads(o, d, rgb, mask)    # the same function, this rank's slice
     torch.cuda.synchronize()
     out["plx_grad_counts"] = launch_counts()
-    for name, a, b in (("grad_density", g2[0], g1[0]), ("grad_sh", g2[1], g1[1])):
+    for name, a, b in zip(("grad_density", "grad_sh"), grads2, grads1):
         out[f"plx_{name}"] = (float((a - b).abs().max()), float(b.abs().max()))
-    out["plx_mse"] = (float(g2[2]), float(g1[2]))
-    out["plx_err"] = float((g2[4] - g1[4]).abs().max())
+    out["plx_mse"] = (float(mse2), float(mse1))
+    out["plx_err"] = float((err2 - err1).abs().max())
     # gloo's all-reduce of the SH gradient (CUDA tensors through the host)
-    buf = g2[1].clone()
+    buf = grads2[1].clone()
     torch.cuda.synchronize()
     dist.barrier()
     t0 = time.time()
@@ -3048,7 +3083,7 @@ def _ddp_rank(rank, world, out_dir):
     torch.cuda.synchronize()
     out["allreduce_s"] = time.time() - t0
     out["allreduce_gb"] = buf.numel() * 4 / 1e9
-    del buf, g1, g2
+    del buf, grads1, grads2
     reset_counts()
     two.run_epoch_rays(batch)                  # the trainer's own step
     torch.cuda.synchronize()
@@ -3560,6 +3595,362 @@ def loader_phases(dev):
     return counts_by_run
 
 
+def slice11_phases(dev, plx, batch, phase9, lattice_psnr):
+    """Phases 25-28: the MSI background, NGP's background env-map, the
+    Plenoxels options (off the kernel where no kernel computes them), the
+    inspection tools.  ``plx``: phase 3's run (its launches, train PSNRs,
+    epoch times and last quadtree); ``batch``: phase 2's (origins, dirs, rgb) training batch; ``phase9``:
+    phase 9's launches; ``lattice_psnr``: its test PSNR.  Returns ({run:
+    launch counts}, K2's largest error against its plain version on the
+    MSI batch)."""
+    import torch
+
+    from flnerf_tpu_torch.cli import main_nerf, opt, render_imgs
+    from flnerf_tpu_torch.cli import render_orbit, view_data
+    from flnerf_tpu_torch.core.benchmark import BenchRecorder
+    from flnerf_tpu_torch.core.logging_utils import PhaseTimers
+    from flnerf_tpu_torch.data.pose_tools import inspect_epipolar_geometry
+    from flnerf_tpu_torch.data.png import read_png
+    from flnerf_tpu_torch.models.voxel_sh import (
+        VoxelGrid,
+        VoxelGridConfig,
+        compose_msi_background,
+        load_npz,
+        max_weight_grid,
+        weight_prune_grid,
+    )
+    from flnerf_tpu_torch.ops import voxel_kernel as vk
+    from flnerf_tpu_torch.rays import visualize
+    from flnerf_tpu_torch.rays.camera import get_rays_np
+    from flnerf_tpu_torch.rays.quadtree import QuadTreeForest, RayBudgeter
+    from flnerf_tpu_torch.rays.sharpness import sharp_image
+    from flnerf_tpu_torch.render.ngp import ngp_render_image
+    from flnerf_tpu_torch.train.plenoxels_trainer import PlenoxelsTrainConfig, PlenoxelsTrainer
+
+    timers = PhaseTimers()
+    tmp = tempfile.TemporaryDirectory()
+    counts_by_run = {}
+    zero = {k: 0 for k in launch_counts()}
+
+    def step_ms(hist):
+        """ms a step over the epochs after the first (ray generation,
+        subdivision and the epoch's host sync included)."""
+        later = hist[1:] or hist
+        n = later[-1]["steps"] - (hist[0]["steps"] if len(hist) > 1 else 0)
+        return 1e3 * sum(h["epoch_s"] for h in later) / max(n, 1)
+
+    # ---- phase 25: the MSI background on K1/K2 ----
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "tnt.json")) as f:
+        tnt = json.load(f)
+    tnt_flags = [a for k, v in tnt.items() if k not in ("dataset_type", "n_epochs")
+                 for a in (f"--{k}", str(v))]
+    msi_flags = ["--background_nlayers", str(MSI_LAYERS), "--background_reso", str(MSI_RESO),
+                 "--device", str(dev)]
+    run = os.path.join(tmp.name, "msi")
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with timers.phase("25 MSI fit (opt.py)"):
+        res = opt.main(["synthetic", "-t", run, *tnt_flags, "--n_epochs", "3", *msi_flags])
+        torch.cuda.synchronize()
+    counts = counts_by_run["25 MSI fit"] = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hist = res["history"]
+    steps = hist[-1]["steps"]
+    train = [h["train_psnr"] for h in hist]
+    grid = res["grid"]
+    bg_gb = grid.background.numel() * 4 / 1e9
+    print(f"[phase 25] opt.main synthetic, configs/tnt.json's settings (3 epochs), "
+          f"--background_nlayers {MSI_LAYERS} --background_reso {MSI_RESO} ({bg_gb:.2f} GB "
+          f"background) at {RESO}^3: launches {counts} (phase 3's K1 {plx['k1']}, K2 "
+          f"{plx['k2']}); steps {steps}; path {hist[-1]['path']}; train PSNR "
+          f"{[round(p, 4) for p in train]} (phase 3's {[round(p, 4) for p in plx['train']]}); "
+          f"test PSNR {res['psnr']:.4f}; step {step_ms(hist):.2f} ms over epochs 2-3 (phase "
+          f"3's {step_ms(plx['hist']):.2f}); epoch s {[round(h['epoch_s'], 3) for h in hist]}; "
+          f"peak memory {peak_gb:.2f} GB (phase 3's {plx['peak_gb']:.2f})", flush=True)
+    want = dict(zero, K1=steps + 2, K2=steps)
+    check(counts == want, f"phase 25: launches {counts} != {want}")
+    check(hist[-1]["path"] == "kernel", "phase 25: the MSI fit left the kernel path")
+    check(all(math.isfinite(p) for p in train) and train[-1] > train[0],
+          f"phase 25: train PSNR {train}")
+    check(math.isfinite(res["psnr"]), f"phase 25: test PSNR {res['psnr']}")
+    check(float(grid.background[..., :3].abs().max()) > 0, "phase 25: the background never moved")
+
+    # where a step of the MSI fit spends its device time: a profiled rerun
+    # of one epoch without checkpoints (its launches are not counted)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        r1 = opt.main(["synthetic", "-t", os.path.join(tmp.name, "msi_prof"), *tnt_flags,
+                       "--n_epochs", "1", *msi_flags, "--tune_nosave"])
+        torch.cuda.synchronize()
+        prof_ms = (time.time() - t0) * 1e3
+    events = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    print(f"[phase 25] profiled MSI fit of 1 epoch ({r1['history'][-1]['steps']} steps, eval "
+          f"included): device busy {busy:.1f} ms of {prof_ms:.1f} ms wall; top kernels by device "
+          f"time:", flush=True)
+    for e in events[:10]:
+        print(f"[phase 25]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
+              f"{e.key[:90]}")
+    del r1, prof, events
+
+    # K2 on phase 2's batch and the trained grid, with the cotangents of
+    # the composite on the trained background and on an opaque, bright one
+    # (sigma 500 and colour coefficients 2 in every cell: the trained one is
+    # nearly transparent and grey, so its log-T cotangent nearly cancels)
+    o, d, gt = batch
+    cfg = VoxelGridConfig(reso=(RESO,) * 3, radius=(SCENE_RADIUS,) * 3, max_steps=MAX_STEPS,
+                          step_size=STEP, background_brightness=tnt["background_brightness"],
+                          background_nlayers=MSI_LAYERS, background_reso=MSI_RESO)
+    ray_in = vk.ray_inputs(cfg, o, d)
+    occ = vk.skip_occupancy(grid.density, grid.alive, cfg)
+    out = vk.cuvol_forward(*grid.tensors, *ray_in, cfg, occ=occ)
+    opaque = grid.background.clone()
+    opaque[..., :3] = 2.0
+    opaque[..., 3] = 500.0
+    k2_err = 0.0
+    for bname, bg in (("trained", grid.background), ("opaque", opaque)):
+        out_l = out.clone().requires_grad_(True)
+        rgb = compose_msi_background(bg, out_l[:, 0:3], out_l[:, 4], o, d, cfg)
+        (grad_out,) = torch.autograd.grad(torch.sum((rgb - gt) ** 2) / (3.0 * o.shape[0]),
+                                          [out_l])
+        got = vk.cuvol_backward(*grid.tensors, *ray_in, out, grad_out, cfg, occ=occ)
+        dens = grid.density.clone().requires_grad_(True)
+        sh = grid.sh.clone().requires_grad_(True)
+        plain = torch.autograd.grad(vk.render_rays_plain(VoxelGrid(dens, sh, grid.alive), o, d,
+                                                         cfg), [dens, sh], grad_out)
+        torch.cuda.synchronize()
+        errs = [float((a - b).abs().max()) for a, b in zip(got, plain)]
+        scales = [float(b.abs().max()) for b in plain]
+        go4 = float(grad_out[:, 4].abs().max())
+        print(f"[phase 25] K2 on phase 2's {o.shape[0]}-ray batch, the trained grid, the "
+              f"composite's cotangents on the {bname} background (largest |log-T cotangent| "
+              f"{go4:.3e}, largest |rgb cotangent| {float(grad_out[:, :3].abs().max()):.3e}): "
+              f"max_err density {errs[0]:.3e} (largest {scales[0]:.3e}), SH {errs[1]:.3e} "
+              f"(largest {scales[1]:.3e})", flush=True)
+        check(go4 > 0, f"phase 25: the composite ({bname}) sent K2 no log-T cotangent")
+        for e, sc in zip(errs, scales):
+            check(sc > 0 and e <= 1e-4 * sc, f"phase 25: K2 differs from the plain version by "
+                                             f"{e} > 1e-4 * {sc} ({bname} background)")
+        k2_err = max(k2_err, *errs)
+        del out_l, rgb, grad_out, got, plain, dens, sh
+    del out, occ, opaque
+
+    ckpt = os.path.join(run, sorted(f for f in os.listdir(run) if f.endswith(".npz"))[-1])
+    # the tools' time split: the npz load alone (each tool loads it once,
+    # then renders the loaded grid without a trainer)
+    with timers.phase("25 load_npz"):
+        g_l, _ = load_npz(ckpt, device=dev)
+        torch.cuda.synchronize()
+    del g_l
+    reset_counts()
+    with timers.phase("25 render_imgs"):
+        rimg = render_imgs.main([ckpt, "synthetic", "--render_dir", os.path.join(tmp.name, "ri"),
+                                 "--device", str(dev)])
+    counts = counts_by_run["25 render_imgs"] = launch_counts()
+    check(counts == dict(zero, K1=2), f"phase 25: render_imgs launches {counts}")
+    odir = os.path.join(tmp.name, "orbit")
+    reset_counts()
+    with timers.phase("25 render_orbit"):
+        n_frames = render_orbit.main(["--ckpt", ckpt, "--out", odir, "--n_frames",
+                                      str(ORBIT_FRAMES), "--H", "48", "--W", "48", "--no_gif",
+                                      "--device", str(dev)])
+    counts_o = counts_by_run["25 render_orbit"] = launch_counts()
+    frames = [read_png(os.path.join(odir, f)) for f in sorted(os.listdir(odir))]
+    print(f"[phase 25] render_imgs on {os.path.basename(ckpt)} (its background read back): "
+          f"launches {counts}; mean PSNR {rimg['psnr']:.4f} (the fit's eval {res['psnr']:.4f}; "
+          f"R9: load_npz marches 512 steps); render_orbit {n_frames} frames at 48x48: launches "
+          f"{counts_o}; frame value range {min(int(f.min()) for f in frames)}-"
+          f"{max(int(f.max()) for f in frames)}; wall s: load_npz alone "
+          f"{timers.totals['25 load_npz']:.3f}, render_imgs {timers.totals['25 render_imgs']:.3f}"
+          f", render_orbit {timers.totals['25 render_orbit']:.3f} (each with its own load)",
+          flush=True)
+    check(counts_o == dict(zero, K1=ORBIT_FRAMES) and len(frames) == n_frames == ORBIT_FRAMES,
+          f"phase 25: render_orbit launches {counts_o}, {len(frames)} frames")
+    check(math.isfinite(rimg["psnr"]), f"phase 25: render_imgs PSNR {rimg['psnr']}")
+    msi_hist, msi_psnr = hist, res["psnr"]
+    del res, grid
+
+    # ---- phase 26: NGP's background env-map beside K3/K4 (and K6/K7) ----
+    ws = os.path.join(tmp.name, "ngp_bg")
+    flags = ["synthetic", "-O", *LATTICE_FLAGS, "--iters", str(NGP_ITERS),
+             "--bg_radius", str(BG_RADIUS), "--workspace", ws]
+    reset_counts()
+    with timers.phase("26 main_nerf --bg_radius"):
+        res = main_nerf.main(flags)
+        torch.cuda.synchronize()
+    counts = counts_by_run["26 NGP bg_radius"] = launch_counts()
+    losses = [h["chunk_loss"] for h in res["history"]]
+    want = dict(zero, **phase9)
+    trainer, sampler, _, _ = ngp_setup(os.path.join(tmp.name, "unused"),
+                                       (*LATTICE_FLAGS, "--bg_radius", str(BG_RADIUS)))
+    trainer.load_checkpoint(ws)
+    o_b, d_b = (torch.from_numpy(a[0]).to(dev) for a in sampler.sample_chunk(1, 4096)[:2])
+    field = trainer.field
+    with torch.no_grad():
+        bg_card = field.background(o_b, d_b)
+        field_cpu = copy.deepcopy(field).to("cpu")
+        bg_cpu = field_cpu.background(o_b.cpu(), d_b.cpu())
+    bg_err = float((bg_card.cpu() - bg_cpu).abs().max())
+    # where the test PSNR goes: the test views rendered on the env-map (as
+    # main_nerf's eval) and on the white fill of phase 9, split into the
+    # pixels whose gt is the white background and the object's pixels
+    args26 = main_nerf.parse_args(flags)
+    imgs26, poses26, hwf26, K26, (_, _, i_test26) = main_nerf.load_ngp_dataset(args26)
+    H26, W26 = int(hwf26[0]), int(hwf26[1])
+    split = {}
+    for fill, fn in (("env-map", field.background), ("white", None)):
+        sq_w = sq_o = 0.0
+        psnrs26, bg_means = [], []
+        for i in i_test26:
+            rgb26, _ = ngp_render_image(field, trainer.occ, trainer.rcfg, H26, W26, K26,
+                                        poses26[i][:3, :4], chunk=args26.max_ray_batch,
+                                        bg_fn=fn)
+            gt26 = np.asarray(imgs26[i], np.float32)[..., :3]
+            white = np.all(gt26 > 0.99, -1)
+            err = ((rgb26 - gt26) ** 2).sum(-1)
+            sq_w, sq_o = sq_w + float(err[white].sum()), sq_o + float(err[~white].sum())
+            psnrs26.append(-10.0 * math.log10(float(np.mean((rgb26 - gt26) ** 2))))
+            bg_means.append(float(rgb26[white].mean()))
+        n_w = sum(int(np.all(np.asarray(imgs26[i])[..., :3] > 0.99, -1).sum())
+                  for i in i_test26)
+        n_all = len(i_test26) * H26 * W26
+        split[fill] = (float(np.mean(psnrs26)), sq_w / max(3 * n_w, 1),
+                       sq_o / max(3 * (n_all - n_w), 1), float(np.mean(bg_means)), n_w / n_all)
+    for fill, (p26, mse_w, mse_o, mean_w, share) in split.items():
+        print(f"[phase 26] the trained field on the test views with the {fill} behind it: "
+              f"PSNR {p26:.4f}; MSE on the gt-white pixels ({100 * share:.1f}%) {mse_w:.6f}, "
+              f"their mean rendered value {mean_w:.4f}; MSE on the object's pixels "
+              f"{mse_o:.6f}", flush=True)
+    print(f"[phase 26] main_nerf {' '.join(flags[:-2])}: launches {counts} (phase 9's "
+          f"{phase9}); test PSNR {res['psnr']:.4f} (phase 9's, no background, "
+          f"{lattice_psnr:.4f}); mean train loss per chunk first {losses[0]:.5f} last "
+          f"{losses[-1]:.5f}; the trained background on 4096 rays card against CPU: max_err "
+          f"{bg_err:.3e} (range {float(bg_cpu.min()):.4f}-{float(bg_cpu.max()):.4f})",
+          flush=True)
+    check(counts == want, f"phase 26: launches {counts} != phase 9's {want}")
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          f"phase 26: train loss {losses}")
+    check(math.isfinite(res["psnr"]), f"phase 26: test PSNR {res['psnr']}")
+    check(bg_err <= NERF_RGB_TOL, f"phase 26: the background differs card/CPU by {bg_err}")
+    check(abs(split["env-map"][0] - res["psnr"]) <= 1e-3,
+          f"phase 26: the env-map reading {split['env-map'][0]} is not main_nerf's {res['psnr']}")
+    del trainer, sampler, field, field_cpu
+
+    # ---- phase 27: the Plenoxels options: the renders no kernel computes
+    # (nvol, svox1, the learned bases) on the plain path, the lumisphere TV
+    # beside K1/K2 ----
+    images, poses, H, W, focal, K, i_train, i_test = scene()
+    rays = [get_rays_np(H, W, K, p[:3, :4]) for p in poses[i_train]]
+    reso_arg = f"[[{RESO},{RESO},{RESO}]]"
+    gcfg = VoxelGridConfig(reso=(RESO,) * 3, radius=(SCENE_RADIUS,) * 3, max_steps=MAX_STEPS,
+                           step_size=STEP)
+    options = {"nvol": None, "svox1": None,
+               "3d_texture": (gcfg._replace(basis_type="3d_texture"), {}),
+               "mlp": (gcfg._replace(basis_type="mlp"), {}),
+               "lumisphere TV": (gcfg, {"lambda_tv_lumisphere": 1e-3,
+                                        "tv_lumisphere_dir_factor": 0.5})}
+    pruned = None
+    for name, spec in options.items():
+        reset_counts()
+        with timers.phase(f"27 {name}"):
+            if spec is None:
+                res = opt.main(["synthetic", "-t", os.path.join(tmp.name, name), "--reso",
+                                reso_arg, "--n_epochs", "1", "--renderer_backend", name,
+                                "--tune_nosave", "--device", str(dev)])
+                hist, psnr = res["history"], res["psnr"]
+            else:
+                tr = PlenoxelsTrainer(spec[0], PlenoxelsTrainConfig(n_epoch=1, **spec[1]),
+                                      device=dev)
+                budgeter = RayBudgeter(images[i_train], np.stack([r[0] for r in rays]),
+                                       np.stack([r[1] for r in rays]), init_level=2, seed=0)
+                tr.fit(budgeter, verbose=False)
+                hist = tr.history
+                psnr = tr.eval_images(poses[i_test], images[i_test], H, W, K)[0]
+            torch.cuda.synchronize()
+        counts = counts_by_run[f"27 {name}"] = launch_counts()
+        h = hist[-1]
+        on_kernel = name == "lumisphere TV"
+        n_eval = len(i_test) * -(-H * W // 4096)      # eval_images' chunks
+        want = dict(zero, K1=h["steps"] + n_eval, K2=h["steps"]) if on_kernel else zero
+        h3 = plx["hist"][0]
+        print(f"[phase 27] {name}: path {h['path']}; launches {counts}; {h['steps']} steps of "
+              f"{BATCH} rays in {h['epoch_s']:.3f} s ({1e3 * h['epoch_s'] / h['steps']:.1f} ms a "
+              f"step, the epoch's ray generation and sync included; phase 3's first epoch "
+              f"{1e3 * h3['epoch_s'] / h3['steps']:.1f}, its epochs 2-3 "
+              f"{step_ms(plx['hist']):.1f}); train PSNR "
+              f"{h['train_psnr']:.4f}; test PSNR {psnr:.4f}", flush=True)
+        check(counts == want, f"phase 27: {name} launched {counts}, not {want}")
+        check(h["path"] == ("kernel" if on_kernel else "plain"),
+              f"phase 27: {name} took the {h['path']} path")
+        check(math.isfinite(h["train_psnr"]) and math.isfinite(psnr),
+              f"phase 27: {name} PSNRs {h['train_psnr']}, {psnr}")
+        del hist
+    # max-weight pruning of phase 3's last grid (its 3 epochs), marched at
+    # cli/opt.py's 1792 steps: at the default threshold (0.0256), and at a
+    # tenth of the largest weight (a 3-epoch grid spreads its opacity over
+    # many samples, each below the default)
+    g3, c3 = load_npz(plx["ckpt"], device=dev)
+    c3 = c3._replace(max_steps=MAX_STEPS)
+    with timers.phase("27 weight_prune_grid"):
+        pruned = weight_prune_grid(g3, c3, poses[i_train], H, W, K)
+        before, after = int(g3.alive.sum()), int(pruned.alive.sum())
+        torch.cuda.synchronize()
+    top = float(max_weight_grid(g3, c3, poses[i_train], H, W, K).max())
+    tenth = int(weight_prune_grid(g3, c3, poses[i_train], H, W, K,
+                                  weight_thresh=0.1 * top).alive.sum())
+    print(f"[phase 27] weight_prune_grid (dilation 2) over the {len(i_train)} training cameras "
+          f"(every 2nd pixel) on phase 3's last grid: alive {before} -> {after} cells at the "
+          f"default threshold 0.0256 ({timers.totals['27 weight_prune_grid']:.3f} s); the "
+          f"largest sample weight {top:.4f}; at a tenth of it {tenth} cells", flush=True)
+    check(after <= before and 0 < tenth < before,
+          f"phase 27: weight pruning kept {after} (default) and {tenth} of {before}")
+    del pruned, g3
+
+    # ---- phase 28: the inspection tools ----
+    with timers.phase("28 tools"):
+        forest = QuadTreeForest.load(plx["tree"])
+        sharp = np.stack([sharp_image(im) for im in images[i_train]])
+        paths = visualize.save_debug_images(os.path.join(tmp.name, "debug"), images[i_train],
+                                            forest, sharp, ext="png")
+        overlay = read_png(paths[0])
+        rec = BenchRecorder({"phase": 25, "card": smi_line()})
+        for h in msi_hist:
+            rec.record(wall_s=h["wall_s"], psnr=h["train_psnr"], rays=h["rays"])
+        rec.record(wall_s=msi_hist[-1]["wall_s"], test_psnr=msi_psnr)
+        rec.save(os.path.join(tmp.name, "bench.json"))
+        rec2 = BenchRecorder.load(os.path.join(tmp.name, "bench.json"))
+        target = msi_hist[1]["train_psnr"]
+        kind = view_data.detect_dataset_type("synthetic")
+        v_poses, v_hwf = view_data.load_scene("synthetic", kind)
+        cams = view_data.cam_dict_from_poses(v_poses, v_hwf)
+        a, b = (cams[f"{i:04d}"] for i in i_train[:2])
+        mats = [np.asarray(c[k]).reshape(4, 4) for c in (a, b) for k in ("K", "W2C")]
+        lines = inspect_epipolar_geometry((images[i_train[0]] * 255).astype(np.uint8),
+                                          *mats[:2], (images[i_train[1]] * 255).astype(np.uint8),
+                                          *mats[2:], n_points=8)
+    print(f"[phase 28] save_debug_images: {len(paths)} PNGs of phase 3's last quadtree "
+          f"({forest.n_leaves} leaves) and sharpness heat maps, overlay {overlay.shape}; "
+          f"BenchRecorder over phase 25's epochs: time to {target:.3f} dB "
+          f"{rec2.time_to_psnr(target):.3f} s, rays/s {rec2.rays_per_sec():.1f}, "
+          f"{len(rec2.samples)} samples read back; view_data: {kind}, {len(cams)} cameras; "
+          f"inspect_cameras' epipolar lines {lines.shape}, finite "
+          f"{bool(np.isfinite(lines).all())}; their matplotlib plots not drawn", flush=True)
+    check(len(paths) == 2 * len(i_train) and overlay.shape == (H, W, 3),
+          f"phase 28: debug images {paths}")
+    check(rec2.samples == rec.samples and rec2.time_to_psnr(target) is not None,
+          "phase 28: BenchRecorder")
+    check(kind == "synthetic" and len(cams) == len(v_poses) and lines.ndim == 2
+          and lines.shape[1] == 3 and bool(np.isfinite(lines).all()),
+          "phase 28: view_data / inspect_cameras")
+    print("[phase 28] PhaseTimers over phases 25-28:\n" + "\n".join(
+        f"[phase 28]   {line}" for line in timers.summary().splitlines()), flush=True)
+    tmp.cleanup()
+    return counts_by_run, k2_err
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3657,9 +4048,10 @@ def main():
         wall = time.time() - t0
         fwd_launches, bwd_launches = vk.FWD_LAUNCHES, vk.BWD_LAUNCHES
         ckpts = sorted(f for f in os.listdir(tmp) if f.endswith(".npz"))
+        trees = sorted(f for f in os.listdir(tmp) if f.startswith("treeDivide_"))
         keep = tempfile.TemporaryDirectory()      # phase 22b renders the last one
-        if ckpts:
-            shutil.copy(os.path.join(tmp, ckpts[-1]), keep.name)
+        for f in ckpts[-1:] + trees[-1:]:        # phase 28 draws the last quadtree
+            shutil.copy(os.path.join(tmp, f), keep.name)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     hist = res["history"]
     psnrs = [h["train_psnr"] for h in hist]
@@ -3677,7 +4069,8 @@ def main():
     check(math.isfinite(res["psnr"]), f"test PSNR not finite: {res['psnr']}")
     check(len(ckpts) == 3, f"expected 3 checkpoints, got {ckpts}")
     plx = {"ckpt": os.path.join(keep.name, ckpts[-1]), "psnr": res["psnr"], "train": psnrs,
-           "k1": fwd_launches, "k2": bwd_launches}
+           "k1": fwd_launches, "k2": bwd_launches, "hist": hist, "peak_gb": peak_gb,
+           "tree": os.path.join(keep.name, trees[-1])}
 
     # ---- phase 3b: where the main path's device time goes (a profiled
     # rerun of 2 epochs without checkpoints; its launches are not counted) ----
@@ -3761,7 +4154,7 @@ def main():
                      ("the main path's grid after phase 3c's 10 epochs", trained)):
         c = voxel_probe.sample_counts(g, cfg, o, d)
         pm = voxel_probe.probe(g, cfg, o, d)
-        out_g = vk.cuvol_forward(*g, *vk.ray_inputs(cfg, o, d), cfg)
+        out_g = vk.cuvol_forward(*g.tensors, *vk.ray_inputs(cfg, o, d), cfg)
         pb = voxel_probe.probe_backward(g, cfg, o, d, upstream_grad(out_g, gt))
         del out_g
         k2_same = kernel_ms(g, cfg, o, d, gt)[1]
@@ -4027,7 +4420,7 @@ def main():
          "bound_ms": bounds["K4"][0], "bound_by": bounds["K4"][1], "library_ms": None},
     ]
     del trainer, sampler, x_batch, x_refresh, g_train, g_dense, table, grad_buf
-    lattice_psnr, lattice_k5_err, lattice_rows = lattice_phases(dev, t)
+    lattice_psnr, lattice_k5_err, phase9, lattice_rows = lattice_phases(dev, t)
     sorted_rows = sorted_phases(dev, t, {"2^15, xor hash (phase 6)": ngp_psnr,
                                          "2^19, lattice hash (phase 9)": lattice_psnr},
                                 lattice_k5_err)
@@ -4043,20 +4436,23 @@ def main():
     gui_counts = gui_phases(dev)
     ddp_counts = ddp_phases(dev)
     tools_counts = tools_phases(dev, plx, npz_128)
-    keep.cleanup()
     clip_counts = clip_phase(dev)
     loader_counts = loader_phases(dev)
-    # each kernel's launches on the paths of slices 8-10 (phases 17b, 18b,
-    # 20-24), beside the main path's; K3/K4's error over every input they
-    # were held on
+    slice11_counts, msi_k2_err = slice11_phases(dev, plx, (o, d, gt), phase9, lattice_psnr)
+    keep.cleanup()
+    # each kernel's launches on the paths of slices 8-11 (phases 17b, 18b,
+    # 20-28), beside the main path's; K2's and K3/K4's error over every
+    # input they were held on
     runs = {**dnerf_counts, **sdf_counts, **gui_counts, **ddp_counts, **tools_counts,
-            **clip_counts, **loader_counts}
+            **clip_counts, **loader_counts, **slice11_counts}
     for row in kernels:
         k = "K" + re.search(r"\(K(\d)", row["name"]).group(1)
         row["launches_by_path"] = {run: c[k] for run, c in runs.items()}
         if k in ("K3", "K4"):
             i = 0 if k == "K3" else 1
             row["max_abs_err"] = max(row["max_abs_err"], dnerf_errs[i], sdf_errs[i])
+        if k == "K2":
+            row["max_abs_err"] = max(row["max_abs_err"], msi_k2_err)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

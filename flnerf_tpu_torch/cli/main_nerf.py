@@ -24,7 +24,9 @@ main_nerf.py:178-193): ``--rand_pose`` without ``--clip_text`` exits, and
 local CLIP encoder.  Text-guided training goes through the library:
 ``CLIPGuidance`` on views of ``rays/camera.rand_poses``.
 
-Not ported yet (raises ``NotImplementedError``): ``--bg_radius > 0``.
+``--bg_radius R`` (R > 0; torch-ngp's switch for unbounded scenes) trains
+the background env-map of ``models/hash_ngp.py`` beside the field: its 2-D
+encoding is plain torch, so the run launches the same kernels as without it.
 
 Usage:
   python -m flnerf_tpu_torch.cli.main_nerf data/nerf_synthetic/lego -O --bound 1 --scale 0.8
@@ -32,6 +34,7 @@ Usage:
   python -m flnerf_tpu_torch.cli.main_nerf synthetic -O --log2_hashmap_size 19
   python -m flnerf_tpu_torch.cli.main_nerf synthetic -O --log2_hashmap_size 19 --hash_engine sorted
   python -m flnerf_tpu_torch.cli.main_nerf synthetic -O --gui [--test]
+  python -m flnerf_tpu_torch.cli.main_nerf synthetic -O --bg_radius 32
 """
 
 from __future__ import annotations

@@ -8,7 +8,10 @@ train steps -> subdivision -> ckpt{epoch:02d}.npz + treeDivide_{epoch:04d}.pkl
 -> scheduled upsample) -> test-split eval, time_mins.txt and test_psnr.txt.
 ``--dataset_type`` auto detects blender (transforms_train.json) and NSVF
 (intrinsics.txt; OpenCV training rays from the file's own intrinsics,
-``--scene_scale``, grid radius 1.5) scenes.
+``--scene_scale``, grid radius 1.5) scenes.  ``--background_nlayers L
+--background_reso R`` trains svox2's MSI background (its Tanks&Temples
+setting is 64 layers at 1024) beside the grid, on K1/K2 on the card;
+``--renderer_backend nvol|svox1`` trains on the plain render.
 
 Usage:
   python -m flnerf_tpu_torch.cli.opt <datadir> -t ckpt_dir -c configs/syn.json
@@ -48,10 +51,10 @@ def parse_arguments(argv=None):
     group.add_argument("--stop_thresh", type=float, default=1e-7)
     group.add_argument("--renderer_backend", "--backend", type=str,
                        default="cuvol", choices=("cuvol", "nvol", "svox1"),
-                       help="RenderOptions.backend (svox2.py:17); only cuvol "
-                            "is ported")
+                       help="RenderOptions.backend (svox2.py:17); nvol and "
+                            "svox1 train on the plain path")
     group.add_argument("--background_nlayers", type=int, default=0,
-                       help="MSI background layers (not ported: must be 0)")
+                       help="MSI background layers (svox2.py:498-522)")
     group.add_argument("--background_reso", type=int, default=512)
 
     group = parser.add_argument_group("optimization")
@@ -69,6 +72,8 @@ def parse_arguments(argv=None):
     group = parser.add_argument_group("losses")
     group.add_argument("--lambda_tv", type=float, default=1e-5)
     group.add_argument("--lambda_tv_sh", type=float, default=1e-3)
+    # MSI background optimization (argument_parser.py:95-107 + 137-140);
+    # active when --background_nlayers > 0
     group.add_argument("--lr_sigma_bg", type=float, default=3e0)
     group.add_argument("--lr_sigma_bg_final", type=float, default=3e-3)
     group.add_argument("--lr_color_bg", type=float, default=1e-1)
@@ -78,7 +83,8 @@ def parse_arguments(argv=None):
     group.add_argument("--lambda_tv_background_color", type=float,
                        default=1e-2)
     group.add_argument("--background_density_thresh", type=float,
-                       default=1.0)
+                       default=1.0,
+                       help="sparsify_background threshold (svox2.py:1431)")
     # autotune hygiene (argument_parser.py:168-171): tune_mode skips the
     # per-epoch checkpoints, tune_nosave also skips the final one
     group.add_argument("--tune_mode", action="store_true")
@@ -200,6 +206,7 @@ def main(argv=None):
         max_steps=int(3.5 * max(reso_schedule[0]) / args.step_size),
         backend=args.renderer_backend,
         background_nlayers=args.background_nlayers,
+        background_reso=args.background_reso,
     )
     # schedule grid upsampling across epochs if more resolutions are given
     n_up = len(reso_schedule) - 1

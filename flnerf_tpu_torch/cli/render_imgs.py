@@ -1,13 +1,13 @@
 """Plenoxels checkpoint evaluation CLI (opt/render_imgs.py analog).
 
 Port of ``flnerf_tpu/cli/render_imgs.py``: loads a ckpt.npz + dataset,
-renders every test view through the trainer's ``render_image`` (the fused
-cuvol forward on a CUDA device), computes PSNR/SSIM/(gated LPIPS), writes
-PNGs (``data/png.py``) + results.txt; ``--timing`` renders only and prints
-the views per second (opt/render_imgs.py:22-92 flag surface subset).  Plus
-``--device`` (default ``cuda``; with no card it raises unless ``--device
-cpu``).  Data: the offline ``synthetic`` scene or a blender directory, as in
-the reference.
+renders every test view of the loaded grid through ``render_grid_image``
+(the fused cuvol forward on a CUDA device; no trainer), computes
+PSNR/SSIM/(gated LPIPS), writes PNGs (``data/png.py``) + results.txt;
+``--timing`` renders only and prints the views per second
+(opt/render_imgs.py:22-92 flag surface subset).  Plus ``--device`` (default
+``cuda``; with no card it raises unless ``--device cpu``).  Data: the
+offline ``synthetic`` scene or a blender directory, as in the reference.
 
 Usage:
   python -m flnerf_tpu_torch.cli.render_imgs ckpt_dir/ckpt07.npz <datadir> [--timing]
@@ -30,11 +30,7 @@ def main(argv=None):
     from flnerf_tpu_torch.data.png import write_png
     from flnerf_tpu_torch.models.voxel_sh import load_npz
     from flnerf_tpu_torch.rays.camera import intrinsics_matrix
-    from flnerf_tpu_torch.train.plenoxels_trainer import (
-        PlenoxelsState,
-        PlenoxelsTrainConfig,
-        PlenoxelsTrainer,
-    )
+    from flnerf_tpu_torch.train.plenoxels_trainer import render_grid_image
 
     parser = argparse.ArgumentParser()
     parser.add_argument("ckpt", type=str)
@@ -62,10 +58,6 @@ def main(argv=None):
     K = intrinsics_matrix(H, W, focal)
     i_test = i_split[2]
 
-    trainer = PlenoxelsTrainer(gcfg, PlenoxelsTrainConfig(), device=device)
-    trainer.state = PlenoxelsState(grid, torch.zeros_like(grid.density),
-                                   torch.zeros_like(grid.sh), 0)
-
     render_dir = args.render_dir or os.path.join(os.path.dirname(args.ckpt), "test_renders")
     os.makedirs(render_dir, exist_ok=True)
     lp = lpips_fn()
@@ -73,7 +65,7 @@ def main(argv=None):
     psnrs, ssims, lpipss = [], [], []
     t0 = time.time()
     for i, vi in enumerate(i_test):
-        rgb = trainer.render_image(H, W, K, poses[vi][:3, :4], chunk=args.eval_chunk)
+        rgb = render_grid_image(grid, gcfg, H, W, K, poses[vi][:3, :4], chunk=args.eval_chunk)
         if not args.timing:
             write_png(os.path.join(render_dir, f"{i:04d}.png"), to8b(rgb))
             gt = images[vi]
@@ -82,7 +74,7 @@ def main(argv=None):
             ssims.append(float(compute_ssim(torch.from_numpy(np.asarray(gt, np.float32)),
                                             torch.from_numpy(rgb))))
             lpipss.append(lp(gt, rgb) if lp else float("nan"))
-    dt = time.time() - t0   # render_image returns host arrays: the device is done
+    dt = time.time() - t0   # render_grid_image returns host arrays: the device is done
 
     if args.timing:
         fps = len(i_test) / dt

@@ -5,7 +5,11 @@ The reference (``flnerf_tpu/models/voxel_sh.py`` ``VoxelGrid`` and
 ``flnerf_tpu/train/plenoxels_trainer.py`` ``PlenoxelsState``) keeps the same
 dense layouts as the port: density [X,Y,Z] f32, sh [X,Y,Z,27] f32, alive
 [X,Y,Z] bool, RMSProp accumulators shaped like density and sh, and an int
-step.  ``np.asarray`` of its arrays gives the inputs here.
+step.  ``np.asarray`` of its arrays gives the inputs here.  The optional
+parts cross as keyword arguments and come back as a dict: the MSI background
+[2R, R, L, 4] f32, its RMSProp state and its [2R, R] bool ``bg_alive``, and
+a learned basis, the [R, R, R, B] texture or the MLP's dict of ``w0..w3``
+[in, out] and ``b0..b3``, with its RMSProp state shaped like it.
 
 NGP (``flnerf_tpu/models/hash_ngp.py`` params): a dict with ``table`` and
 the lists ``sigma_net`` and ``color_net`` of [in, out] weights.  The packed
@@ -18,7 +22,9 @@ kept by the port as [Lb, t_r64 * 64, 2].  The sorted engine's is the tuple
 the port as [Lb, t_cap_big, C].  The two tuples differ in tb's rank (3 for
 the lattice, 4 for the sorted engine).  Tables convert whole, padding
 included, so checkpoints round-trip unchanged.  The weights stay [in, out], in
-``NGPField.parameters()`` order: table(s), sigma_net, color_net.  Its
+``NGPField.parameters()`` order: table(s), sigma_net, color_net and, with
+the background env-map, ``bg_table`` [T, C] (its natural layout in both
+packages) and ``bg_net``.  Its
 occupancy state is the reference's density grid and mean, with the
 bitfield repacked.
 
@@ -72,29 +78,54 @@ def _f32(a, device) -> torch.Tensor:
     return torch.tensor(np.asarray(a, np.float32), device=device)
 
 
-def voxel_grid_from_numpy(density, sh, alive, device="cpu") -> VoxelGrid:
+def _basis(basis, device):
+    if basis is None:
+        return None
+    if isinstance(basis, dict):
+        return {k: _f32(v, device) for k, v in basis.items()}
+    return _f32(basis, device)
+
+
+def _basis_np(basis):
+    if basis is None:
+        return None
+    if isinstance(basis, dict):
+        return {k: v.detach().cpu().numpy() for k, v in basis.items()}
+    return basis.detach().cpu().numpy()
+
+
+def voxel_grid_from_numpy(density, sh, alive, device="cpu", background=None,
+                          basis=None) -> VoxelGrid:
     density = _f32(density, device)
     sh = _f32(sh, device)
     alive = torch.tensor(np.asarray(alive, bool), device=device)
     if sh.shape[:3] != density.shape or alive.shape != density.shape:
         raise ValueError(f"grid shapes disagree: density {tuple(density.shape)}, "
                          f"sh {tuple(sh.shape)}, alive {tuple(alive.shape)}")
-    return VoxelGrid(density, sh, alive)
+    return VoxelGrid(density, sh, alive,
+                     None if background is None else _f32(background, device),
+                     _basis(basis, device))
 
 
 def plenoxels_state_from_numpy(density, sh, alive, rms_density, rms_sh, step,
-                               device="cpu") -> PlenoxelsState:
-    grid = voxel_grid_from_numpy(density, sh, alive, device)
+                               device="cpu", background=None, basis=None, rms_bg=None,
+                               bg_alive=None, rms_basis=None) -> PlenoxelsState:
+    grid = voxel_grid_from_numpy(density, sh, alive, device, background, basis)
     rms_density = _f32(rms_density, device)
     rms_sh = _f32(rms_sh, device)
     if rms_density.shape != grid.density.shape or rms_sh.shape != grid.sh.shape:
         raise ValueError("RMSProp accumulators must be shaped like density and sh")
-    return PlenoxelsState(grid, rms_density, rms_sh, int(step))
+    return PlenoxelsState(
+        grid, rms_density, rms_sh, int(step),
+        rms_bg=None if rms_bg is None else _f32(rms_bg, device),
+        bg_alive=(None if bg_alive is None
+                  else torch.tensor(np.asarray(bg_alive, bool), device=device)),
+        rms_basis=_basis(rms_basis, device))
 
 
 def voxel_grid_to_numpy(grid: VoxelGrid):
     """(density, sh, alive) as numpy arrays."""
-    return tuple(t.detach().cpu().numpy() for t in grid)
+    return tuple(t.detach().cpu().numpy() for t in grid.tensors)
 
 
 def plenoxels_state_to_numpy(state: PlenoxelsState):
@@ -102,6 +133,17 @@ def plenoxels_state_to_numpy(state: PlenoxelsState):
     return voxel_grid_to_numpy(state.grid) + (
         state.rms_density.cpu().numpy(), state.rms_sh.cpu().numpy(),
         int(state.step))
+
+
+def plenoxels_extras_to_numpy(state: PlenoxelsState) -> dict:
+    """The optional parts as numpy (None where absent): background, basis,
+    rms_bg, bg_alive, rms_basis."""
+    g = state.grid
+    return {"background": None if g.background is None else g.background.detach().cpu().numpy(),
+            "basis": _basis_np(g.basis),
+            "rms_bg": None if state.rms_bg is None else state.rms_bg.cpu().numpy(),
+            "bg_alive": None if state.bg_alive is None else state.bg_alive.cpu().numpy(),
+            "rms_basis": _basis_np(state.rms_basis)}
 
 
 def _natural_from_packed(table) -> np.ndarray:
@@ -133,8 +175,9 @@ def ngp_params_from_numpy(params, device="cpu") -> list:
         tables = ([] if ts is None else [_natural_from_packed(ts)]) + [tb]
     else:
         tables = [_natural_from_packed(table)]
+    bg = ([params["bg_table"]] + list(params["bg_net"])) if "bg_table" in params else []
     return [torch.tensor(t, device=device) for t in tables] + [
-        _f32(w, device) for w in list(params["sigma_net"]) + list(params["color_net"])]
+        _f32(w, device) for w in list(params["sigma_net"]) + list(params["color_net"]) + bg]
 
 
 def load_ngp_params(field, params) -> None:
@@ -144,9 +187,11 @@ def load_ngp_params(field, params) -> None:
             p.copy_(v)
 
 
-def ngp_params_to_numpy(tensors, num_sigma_layers: int, engine: str = "packed") -> dict:
+def ngp_params_to_numpy(tensors, num_sigma_layers: int, engine: str = "packed",
+                        num_bg_layers: int = 0) -> dict:
     """Inverse of ``ngp_params_from_numpy``: tensors in parameter order ->
-    the reference's dict (table, sigma_net, color_net).  ``engine`` is the
+    the reference's dict (table, sigma_net, color_net, and bg_table and
+    bg_net when ``num_bg_layers`` > 0: the last tensors).  ``engine`` is the
     field's (``models/hash_ngp.engine_kind``): "packed" gives one packed
     table; "lattice" and "sorted" read the leading 3-D tensors as
     (table_small,) table_big and give the tuple (ts or None, tb), tb
@@ -163,8 +208,12 @@ def ngp_params_to_numpy(tensors, num_sigma_layers: int, engine: str = "packed") 
         tb = (np.ascontiguousarray(tb.reshape(tb.shape[0], -1, 128)) if engine == "lattice"
               else _packed_from_natural(tb))
         table = (_packed_from_natural(arrs[0]) if n_tables == 2 else None, tb)
-    return {"table": table, "sigma_net": arrs[n_tables:n_tables + num_sigma_layers],
-            "color_net": arrs[n_tables + num_sigma_layers:]}
+    n_bg = num_bg_layers + 1 if num_bg_layers else 0
+    out = {"table": table, "sigma_net": arrs[n_tables:n_tables + num_sigma_layers],
+           "color_net": arrs[n_tables + num_sigma_layers:len(arrs) - n_bg]}
+    if n_bg:
+        out["bg_table"], out["bg_net"] = arrs[-n_bg], arrs[len(arrs) - num_bg_layers:]
+    return out
 
 
 def occupancy_from_numpy(density, mean_density, cfg: NGPRenderConfig,

@@ -4,8 +4,11 @@ Every 8-bit, non-interlaced grey, grey + alpha, RGB or RGBA PNG file (the
 blender layout's format) is read and written by the small codec below, on
 every machine, so the CPU and the card read images through the same code:
 all five row filters on reading, filter 0 on writing.  Other files (JPEG,
-16-bit or palette PNGs) go through imageio, as the reference reads them;
-the H100 machine has no imageio, so there they raise.
+16-bit or palette PNGs) go through imageio, as the reference reads them,
+and so do JPEG and GIF writes (``imwrite``, ``mimwrite``); imageio is
+imported only when such a file is read or written.  The H100 machine has no
+imageio, so there they raise ``ImageioMissing``, an ImportError (and a
+RuntimeError) that names imageio.
 """
 
 from __future__ import annotations
@@ -115,11 +118,15 @@ def read_png(path: str) -> np.ndarray:
     return img[..., 0] if c == 1 else img
 
 
+class ImageioMissing(ImportError, RuntimeError):
+    """A file other than an 8-bit PNG was read or written without imageio."""
+
+
 def _need_imageio(path: str):
     imageio = _imageio()
     if imageio is None:
-        raise RuntimeError(f"{path}: this file needs imageio (without it the port reads "
-                           "and writes only 8-bit grey/RGB(A) PNG files)")
+        raise ImageioMissing(f"{path}: this file needs imageio (without it the port reads "
+                             "and writes only 8-bit grey/RGB(A) PNG files)")
     return imageio
 
 
@@ -130,7 +137,14 @@ def imread(path: str) -> np.ndarray:
 
 
 def imwrite(path: str, img: np.ndarray) -> None:
+    """One image: PNG through the codec, anything else (JPEG) through
+    imageio."""
     if path.lower().endswith(".png"):
         write_png(path, img)
     else:
         _need_imageio(path).imwrite(path, img)
+
+
+def mimwrite(path: str, frames, **kwargs) -> None:
+    """An animation (GIF) of uint8 frames, through imageio."""
+    _need_imageio(path).mimwrite(path, frames, **kwargs)

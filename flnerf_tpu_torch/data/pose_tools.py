@@ -4,8 +4,8 @@ COLMAP-model -> nerf++ dataset conversion, frustum visualization.
 Port of ``flnerf_tpu/data/pose_tools.py`` (numpy, the port's own copy; every
 numpy result equals the reference's bit for bit).  The two plots import
 matplotlib when called, as the reference does, and raise ImportError where
-it is not installed (their only callers are the inspection tools, not ported
-yet).
+it is not installed (their callers are the inspection tools,
+``cli/view_data.py`` and ``cli/inspect_cameras.py``).
 
 Reference surfaces being re-provided (behavior, not transcription):
   * nerf++-ours/camera_inspector/inspect_epipolar_geometry.py — fundamental

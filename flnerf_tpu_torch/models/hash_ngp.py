@@ -29,8 +29,14 @@ type and multiplies them in f32: the products of bf16 values are exact in
 f32, so each layer's output is rounded where the reference rounds it and
 nowhere else.  The gradients round to bf16 at the same casts.
 
-Not ported yet (raises ``NotImplementedError``): the background env-map
-(``bg_radius > 0``).
+The background env-map (network.py:66-93, ``bg_radius > 0``): the ray's
+far intersection with the sphere of radius ``bg_radius`` (``sph_from_ray``)
+is encoded by a 2-D hash grid of 4 levels (``make_bg_spec``) and, with the
+view direction's SH, fed to a 2-layer MLP whose sigmoid is the background
+colour (``NGPField.background``).  Its encoding is the plain
+``ops/hash_encoding.hash_encode``, as the reference's is its plain
+``hash_encode`` and not a Pallas kernel: it launches no kernel on the card.
+Its parameters, ``bg_table`` [T, C] and ``bg_net``, follow the field's.
 """
 
 from __future__ import annotations
@@ -42,6 +48,8 @@ import torch
 from torch import nn
 
 from flnerf_tpu_torch.ops.activations import trunc_exp
+from flnerf_tpu_torch.ops.hash_encoding import hash_encode as hash_encode_nd
+from flnerf_tpu_torch.ops.hash_encoding import make_hashgrid_spec
 from flnerf_tpu_torch.ops.hash_kernel import (
     PackedHashSpec,
     hash_encode,
@@ -61,8 +69,6 @@ from flnerf_tpu_torch.ops.hash_sorted import (
     make_split_spec,
 )
 from flnerf_tpu_torch.ops.sh_encoding import sh_encode
-
-NGP_BACKLOG = "is not ported yet; it is queued in ROADMAP.md's NGP backlog"
 
 
 class NGPConfig(NamedTuple):
@@ -87,13 +93,41 @@ class NGPConfig(NamedTuple):
     # device (CUDA: the kernels, CPU: the plain version)
     hash_backend: str = "auto"
     hash_chunk: int = 2048
-    # background model (network.py:66-93): not ported, must stay 0
+    # background model (network.py:66-93: bg_radius > 0 turns on a
+    # 2D-hashgrid + tiny-MLP environment map fed by sph_from_ray)
     bg_radius: float = 0.0
     num_layers_bg: int = 2
     hidden_dim_bg: int = 64
     bg_levels: int = 4
     bg_log2_hashmap_size: int = 15
     bg_resolution: int = 2048
+
+
+def make_bg_spec(cfg: NGPConfig):
+    """2D background hashgrid spec (network.py:73: input_dim=2, 4 levels,
+    desired_resolution 2048)."""
+    return make_hashgrid_spec(
+        num_levels=cfg.bg_levels,
+        level_dim=cfg.level_dim,
+        base_resolution=cfg.base_resolution,
+        log2_hashmap_size=cfg.bg_log2_hashmap_size,
+        desired_resolution=cfg.bg_resolution,
+        input_dim=2,
+    )
+
+
+def sph_from_ray(rays_o: torch.Tensor, rays_d: torch.Tensor, radius: float) -> torch.Tensor:
+    """Ray ∩ sphere(radius) -> [N, 2] (theta, phi) in [-1, 1]
+    (raymarching.cu:163-199 kernel_sph_from_ray; y is the up axis)."""
+    a = torch.sum(rays_d * rays_d, -1)
+    b = torch.sum(rays_o * rays_d, -1)
+    c = torch.sum(rays_o * rays_o, -1) - radius * radius
+    disc = torch.clamp(b * b - a * c, min=0.0)
+    t = (-b + torch.sqrt(disc)) / a
+    p = rays_o + t[..., None] * rays_d
+    theta = torch.atan2(torch.sqrt(p[..., 0] ** 2 + p[..., 2] ** 2), p[..., 1])
+    phi = torch.atan2(p[..., 2], p[..., 0])
+    return torch.stack([2.0 * theta / np.pi - 1.0, phi / np.pi], -1)
 
 
 def make_ngp_spec(cfg: NGPConfig):
@@ -206,8 +240,6 @@ class NGPField(nn.Module):
     def __init__(self, cfg: NGPConfig, compute_dtype=torch.bfloat16,
                  generator=None, device="cpu"):
         super().__init__()
-        if cfg.bg_radius > 0:
-            raise NotImplementedError(f"the background env-map (bg_radius > 0) {NGP_BACKLOG}")
         self.cfg = cfg
         self.spec = make_ngp_spec(cfg)
         self.compute_dtype = compute_dtype
@@ -220,6 +252,37 @@ class NGPField(nn.Module):
             cfg.num_layers_color - 1) + [3]
         self.color_net = nn.ParameterList(
             [_linear_nobias(a, b, generator, device) for a, b in zip(dims, dims[1:])])
+        if self.has_background:
+            # U(-1e-4, 1e-4), as torch-ngp and the reference's init_hashgrid;
+            # held in a list so that it follows color_net in parameters()
+            self.bg_spec = make_bg_spec(cfg)
+            t = torch.rand((self.bg_spec.table_size, self.bg_spec.level_dim),
+                           generator=generator, device=device)
+            self.bg_tables = nn.ParameterList([nn.Parameter(t * 2e-4 - 1e-4)])
+            dims = [self.bg_spec.output_dim + cfg.sh_degree ** 2] + [cfg.hidden_dim_bg] * (
+                cfg.num_layers_bg - 1) + [3]
+            self.bg_net = nn.ParameterList(
+                [_linear_nobias(a, b, generator, device) for a, b in zip(dims, dims[1:])])
+
+    @property
+    def bg_table(self) -> nn.Parameter:
+        """The background's 2-D hash table [T, C]."""
+        return self.bg_tables[0]
+
+    @property
+    def has_background(self) -> bool:
+        """Whether the field carries the background env-map (bg_radius > 0)."""
+        return self.cfg.bg_radius > 0
+
+    def background(self, rays_o: torch.Tensor, rays_d: torch.Tensor) -> torch.Tensor:
+        """Per-ray background rgb [..., 3] from the 2D hashgrid env map
+        (network.py:145-160 background()); rays_d must be unit."""
+        sph = sph_from_ray(rays_o, rays_d, self.cfg.bg_radius)
+        x01 = torch.clamp((sph + 1.0) * 0.5, 0.0, 1.0)
+        enc = hash_encode_nd(x01.reshape(-1, 2), self.bg_table, self.bg_spec)
+        h = torch.cat([sh_encode(rays_d.reshape(-1, 3), self.cfg.sh_degree), enc], dim=-1)
+        h = mlp_chain(h, self.bg_net, self.compute_dtype)
+        return torch.sigmoid(h).reshape(rays_o.shape[:-1] + (3,))
 
     @property
     def tables(self):

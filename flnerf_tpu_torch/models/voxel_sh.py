@@ -13,30 +13,36 @@ Parity targets (plenoxels-ours/svox2):
     rgb = clamp_min(sum(sh_mult * coeffs) + 0.5, 0);
     log-transmittance accumulation with delta_scale = 1/|grid-space dir|;
     background_brightness fills the remaining light.
+  * RenderOptions.backend (svox2.py:17): 'nvol' (Neural-Volumes alpha sum,
+    render_lerp_kernel_nvol.cu:31-106) and 'svox1' (nearest-neighbour voxel
+    DDA, render_svox1_kernel.cu:51-160) beside 'cuvol'.
+  * The MSI background (svox2.py:498-522, render_lerp_kernel_cuvol.cu:
+    385-475): ``nlayers`` concentric equirect spheres of (rgb, sigma) behind
+    the grid, its TV (loss_kernel.cu:249) and sparsify (svox2.py:1431).
+  * Learned bases (svox2.py:461-496): a ``3d_texture`` grid sampled at the
+    view direction, or an ``mlp`` of it, in place of the closed-form SH.
   * npz checkpoint layout — svox2.py:1531-1633: radius, center, links int32
-    grid, density_data [cap,1], sh_data [cap, 27] fp16.  Files cross between
-    this package and the reference package unchanged.
+    grid, density_data [cap,1], sh_data [cap, 27] fp16, the background and
+    basis arrays.  Files cross between this package and the reference
+    package unchanged.
 
 The grid is dense [X,Y,Z](+27) with a bool ``alive`` mask (pruning clears
 mask bits); marching is a static budget of ``max_steps`` samples with those
-beyond ``tmax`` masked, as in the reference package.
-
-Not ported yet (each raises ``NotImplementedError``): the ``nvol`` and
-``svox1`` backends, the MSI background and the learned bases.
+beyond ``tmax`` masked, as in the reference package.  The kernels run cuvol
+with closed-form SH only; ``nvol``, ``svox1`` and the learned bases render
+through the plain functions here, as no kernel computes them.  The
+lumisphere TV reads ``sh`` beside any render.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from flnerf_tpu_torch.ops.sh_encoding import sh_encode
-
-LATER_SLICE = ("is not ported yet; it is queued for a later slice of the "
-               "port (ROADMAP.md, Plenoxels backlog)")
 
 
 class VoxelGridConfig(NamedTuple):
@@ -45,47 +51,143 @@ class VoxelGridConfig(NamedTuple):
     radius: Tuple[float, float, float] = (1.0, 1.0, 1.0)
     center: Tuple[float, float, float] = (0.0, 0.0, 0.0)
     init_sigma: float = 0.1         # opt.py init_sigma
+    init_sigma_bg: float = 0.1      # argument_parser.py --init_sigma_bg
     step_size: float = 0.5          # RenderOptions.step_size (voxel units)
     sigma_thresh: float = 1e-8
     stop_thresh: float = 1e-7
     background_brightness: float = 1.0
     near_clip: float = 0.0
     max_steps: int = 512            # static marching budget
-    # the parts of the reference's configuration not ported yet; any other
-    # value than these defaults raises (check_supported)
-    backend: str = "cuvol"          # RenderOptions.backend (svox2.py:17)
-    background_nlayers: int = 0     # MSI background (svox2.py:498-522)
-    basis_type: str = "sh"          # basis type (svox2.py:344)
+    backend: str = "cuvol"          # 'cuvol' | 'nvol' | 'svox1'
+    # MSI background (equirect x nlayers concentric spheres); 0 disables
+    background_nlayers: int = 0
+    background_reso: int = 512
+    # 'sh' (closed form), '3d_texture' (learned basis_reso^3 grid sampled at
+    # the view dir), 'mlp' (learned 4-layer MLP of the posenc'd view dir)
+    basis_type: str = "sh"
+    basis_reso: int = 32            # --basis_reso
+    mlp_posenc_size: int = 4        # --mlp_posenc_size
+    mlp_width: int = 32             # --mlp_width
 
 
 class VoxelGrid(NamedTuple):
-    """Trainable state: dense density + SH data (+ alive mask)."""
+    """Trainable state: dense density + SH data (+ alive mask).
+
+    ``background`` is the optional MSI background [2R, R, nlayers, 4]:
+    equirect (lon x lat) x concentric layers x (rgb, sigma).  ``basis`` is
+    the learned basis: [R, R, R, basis_dim] for '3d_texture', a dict of
+    the MLP's ``w0..w3`` [in, out] and ``b0..b3`` for 'mlp', None for SH.
+    ``grid.tensors`` is (density, sh, alive), the kernels' grid arguments."""
 
     density: torch.Tensor   # [X, Y, Z] f32 (raw sigma)
     sh: torch.Tensor        # [X, Y, Z, 3*basis_dim] f32
     alive: torch.Tensor     # [X, Y, Z] bool — pruning mask (not trained)
+    background: Optional[torch.Tensor] = None
+    basis: Optional[Any] = None
+
+    @property
+    def tensors(self):
+        """(density, sh, alive): the kernels' grid arguments."""
+        return self.density, self.sh, self.alive
 
 
-def check_supported(cfg: VoxelGridConfig) -> None:
-    """Raise for the configuration parts this slice has not ported."""
-    if cfg.backend != "cuvol":
-        raise NotImplementedError(f"backend={cfg.backend!r} {LATER_SLICE}")
-    if cfg.background_nlayers > 0:
-        raise NotImplementedError(f"the MSI background {LATER_SLICE}")
+def init_basis(cfg: VoxelGridConfig, seed: int = 0, device="cpu"):
+    """Learned-basis parameters (svox2.py:461-496): zeros for the 3D
+    texture (like the reference ctor), a xavier-uniform Linear stack for the
+    MLP drawn from ``np.random.default_rng(seed)`` as the reference draws it
+    (so both packages start from the same weights); None for SH."""
+    if cfg.basis_type == "3d_texture":
+        r = cfg.basis_reso
+        return torch.zeros((r, r, r, cfg.basis_dim), dtype=torch.float32, device=device)
+    if cfg.basis_type == "mlp":
+        rng = np.random.default_rng(seed)
+        dims = [3 + 6 * cfg.mlp_posenc_size, cfg.mlp_width, cfg.mlp_width,
+                cfg.mlp_width, cfg.basis_dim]
+        basis = {}
+        for i in range(4):
+            lim = np.sqrt(6.0 / (dims[i] + dims[i + 1]))
+            basis[f"w{i}"] = torch.tensor(
+                rng.uniform(-lim, lim, (dims[i], dims[i + 1])), dtype=torch.float32,
+                device=device)
+            basis[f"b{i}"] = torch.zeros((dims[i + 1],), dtype=torch.float32, device=device)
+        return basis
     if cfg.basis_type != "sh":
-        raise NotImplementedError(
-            f"basis_type={cfg.basis_type!r} (learned basis) {LATER_SLICE}")
+        raise ValueError(f"unknown basis_type {cfg.basis_type!r} (sh|3d_texture|mlp)")
+    return None
+
+
+def basis_leaves(basis) -> list:
+    """The learned basis as a flat list of tensors (empty for SH); an MLP's
+    in the order of its sorted keys, as ``jax.tree_util.tree_leaves``
+    orders the reference's."""
+    if basis is None:
+        return []
+    return [basis[k] for k in sorted(basis)] if isinstance(basis, dict) else [basis]
+
+
+def basis_from_leaves(basis, leaves):
+    """Inverse of ``basis_leaves``: ``leaves`` in the structure of ``basis``."""
+    if basis is None:
+        return None
+    return dict(zip(sorted(basis), leaves)) if isinstance(basis, dict) else leaves[0]
+
+
+def eval_basis(grid: VoxelGrid, viewdirs: torch.Tensor,
+               cfg: VoxelGridConfig) -> torch.Tensor:
+    """Per-ray basis functions sh_mult [N, basis_dim] (svox2.py:673-678):
+    SH closed form, learned 3D texture (grid_sample of the unit sphere
+    embedded in the basis cube, align_corners), or sigmoid(MLP(dir))."""
+    if cfg.basis_type == "3d_texture" and grid.basis is not None:
+        r = cfg.basis_reso
+        # align_corners grid_sample: dir in [-1,1] -> texel [0, R-1]
+        pos = torch.clamp((viewdirs + 1.0) * 0.5, 0.0, 1.0) * (r - 1)
+        l = torch.clamp(torch.floor(pos).long(), 0, r - 2)
+        f = pos - l
+        out = 0.0
+        for dx in (0, 1):
+            for dy in (0, 1):
+                for dz in (0, 1):
+                    w = ((f[:, 0] if dx else 1 - f[:, 0])
+                         * (f[:, 1] if dy else 1 - f[:, 1])
+                         * (f[:, 2] if dz else 1 - f[:, 2]))
+                    out = out + w[:, None] * grid.basis[
+                        l[:, 0] + dx, l[:, 1] + dy, l[:, 2] + dz]
+        return out
+    if cfg.basis_type == "mlp" and grid.basis is not None:
+        h = viewdirs
+        if cfg.mlp_posenc_size > 0:
+            scales = 2.0 ** torch.arange(cfg.mlp_posenc_size, dtype=torch.float32,
+                                         device=viewdirs.device)
+            ang = viewdirs[:, None, :] * scales[None, :, None]
+            n = viewdirs.shape[0]
+            h = torch.cat([viewdirs, torch.sin(ang).reshape(n, -1),
+                           torch.cos(ang).reshape(n, -1)], -1)
+        for i in range(4):
+            h = h @ grid.basis[f"w{i}"] + grid.basis[f"b{i}"]
+            if i < 3:
+                h = torch.relu(h)
+        return torch.sigmoid(h)      # svox2.py:676
+    return sh_encode(viewdirs, degree=int(np.sqrt(cfg.basis_dim)))
 
 
 def init_voxel_grid(cfg: VoxelGridConfig, device="cpu") -> VoxelGrid:
-    check_supported(cfg)
+    if cfg.backend not in ("cuvol", "nvol", "svox1"):
+        raise ValueError(f"unknown backend {cfg.backend!r} (cuvol|nvol|svox1)")
     x, y, z = cfg.reso
+    bg = None
+    if cfg.background_nlayers > 0:
+        r = cfg.background_reso
+        bg = torch.zeros((2 * r, r, cfg.background_nlayers, 4), dtype=torch.float32,
+                         device=device)
+        bg[..., 3] = cfg.init_sigma_bg   # opt.py:124: background_data[..., -1]
     return VoxelGrid(
         density=torch.full((x, y, z), cfg.init_sigma, dtype=torch.float32,
                            device=device),
         sh=torch.zeros((x, y, z, 3 * cfg.basis_dim), dtype=torch.float32,
                        device=device),
         alive=torch.ones((x, y, z), dtype=torch.bool, device=device),
+        background=bg,
+        basis=init_basis(cfg, device=device),
     )
 
 
@@ -166,21 +268,27 @@ def grid_ray_setup(cfg: VoxelGridConfig, rays_o: torch.Tensor,
 
 def voxel_render_rays(grid: VoxelGrid, rays_o: torch.Tensor,
                       rays_d: torch.Tensor, cfg: VoxelGridConfig, keep=None):
-    """Volume-render [N] rays against the grid (cuvol, closed-form SH).
+    """Volume-render [N] rays against the grid: cfg.backend picks the cuvol
+    (trilerp, log-transmittance), nvol (alpha sum) or svox1 (nearest-voxel
+    DDA) march; ``eval_basis`` gives the basis; a grid with a background
+    composes the MSI background behind it.
 
-    Returns rgb [N,3], depth [N], acc [N], weights [N, max_steps] and log_t
-    [N], the final log-transmittance (channel 4 of the kernels' output).
-    The march runs only over the steps some ray of the batch can reach:
-    every later sample is masked in the reference too, and contributes
-    exactly nothing.  ``keep`` ([N, max_steps] bool), when given, masks the
-    samples outside it the same way (the kernel's skipped steps)."""
-    check_supported(cfg)
+    Returns rgb [N,3], depth [N], acc [N] and, for cuvol and nvol, weights
+    [N, max_steps]; cuvol also returns log_t [N], the final
+    log-transmittance (channel 4 of the kernels' output).  The march runs
+    only over the steps some ray of the batch can reach: every later sample
+    is masked in the reference too, and contributes exactly nothing.
+    ``keep`` ([N, max_steps] bool), when given, masks the samples outside it
+    the same way (the kernel's skipped steps)."""
+    if cfg.backend == "svox1":
+        return _svox1_render(grid, rays_o, rays_d, cfg)
     n = rays_o.shape[0]
+    dev = rays_o.device
     origins, dirs, tmin, tmax, delta_scale, viewdirs = grid_ray_setup(
         cfg, rays_o, rays_d)
-    sh_mult = sh_encode(viewdirs, degree=int(np.sqrt(cfg.basis_dim)))  # [N, B]
+    sh_mult = eval_basis(grid, viewdirs, cfg)                           # [N, B]
 
-    steps = torch.arange(cfg.max_steps, device=rays_o.device)
+    steps = torch.arange(cfg.max_steps, device=dev)
     ts = tmin[:, None] + cfg.step_size * steps[None, :]                 # [N, S]
     valid = ts <= tmax[:, None]
     s = max(int(valid.any(0).sum()), 1)   # each ray's valid steps are a prefix
@@ -193,24 +301,216 @@ def voxel_render_rays(grid: VoxelGrid, rays_o: torch.Tensor,
     sigma = torch.where(valid, torch.relu(sigma), 0.0)
     sigma = torch.where(sigma >= cfg.sigma_thresh, sigma, 0.0)
 
-    log_att = -cfg.step_size * sigma * delta_scale[:, None]             # [N, S]
-    # transmittance entering each sample
-    log_T = torch.cat(
-        [torch.zeros((n, 1), device=rays_o.device),
-         torch.cumsum(log_att[:, :-1], -1)], -1)
-    weights = torch.exp(log_T) * (1.0 - torch.exp(log_att))             # [N, S]
-    log_t = torch.sum(log_att, -1)
-    remaining = torch.exp(log_t)
+    out = {}
+    if cfg.backend == "nvol":
+        # Neural-Volumes parameterization (render_lerp_kernel_nvol.cu:88-96):
+        # alphas sum (clamped at 1) instead of multiplying transmittances
+        a = 1.0 - torch.exp(-cfg.step_size * sigma * delta_scale[:, None])
+        total = torch.clamp(torch.cumsum(a, -1), 0.0, 1.0)             # [N, S]
+        prev = torch.cat([torch.zeros((n, 1), device=dev), total[:, :-1]], -1)
+        weights = total - prev
+        remaining = 1.0 - total[:, -1]
+    elif cfg.backend == "cuvol":
+        log_att = -cfg.step_size * sigma * delta_scale[:, None]         # [N, S]
+        # transmittance entering each sample
+        log_T = torch.cat([torch.zeros((n, 1), device=dev),
+                           torch.cumsum(log_att[:, :-1], -1)], -1)
+        weights = torch.exp(log_T) * (1.0 - torch.exp(log_att))         # [N, S]
+        log_t = torch.sum(log_att, -1)
+        remaining = torch.exp(log_t)
+        out["log_t"] = log_t
+    else:
+        raise ValueError(f"unknown backend {cfg.backend!r} (cuvol|nvol|svox1)")
 
     rgb_sh = shv.reshape(n, s, 3, cfg.basis_dim)
     rgb = torch.clamp(
         torch.sum(sh_mult[:, None, None, :] * rgb_sh, -1) + 0.5, min=0.0)  # [N, S, 3]
 
     out_rgb = torch.sum(weights[..., None] * rgb, dim=-2)
-    out_rgb = out_rgb + remaining[..., None] * cfg.background_brightness
+    if grid.background is not None and cfg.background_nlayers > 0:
+        world_step = cfg.step_size * delta_scale
+        bg_rgb, bg_remaining = msi_background(
+            grid.background, rays_o, viewdirs, remaining, world_step, cfg)
+        out_rgb = out_rgb + bg_rgb
+        out_rgb = out_rgb + bg_remaining[..., None] * cfg.background_brightness
+    else:
+        out_rgb = out_rgb + remaining[..., None] * cfg.background_brightness
     depth = torch.sum(weights * ts, -1)
-    return {"rgb": out_rgb, "depth": depth, "acc": 1.0 - remaining,
-            "weights": F.pad(weights, (0, cfg.max_steps - s)), "log_t": log_t}
+    out.update(rgb=out_rgb, depth=depth, acc=1.0 - remaining,
+               weights=F.pad(weights, (0, cfg.max_steps - s)))
+    return out
+
+
+def _svox1_render(grid: VoxelGrid, rays_o, rays_d, cfg: VoxelGridConfig):
+    """Nearest-neighbour voxel rendering (render_svox1_kernel.cu:51-160):
+    PlenOctree-style DDA that steps voxel boundary to voxel boundary with
+    piecewise-constant density/SH, for up to ``max_steps`` steps; early stop
+    renormalizes by 1/(1-T) like the reference (:138-146).  The loop ends
+    once no ray is active: a ray, once inactive, stays so and adds
+    nothing."""
+    n = rays_o.shape[0]
+    dev = rays_o.device
+    origins = world2grid(cfg, rays_o) + 0.5     # nn-vs-lerp offset (cu:76)
+    viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    sh_mult = eval_basis(grid, viewdirs, cfg)
+
+    dirs = viewdirs * grid_scaling(cfg, dev)
+    delta_scale = 1.0 / torch.linalg.norm(dirs, dim=-1)
+    dirs = dirs * delta_scale[..., None]
+    gsz = torch.tensor(cfg.reso, dtype=torch.float32, device=dev)
+
+    zero_dir = dirs == 0.0
+    invdir = torch.where(zero_dir, 1e9, 1.0 / torch.where(zero_dir, 1.0, dirs))
+    t1 = (0.0 - origins) * invdir
+    t2 = (gsz - 1.0 - origins) * invdir
+    t0 = torch.clamp(torch.minimum(t1, t2).amax(-1), min=0.0)
+    tmax = torch.maximum(t1, t2).amin(-1)
+    miss = t0 > tmax
+
+    density = torch.where(grid.alive, grid.density, 0.0)
+    sh = torch.where(grid.alive[..., None], grid.sh, 0.0)
+    reso_i = torch.tensor(cfg.reso, dtype=torch.long, device=dev)
+
+    t, logT = t0, torch.zeros(n, device=dev)
+    rgb_acc = torch.zeros((n, 3), device=dev)
+    depth_acc = torch.zeros(n, device=dev)
+    stop_scale = torch.ones(n, device=dev)
+    stopped = torch.zeros(n, dtype=torch.bool, device=dev)
+    for k in range(cfg.max_steps):
+        active = ~stopped & (t <= tmax) & ~miss
+        if k % 32 == 0 and not bool(active.any()):
+            break
+        pos = torch.minimum(torch.clamp(origins + t[:, None] * dirs, min=0.0), gsz - 1.0)
+        l = torch.minimum(torch.floor(pos).long(), reso_i - 1)
+        frac = pos - l
+
+        # exit of the unit cell (cu:34-48 _intersect_aabb_unit, +1e-2)
+        e1 = (0.0 - frac) * invdir
+        e2 = (1.0 - frac) * invdir
+        exit_t = torch.where(zero_dir, 1e9, torch.maximum(e1, e2)).amin(-1)
+        delta = exit_t + 1e-2
+
+        ix, iy, iz = l[:, 0], l[:, 1], l[:, 2]
+        sigma = density[ix, iy, iz]
+        contributing = active & grid.alive[ix, iy, iz] & (sigma > cfg.sigma_thresh)
+
+        log_tr = torch.where(contributing, -delta * delta_scale * sigma, 0.0)
+        T = torch.exp(logT)
+        w = torch.where(contributing, T * (1.0 - torch.exp(log_tr)), 0.0)
+
+        shv = sh[ix, iy, iz].reshape(n, 3, cfg.basis_dim)
+        rgb_v = torch.clamp(torch.sum(sh_mult[:, None, :] * shv, -1) + 0.5, min=0.0)
+        rgb_acc = rgb_acc + w[:, None] * rgb_v
+        depth_acc = depth_acc + w * t
+
+        # reference stop: T (entering this sample) <= stop_thresh ->
+        # renormalize output by 1/(1-T) and return without background
+        newly = contributing & (T <= cfg.stop_thresh) & ~stopped
+        stop_scale = torch.where(newly, 1.0 / torch.clamp(1.0 - T, min=1e-9), stop_scale)
+        stopped = stopped | newly
+        logT = logT + log_tr
+        t = torch.where(active, t + delta, t)
+
+    bg = torch.where(stopped, 0.0, torch.exp(logT)) * cfg.background_brightness
+    out_rgb = rgb_acc * stop_scale[:, None] + bg[:, None]
+    acc = torch.where(stopped, 1.0, 1.0 - torch.exp(logT))
+    return {"rgb": out_rgb, "depth": depth_acc, "acc": acc}
+
+
+def msi_background(bg: torch.Tensor, rays_o: torch.Tensor, viewdirs: torch.Tensor,
+                   remaining: torch.Tensor, world_step: torch.Tensor,
+                   cfg: VoxelGridConfig):
+    """Multi-sphere-image background (render_lerp_kernel_cuvol.cu:385-475).
+
+    bg [2R, R, L, 4] equirect layers (rgb, sigma); rays in world space with
+    unit viewdirs; ``remaining`` = transmittance leaving the grid.  Returns
+    (rgb [N, 3], transmittance after the background).  Indices are clamped
+    into the array, as the reference's gathers clamp them."""
+    two_r, r, nlayers, _ = bg.shape
+    n = rays_o.shape[0]
+    dev = rays_o.device
+    n_steps = int(nlayers / cfg.step_size) + 2
+
+    # concentric-sphere intersections: solve |o + t d| = r_i (far root)
+    q2a = 2.0 * torch.sum(viewdirs * viewdirs, -1)                      # [N]
+    qb = 2.0 * torch.sum(rays_o * viewdirs, -1)
+    f = qb * qb - 2.0 * q2a * torch.sum(rays_o * rays_o, -1)
+    inner_radius = torch.clamp(
+        torch.linalg.norm(torch.linalg.cross(rays_o, viewdirs, dim=-1), dim=-1) + 1e-3,
+        min=1.0)                                                        # [N]
+
+    i = torch.arange(n_steps, dtype=torch.float32, device=dev)
+    radii = n_steps / (n_steps - i - 0.5)                               # [S]
+    det = f[:, None] + 2.0 * q2a[:, None] * radii[None, :] ** 2
+    hit = (det >= 0) & (radii[None, :] >= inner_radius[:, None])
+    t = (-qb[:, None] + torch.sqrt(torch.clamp(det, min=0.0))) / q2a[:, None]
+
+    p = rays_o[:, None, :] + t[..., None] * viewdirs[:, None, :]        # [N, S, 3]
+    invr_mid = 1.0 / torch.linalg.norm(p, dim=-1)                       # [N, S]
+    u = p * invr_mid[..., None]
+    # _unitvec2equirect (render_util.cuh:482-490)
+    lat = torch.asin(torch.clamp(u[..., 1], -1.0, 1.0))
+    lon = torch.atan2(u[..., 0], u[..., 2])
+    x = 2 * r * (0.5 + lon * 0.5 / np.pi)
+    y = r * (0.5 - lat / np.pi)
+    z = torch.clamp((1.0 - invr_mid) * nlayers - 0.5, 0.0, nlayers - 1.0)
+
+    lx = torch.clamp(torch.floor(x).long(), 0, 2 * r - 1)
+    ly = torch.clamp(torch.floor(y).long(), 0, r - 1)
+    lz = torch.clamp(torch.floor(z).long(), max=nlayers - 2).clamp(min=0)
+    fx, fy, fz = x - lx, y - ly, z - lz
+    # longitude wraps; the reference also wraps the last latitude row
+    nx = torch.where(lx < 2 * r - 1, lx + 1, 0)
+    ny = torch.where(ly < r - 1, ly + 1, 0)
+    lz1 = torch.clamp(lz + 1, max=nlayers - 1)
+
+    def fetch(ix, iy):
+        v0 = bg[ix, iy, lz]                                             # [N, S, 4]
+        v1 = bg[ix, iy, lz1]
+        return v0 + (v1 - v0) * fz[..., None]
+
+    v00 = fetch(lx, ly)
+    v01 = fetch(lx, ny)
+    v10 = fetch(nx, ly)
+    v11 = fetch(nx, ny)
+    v0 = v00 + (v01 - v00) * fy[..., None]
+    v1 = v10 + (v11 - v10) * fy[..., None]
+    val = v0 + (v1 - v0) * fx[..., None]                                # [N, S, 4]
+
+    sigma = torch.where(hit, val[..., 3], 0.0)
+    sigma = torch.where(sigma > 0.0, sigma, 0.0)
+    # pcnt = (invr_last - invr_mid) * world_step * sigma.  Misses only occur
+    # before the first hit (radii grow monotonically), so carrying
+    # 1/inner_radius through them reproduces the reference's invr_last chain.
+    inv_inner = (1.0 / inner_radius)[:, None]
+    invr_safe = torch.where(hit, invr_mid, inv_inner)
+    invr_last = torch.cat([inv_inner, invr_safe[:, :-1]], -1)
+    pcnt = torch.where(hit, invr_last - invr_mid, 0.0) * world_step[:, None] * sigma
+    log_T = torch.cat([torch.zeros((n, 1), device=dev),
+                       torch.cumsum(pcnt[:, :-1], -1)], -1)
+    wgt = remaining[:, None] * torch.exp(-log_T) * (1.0 - torch.exp(-pcnt))
+    c0 = 0.28209479177387814  # SH DC factor (render kernel's C0 scaling)
+    rgb = torch.clamp(val[..., :3] * c0 + 0.5, min=0.0)
+    out = torch.sum(wgt[..., None] * rgb, -2)
+    t_after = remaining * torch.exp(-torch.sum(pcnt, -1))
+    return out, t_after
+
+
+def compose_msi_background(bg: torch.Tensor, rgb_flatbg: torch.Tensor,
+                           log_t: torch.Tensor, rays_o: torch.Tensor,
+                           rays_d: torch.Tensor, cfg: VoxelGridConfig) -> torch.Tensor:
+    """Replace a render's flat background_brightness fill with the MSI
+    background: ``rgb_flatbg`` [N,3] must already include
+    exp(log_t)*background_brightness (the kernels' output), ``log_t`` is
+    the final log-transmittance (their channel 4).  Differentiable in
+    everything; the gradient into ``log_t`` is K2's log-T cotangent."""
+    remaining = torch.exp(log_t)
+    viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    wstep = cfg.step_size / torch.linalg.norm(viewdirs * grid_scaling(cfg, rays_d.device),
+                                              dim=-1)
+    bg_rgb, bg_rem = msi_background(bg, rays_o, viewdirs, remaining, wstep, cfg)
+    return (rgb_flatbg - remaining[:, None] * cfg.background_brightness
+            + bg_rgb + bg_rem[:, None] * cfg.background_brightness)
 
 
 # ---------------------------------------------------------------------------
@@ -237,17 +537,21 @@ def tv_loss(field: torch.Tensor, alive: torch.Tensor = None) -> torch.Tensor:
 
 
 def tv_loss_slab(field: torch.Tensor, z0: int, slab: int,
-                 alive: torch.Tensor = None) -> torch.Tensor:
+                 alive: torch.Tensor = None, transform=None) -> torch.Tensor:
     """Stochastic TV over the contiguous z-slab [z0, z0+slab) — the
     ``tv_grad_sparse`` analog (loss_kernel.cu:179).  The caller draws
     ``z0`` uniformly from [0, Z-slab]; each term is weighted by the inverse
-    of its inclusion probability, so the expectation equals ``tv_loss``."""
+    of its inclusion probability, so the expectation equals ``tv_loss``.
+    ``transform`` maps the slab's [X, Y, S, C] cells to the penalized
+    channels (the lumisphere's radiance), on the slab only."""
     if field.ndim == 3:
         field = field[..., None]
     X, Y, Z, _ = field.shape
     S = int(min(slab, Z))
     n_starts = Z - S + 1
     sub = field[:, :, z0:z0 + S]
+    if transform is not None:
+        sub = transform(sub)
     dev = field.device
     g = z0 + torch.arange(S, device=dev)                      # global planes
     p_xy = (torch.clamp(g, max=Z - S) - torch.clamp(g - S + 1, min=0)
@@ -270,6 +574,93 @@ def tv_loss_slab(field: torch.Tensor, z0: int, slab: int,
     return (tv_xy + tv_z) / (X * Y * Z)
 
 
+class LumisphereDraws(NamedTuple):
+    """One step's draws of ``tv_loss_lumisphere``, in the order the
+    reference splits its key (kd, kz, kp, ka): ``u`` [3] standard normal
+    (the direction before normalizing), ``z0`` the slab start, ``pert`` [3]
+    standard normal (the angular perturbation) and ``z0_ang`` the angular
+    term's slab start (both starts in [0, Z - slab])."""
+    u: torch.Tensor
+    z0: int
+    pert: torch.Tensor
+    z0_ang: int
+
+
+def draw_lumisphere(rng: np.random.Generator, z: int, slab: int,
+                    device="cpu") -> LumisphereDraws:
+    """Fresh ``LumisphereDraws`` from a numpy generator."""
+    n_starts = z - int(min(slab, z)) + 1
+    u = torch.tensor(rng.standard_normal(3), dtype=torch.float32, device=device)
+    z0 = int(rng.integers(0, n_starts))
+    pert = torch.tensor(rng.standard_normal(3), dtype=torch.float32, device=device)
+    return LumisphereDraws(u, z0, pert, int(rng.integers(0, n_starts)))
+
+
+def tv_loss_lumisphere(grid: VoxelGrid, cfg: VoxelGridConfig, draws: LumisphereDraws,
+                       slab: int, dir_factor: float = 0.0) -> torch.Tensor:
+    """Lumisphere TV (loss_kernel.cu:336 lumisphere_tv_grad_sparse analog):
+    spatial TV of the view-dependent radiance — per cell, the RGB obtained
+    by contracting its coefficients with the basis at one random direction
+    per step — on the random z-slab estimator, contracted on the slab only.
+    ``dir_factor`` adds the reference's angular term: the squared radiance
+    change under a perturbed direction, with the same 1/p_xy weighting."""
+    u = draws.u / (torch.linalg.norm(draws.u) + 1e-9)
+    bv = eval_basis(grid, u[None], cfg)[0]            # [basis_dim]
+    bd = bv.shape[0]
+
+    def radiance(sub, b=bv):
+        return torch.einsum("xyzcb,b->xyzc", sub.reshape(sub.shape[:3] + (3, bd)), b)
+
+    tv = tv_loss_slab(grid.sh, draws.z0, slab, grid.alive, transform=radiance)
+    if dir_factor > 0.0:
+        u2 = u + 0.25 * draws.pert
+        u2 = u2 / (torch.linalg.norm(u2) + 1e-9)
+        bv2 = eval_basis(grid, u2[None], cfg)[0]
+        X, Y, Z = grid.sh.shape[:3]
+        S = int(min(slab, Z))
+        n_starts = Z - S + 1
+        z0 = draws.z0_ang
+        sub = grid.sh[:, :, z0:z0 + S]
+        d = radiance(sub, bv2) - radiance(sub, bv)
+        d = torch.where(grid.alive[:, :, z0:z0 + S][..., None], d, 0.0)
+        g = z0 + torch.arange(S, device=grid.sh.device)
+        p = (torch.clamp(g, max=Z - S) - torch.clamp(g - S + 1, min=0) + 1.0) / n_starts
+        tv = tv + dir_factor * torch.sum(torch.sum(d ** 2, dim=(0, 1, 3)) / p) / (X * Y * Z)
+    return tv
+
+
+def tv_loss_background(bg: torch.Tensor, scaling_color: float = 1.0,
+                       scaling_density: float = 1.0) -> torch.Tensor:
+    """TV of the MSI background (loss_kernel.cu:249 msi_tv_grad analog):
+    squared forward diffs over the equirect (lon, lat) axes per layer, with
+    longitude wraparound; color channels scaled by ``scaling_color``, the
+    sigma channel by ``scaling_density``; normalized per cell."""
+    dx = torch.roll(bg, -1, 0) - bg          # lon wraps
+    dy = bg[:, 1:] - bg[:, :-1]
+    n = bg.shape[0] * bg.shape[1] * bg.shape[2]
+    tv_c = (torch.sum(dx[..., :3] ** 2) + torch.sum(dy[..., :3] ** 2)) / n
+    tv_d = (torch.sum(dx[..., 3] ** 2) + torch.sum(dy[..., 3] ** 2)) / n
+    return scaling_color * tv_c + scaling_density * tv_d
+
+
+def _dilate2d(mask: torch.Tensor) -> torch.Tensor:
+    """8-neighborhood dilation on a [W, H] bool mask, longitude wrapping."""
+    m = mask | torch.roll(mask, 1, 0) | torch.roll(mask, -1, 0)
+    my = F.pad(m, (1, 1))
+    return m | my[:, 2:] | my[:, :-2]
+
+
+def sparsify_background(bg: torch.Tensor, sigma_thresh: float = 1.0, dilate: int = 1):
+    """Dense analog of svox2.py:1431 sparsify_background: cells whose sigma
+    stays below ``sigma_thresh`` in every layer (after 2-D dilation of the
+    keep mask) are emptied.  Returns (background, [2R, R] keep mask); the
+    trainer pins the emptied cells (gradients masked, never revived)."""
+    keep = torch.any(bg[..., 3] >= sigma_thresh, dim=-1)          # [2R, R]
+    for _ in range(int(dilate)):
+        keep = _dilate2d(keep)
+    return torch.where(keep[:, :, None, None], bg, 0.0), keep
+
+
 # ---------------------------------------------------------------------------
 # resample / prune (svox2.py:1224+)
 # ---------------------------------------------------------------------------
@@ -277,7 +668,8 @@ def tv_loss_slab(field: torch.Tensor, z0: int, slab: int,
 def upsample_grid(grid: VoxelGrid, new_reso: Tuple[int, int, int]) -> VoxelGrid:
     """Trilinear upsample (grid.resample's resize step), half-pixel centers
     as in ``jax.image.resize``; a cell stays alive where the resized mask is
-    positive."""
+    positive.  The background and the basis live in their own spaces and
+    carry through unchanged."""
     def resize(v):  # [X, Y, Z, C] -> [X', Y', Z', C]
         v = v.permute(3, 0, 1, 2)[None]
         v = F.interpolate(v, size=tuple(new_reso), mode="trilinear",
@@ -287,7 +679,8 @@ def upsample_grid(grid: VoxelGrid, new_reso: Tuple[int, int, int]) -> VoxelGrid:
     density = resize(grid.density[..., None])[..., 0]
     sh = resize(grid.sh)
     alive = resize(grid.alive.float()[..., None])[..., 0] > 0.0
-    return VoxelGrid(density.contiguous(), sh.contiguous(), alive.contiguous())
+    return VoxelGrid(density.contiguous(), sh.contiguous(), alive.contiguous(),
+                     grid.background, grid.basis)
 
 
 def _dilate(keep: torch.Tensor, dilate: int) -> torch.Tensor:
@@ -297,6 +690,54 @@ def _dilate(keep: torch.Tensor, dilate: int) -> torch.Tensor:
             k = k | torch.roll(keep, 1, axis) | torch.roll(keep, -1, axis)
         keep = k
     return keep
+
+
+@torch.no_grad()
+def max_weight_grid(grid: VoxelGrid, cfg: VoxelGridConfig, poses, H, W, K,
+                    stride: int = 2) -> torch.Tensor:
+    """Per-voxel max ray weight over training cameras (misc_kernel.cu:310
+    grid_weight_render analog): marches every stride-th pixel of each camera
+    through ``voxel_render_rays`` and scatter-maxes the sample weights onto
+    the nearest corner of each sample's cell.  Used by weight-threshold
+    pruning, which (unlike sigma-threshold pruning) also removes occluded
+    interior cells."""
+    from flnerf_tpu_torch.rays.camera import get_rays
+
+    if cfg.backend == "svox1":
+        raise ValueError(
+            "max_weight_grid/weight_prune_grid needs the sample-weight "
+            "marching backends ('cuvol'/'nvol'); svox1's nearest-voxel "
+            "DDA exposes no per-sample weights and steps on different "
+            "positions — use sigma-threshold prune_grid instead")
+    dev = grid.density.device
+    maxw = torch.zeros(int(np.prod(cfg.reso)), dtype=torch.float32, device=dev)
+    gsz = torch.tensor(cfg.reso, dtype=torch.float32, device=dev)
+    steps = torch.arange(cfg.max_steps, device=dev)
+    for c2w in poses:
+        ro, rd = get_rays(H, W, K, np.asarray(c2w)[:3, :4], dev)
+        ro = ro[::stride, ::stride].reshape(-1, 3)
+        rd = rd[::stride, ::stride].reshape(-1, 3)
+        w = voxel_render_rays(grid, ro, rd, cfg)["weights"]          # [N, S]
+        # the sample positions by the renderer's own ray setup
+        origins, dirs, tmin, _, _, _ = grid_ray_setup(cfg, ro, rd)
+        ts = tmin[:, None] + cfg.step_size * steps[None, :]
+        pos = origins[:, None, :] + ts[..., None] * dirs[:, None, :]
+        pos = torch.minimum(torch.clamp(pos, min=0.0), gsz - 1.0)
+        l = torch.minimum(torch.clamp(torch.floor(pos), min=0.0), gsz - 2.0).long()
+        ln = l + (pos - l > 0.5).long()
+        flat = (ln[..., 0] * cfg.reso[1] + ln[..., 1]) * cfg.reso[2] + ln[..., 2]
+        maxw.scatter_reduce_(0, flat.reshape(-1), w.reshape(-1), reduce="amax")
+    return maxw.reshape(cfg.reso)
+
+
+def weight_prune_grid(grid: VoxelGrid, cfg: VoxelGridConfig, poses, H, W, K,
+                      weight_thresh: float = 0.0256, dilate: int = 2,
+                      stride: int = 2) -> VoxelGrid:
+    """Max-weight camera pruning (svox2.py:1224+ resample with
+    use_weight_thresh; threshold default = RenderOptions' 0.0256)."""
+    maxw = max_weight_grid(grid, cfg, poses, H, W, K, stride)
+    keep = _dilate(maxw >= weight_thresh, dilate)
+    return grid._replace(alive=grid.alive & keep)
 
 
 def prune_grid(grid: VoxelGrid, sigma_thresh: float = 5.0, dilate: int = 2) -> VoxelGrid:
@@ -311,14 +752,40 @@ def prune_grid(grid: VoxelGrid, sigma_thresh: float = 5.0, dilate: int = 2) -> V
 # ---------------------------------------------------------------------------
 
 def save_npz(path: str, grid: VoxelGrid, cfg: VoxelGridConfig) -> None:
-    """Write the reference's ckpt.npz field layout (links + packed data).
-    The alive-select and the fp16 cast run on the grid's device."""
+    """Write the reference's ckpt.npz field layout (links + packed data,
+    the background and the basis).  The alive-select and the fp16 cast run
+    on the grid's device."""
     alive = grid.alive
     n_alive = int(alive.sum())
     links = torch.full(alive.shape, -1, dtype=torch.int32, device=alive.device)
     links[alive] = torch.arange(n_alive, dtype=torch.int32, device=alive.device)
     density_data = grid.density.detach()[alive][:, None].float()
     sh_data = grid.sh.detach()[alive].half()
+    extra = {}
+    if grid.background is not None:
+        # svox2.py:1531-1558: background_links [2R, R] + background_data
+        # [cap, nlayers, 4]; the dense background flattens to that layout
+        two_r, r, nlayers, _ = grid.background.shape
+        extra["background_links"] = np.arange(two_r * r, dtype=np.int32).reshape(two_r, r)
+        extra["background_data"] = grid.background.detach().reshape(
+            two_r * r, nlayers, 4).half().cpu().numpy()
+    # svox2.py:1543-1553 basis serialization: 1=SH, 4=3D texture (raw
+    # basis_data array), 255=MLP (net_to_dict keys pt__basis_mlp__{i}__*,
+    # torch Linear layout: weight [out, in])
+    basis_type = 1
+    if cfg.basis_type == "3d_texture" and grid.basis is not None:
+        basis_type = 4
+        extra["basis_data"] = grid.basis.detach().float().cpu().numpy()
+    elif cfg.basis_type == "mlp" and grid.basis is not None:
+        basis_type = 255
+        for i in range(4):
+            seq = 2 * i      # nn.Sequential child index (ReLU between)
+            extra[f"pt__basis_mlp__{seq}__weight"] = np.ascontiguousarray(
+                grid.basis[f"w{i}"].detach().float().cpu().numpy().T)
+            extra[f"pt__basis_mlp__{seq}__bias"] = (
+                grid.basis[f"b{i}"].detach().float().cpu().numpy())
+        extra["mlp_posenc_size"] = np.int64(cfg.mlp_posenc_size)
+        extra["mlp_width"] = np.int64(cfg.mlp_width)
     np.savez(
         path,
         radius=np.asarray(cfg.radius, np.float32),
@@ -326,24 +793,59 @@ def save_npz(path: str, grid: VoxelGrid, cfg: VoxelGridConfig) -> None:
         links=links.cpu().numpy(),
         density_data=density_data.cpu().numpy(),
         sh_data=sh_data.cpu().numpy(),
-        basis_type=1,
+        basis_type=basis_type,
+        **extra,
     )
 
 
 def load_npz(path: str, device="cpu") -> Tuple[VoxelGrid, VoxelGridConfig]:
     """Load a reference-format npz (ours, the reference package's or
-    svox2's own), closed-form SH and no background only."""
+    svox2's own), with its background and learned basis when it has them.
+    Each array is read from the file once."""
     z = np.load(path)
-    if "background_data" in z and z["background_data"].size:
-        raise NotImplementedError(f"the MSI background {LATER_SLICE}")
-    if "basis_type" in z and int(z["basis_type"]) != 1:
-        raise NotImplementedError(f"learned bases {LATER_SLICE}")
     links = z["links"]
     alive = links >= 0
+    sh_data = z["sh_data"]
     density = np.zeros(links.shape, np.float32)
-    sh = np.zeros(links.shape + (z["sh_data"].shape[-1],), np.float32)
+    sh = np.zeros(links.shape + (sh_data.shape[-1],), np.float32)
     density[alive] = z["density_data"][:, 0][links[alive]]
-    sh[alive] = z["sh_data"].astype(np.float32)[links[alive]]
+    sh[alive] = sh_data.astype(np.float32)[links[alive]]
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+
+    background = None
+    bg_nlayers, bg_reso = 0, 512
+    bd = z["background_data"] if "background_data" in z.files else None
+    if bd is not None and bd.size:
+        bl = z["background_links"]
+        bd = bd.astype(np.float32)
+        two_r, r = bl.shape
+        if np.array_equal(bl.ravel(), np.arange(bl.size)):
+            bg = bd.reshape((two_r, r) + bd.shape[1:])    # every cell, in order
+        else:
+            bg = np.zeros((two_r, r) + bd.shape[1:], np.float32)
+            ok = bl >= 0
+            bg[ok] = bd[bl[ok]]
+        background = dev(bg)
+        bg_nlayers, bg_reso = bd.shape[1], r
+    basis = None
+    basis_type = "sh"
+    basis_reso, mlp_posenc, mlp_width = 32, 4, 32
+    bt = int(z["basis_type"]) if "basis_type" in z else 1
+    if bt == 4 and "basis_data" in z:
+        basis_type = "3d_texture"
+        basis = dev(z["basis_data"])
+        basis_reso = basis.shape[0]
+    elif bt == 255:
+        basis_type = "mlp"
+        basis = {}
+        for i in range(4):
+            basis[f"w{i}"] = dev(z[f"pt__basis_mlp__{2 * i}__weight"].astype(np.float32).T)
+            basis[f"b{i}"] = dev(z[f"pt__basis_mlp__{2 * i}__bias"])
+        mlp_width = basis["w0"].shape[1]
+        mlp_posenc = (basis["w0"].shape[0] - 3) // 6
+
     radius = np.atleast_1d(z["radius"])
     cfg = VoxelGridConfig(
         reso=tuple(int(v) for v in links.shape),
@@ -351,10 +853,17 @@ def load_npz(path: str, device="cpu") -> Tuple[VoxelGrid, VoxelGridConfig]:
         radius=(tuple(float(v) for v in radius[:3]) if radius.size >= 3
                 else (float(radius[0]),) * 3),
         center=tuple(float(v) for v in np.atleast_1d(z["center"])[:3]),
+        background_nlayers=bg_nlayers,
+        background_reso=bg_reso,
+        basis_type=basis_type,
+        basis_reso=basis_reso,
+        mlp_posenc_size=mlp_posenc,
+        mlp_width=mlp_width,
     )
     grid = VoxelGrid(
         torch.from_numpy(density).to(device),
         torch.from_numpy(sh).to(device),
         torch.from_numpy(alive).to(device),
+        background, basis,
     )
     return grid, cfg

@@ -39,7 +39,7 @@ import torch
 from flnerf_tpu_torch.models.voxel_sh import (
     VoxelGrid,
     VoxelGridConfig,
-    check_supported,
+    compose_msi_background,
     grid_ray_setup,
     voxel_render_rays,
 )
@@ -385,18 +385,30 @@ def ray_inputs(cfg: VoxelGridConfig, rays_o, rays_d):
     return [t.contiguous() for t in (origins, dirs, tmin, tmax, dscale, shmult)]
 
 
+def check_kernel_cfg(cfg: VoxelGridConfig) -> None:
+    """The kernels bake cuvol marching and closed-form SH: any other backend
+    or a learned basis raises (the reference's voxel_render_rays_fast)."""
+    if cfg.backend != "cuvol":
+        raise ValueError(f"the cuvol kernels bake cuvol marching; backend={cfg.backend!r} "
+                         "renders through voxel_sh.voxel_render_rays")
+    if cfg.basis_type != "sh":
+        raise ValueError(f"the cuvol kernels bake closed-form SH; basis_type="
+                         f"{cfg.basis_type!r} renders through voxel_sh.voxel_render_rays")
+
+
 def render_rays_fused(grid: VoxelGrid, rays_o: torch.Tensor,
                       rays_d: torch.Tensor, cfg: VoxelGridConfig) -> torch.Tensor:
     """Fused cuvol render of [N] rays: [N, 8] f32 (rgb, depth, final log-T,
-    acc, 0, 0), differentiable in grid.density and grid.sh.
+    acc, 0, 0), differentiable in grid.density and grid.sh.  The rgb holds
+    the flat background_brightness fill; ``compose_msi_background`` puts a
+    grid's MSI background in its place.
 
     CUDA tensors launch K1 (and K2 in the backward); CPU tensors take the
     plain version; any other device raises."""
-    check_supported(cfg)
+    check_kernel_cfg(cfg)
     dev = grid.density.device
     if dev.type == "cuda":
-        return RenderFused.apply(grid.density, grid.sh, grid.alive,
-                                 *ray_inputs(cfg, rays_o, rays_d), cfg)
+        return RenderFused.apply(*grid.tensors, *ray_inputs(cfg, rays_o, rays_d), cfg)
     if dev.type == "cpu":
         return render_rays_plain(grid, rays_o, rays_d, cfg)
     raise ValueError(f"no cuvol render for device {dev}")
@@ -404,9 +416,10 @@ def render_rays_fused(grid: VoxelGrid, rays_o: torch.Tensor,
 
 def render_rays_plain(grid: VoxelGrid, rays_o: torch.Tensor,
                       rays_d: torch.Tensor, cfg: VoxelGridConfig) -> torch.Tensor:
-    """The kernels' plain version, ``voxel_render_rays``, in their [N, 8]
-    output layout; runs on any device."""
-    out = voxel_render_rays(grid, rays_o, rays_d, cfg)
+    """The kernels' plain version, ``voxel_render_rays`` of the grid without
+    its background, in their [N, 8] output layout; runs on any device."""
+    out = voxel_render_rays(VoxelGrid(*grid.tensors), rays_o, rays_d,
+                            cfg._replace(background_nlayers=0))
     zero = torch.zeros_like(out["depth"])
     return torch.stack(
         [out["rgb"][:, 0], out["rgb"][:, 1], out["rgb"][:, 2], out["depth"],
@@ -416,10 +429,14 @@ def render_rays_plain(grid: VoxelGrid, rays_o: torch.Tensor,
 def voxel_render_rays_fast(grid: VoxelGrid, rays_o, rays_d,
                            cfg: VoxelGridConfig):
     """Drop-in counterpart of ``voxel_sh.voxel_render_rays`` through the
-    fused kernels: returns rgb, depth and acc.  Every ray is served; there
+    fused kernels: returns rgb, depth and acc, with a grid's MSI background
+    composed as the plain render composes it.  Every ray is served; there
     is no ordering requirement and no per-block spread flag."""
     out = render_rays_fused(grid, rays_o, rays_d, cfg)
-    return {"rgb": out[:, 0:3], "depth": out[:, 3], "acc": out[:, 5]}
+    rgb = out[:, 0:3]
+    if grid.background is not None:
+        rgb = compose_msi_background(grid.background, rgb, out[:, 4], rays_o, rays_d, cfg)
+    return {"rgb": rgb, "depth": out[:, 3], "acc": out[:, 5]}
 
 
 def morton_order(px: np.ndarray, py: np.ndarray, img: np.ndarray) -> np.ndarray:

@@ -176,7 +176,7 @@ class InteractiveSession:
         with tr.ema_weights():                                  # ema.copy_to()
             rgb, depth = ngp_render_image(tr.field, tr.occ, tr.rcfg, rH, rW, K,
                                           self.cam.pose[:3, :4], chunk=min(8192, rH * rW),
-                                          time=self.time)
+                                          time=self.time, bg_fn=tr.bg_fn)
         if downscale != 1.0:
             ry = (np.arange(self.H) * rH // self.H).clip(0, rH - 1)
             rx = (np.arange(self.W) * rW // self.W).clip(0, rW - 1)

@@ -28,7 +28,7 @@ class back with device index tensors.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -297,13 +297,18 @@ def march(occ: OccupancyState, rays_o: torch.Tensor, rays_d: torch.Tensor,
 def ngp_render_rays(field, occ: OccupancyState, rays_o: torch.Tensor,
                     rays_d: torch.Tensor, cfg: NGPRenderConfig, perturb: bool = True,
                     bg_color=None, noise: Optional[torch.Tensor] = None,
-                    generator=None, times: Optional[torch.Tensor] = None):
+                    generator=None, times: Optional[torch.Tensor] = None,
+                    bg_fn: Optional[Callable] = None):
     """Render [N] rays (unit rays_d) through ``field`` (``density`` and
     ``color``).  Returns dict(rgb, depth, acc), differentiable in the
     field's parameters; the occupancy state is a constant.  ``bg_color`` is
-    a scalar or an [N, 3] tensor (default cfg.bg_color).  ``times`` [N]
-    renders a time-conditioned (D-NeRF) field, ``density(x, t)``."""
+    a scalar or an [N, 3] tensor (default cfg.bg_color); ``bg_fn(rays_o,
+    rays_d) -> [N, 3]``, the learned background (``NGPField.background``),
+    replaces it when given (renderer.py:232-235).  ``times`` [N] renders a
+    time-conditioned (D-NeRF) field, ``density(x, t)``."""
     marched = march(occ, rays_o, rays_d, cfg, perturb, noise, generator)
+    if bg_fn is not None:
+        bg_color = bg_fn(rays_o, rays_d)
     return render_marched(field, marched, rays_d, cfg, bg_color, times)
 
 
@@ -339,10 +344,12 @@ def render_marched(field, marched, rays_d: torch.Tensor, cfg: NGPRenderConfig,
 
 
 def ngp_render_image(field, occ: OccupancyState, cfg: NGPRenderConfig, H: int, W: int,
-                     K, c2w, chunk: int = 8192, bg_color=None, time: Optional[float] = None):
+                     K, c2w, chunk: int = 8192, bg_color=None, time: Optional[float] = None,
+                     bg_fn: Optional[Callable] = None):
     """Full-image eval render, unperturbed, ``chunk`` rays per field call;
-    ``time`` renders a D-NeRF frame at that time.  Returns (rgb [H, W, 3],
-    depth [H, W]) as numpy."""
+    ``time`` renders a D-NeRF frame at that time; ``bg_fn`` (the learned
+    background) takes precedence over ``bg_color``.  Returns (rgb [H, W,
+    3], depth [H, W]) as numpy."""
     if bg_color is not None:
         cfg = cfg._replace(bg_color=float(bg_color))
     rays_o, rays_d = get_rays(H, W, K, c2w, field.device)
@@ -364,7 +371,7 @@ def ngp_render_image(field, occ: OccupancyState, cfg: NGPRenderConfig, H: int, W
     with torch.no_grad():
         for i in range(0, n_pad, chunk):
             out = ngp_render_rays(field, occ, rays_o[i:i + chunk], rays_d[i:i + chunk],
-                                  cfg, perturb=False, times=times)
+                                  cfg, perturb=False, times=times, bg_fn=bg_fn)
             rgbs.append(out["rgb"])
             depths.append(out["depth"])
     rgb = torch.cat(rgbs, 0)[:n].reshape(H, W, 3)

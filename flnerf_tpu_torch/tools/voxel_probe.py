@@ -522,7 +522,7 @@ def launch(variant: str, grid, ray_in, cfg, occ, out) -> None:
     """One launch of a K1 variant into ``out`` [N, 8]; ``occ`` is used by
     the variants that skip (None: they march every step)."""
     code, skip = VARIANTS[variant]
-    args = vk._common_args(*grid, *ray_in, cfg)
+    args = vk._common_args(*grid.tensors, *ray_in, cfg)
     rc = build().probe_forward(code, *args, occ.data_ptr() if skip and occ is not None else None,
                                out.data_ptr(),
                                torch.cuda.current_stream(out.device).cuda_stream)
@@ -536,7 +536,7 @@ def launch_backward(variant: str, grid, ray_in, cfg, occ, out, grad_out, grads,
     grad_sh); ``occ`` is used by the variants that skip (None: they march
     every step), ``sink`` ([N, 32] f32) only by ``ATOMICS_OFF``."""
     t, skip = k2_variants()[variant]
-    args = vk._common_args(*grid, *ray_in, cfg)
+    args = vk._common_args(*grid.tensors, *ray_in, cfg)
     if t is not None and not t[3] and sink is None:
         raise ValueError(f"{variant!r} needs a sink")
     rc = build().probe_backward(
@@ -574,7 +574,7 @@ def probe(grid, cfg, o, d) -> dict:
     ms = {name: _time(lambda name=name: launch(name, grid, ray_in, cfg, occ, out))
           for name in VARIANTS}
     ms["K1 through the wrapper (occupancy built before the launch)"] = _time(
-        lambda: vk.cuvol_forward(*grid, *ray_in, cfg))
+        lambda: vk.cuvol_forward(*grid.tensors, *ray_in, cfg))
     ms["occupancy build"] = _time(lambda: vk.skip_occupancy(grid.density, grid.alive, cfg))
     return ms
 
@@ -601,7 +601,7 @@ def probe_backward(grid, cfg, o, d, grad_out) -> dict:
         raise ValueError("the probe's skipping variants need sigma_thresh > 0")
     ray_in = vk.ray_inputs(cfg, o, d)
     occ = vk.skip_occupancy(grid.density, grid.alive, cfg)
-    out = vk.cuvol_forward(*grid, *ray_in, cfg, occ=occ)
+    out = vk.cuvol_forward(*grid.tensors, *ray_in, cfg, occ=occ)
     zeros = lambda: (torch.zeros_like(grid.density), torch.zeros_like(grid.sh))
     want = zeros()
     launch_backward(REPLACED_K2_NAME, grid, ray_in, cfg, occ, out, grad_out, want)
@@ -622,7 +622,7 @@ def probe_backward(grid, cfg, o, d, grad_out) -> dict:
                                                         grad_out, grads, sink))
           for name in variants}
     ms["K2 through the wrapper (the forward's occupancy passed)"] = _time(
-        lambda: vk.cuvol_backward(*grid, *ray_in, out, grad_out, cfg, grads=grads, occ=occ))
+        lambda: vk.cuvol_backward(*grid.tensors, *ray_in, out, grad_out, cfg, grads=grads, occ=occ))
     return ms
 
 
@@ -749,7 +749,7 @@ def main() -> None:
     for name, (ev, dt) in ms.items():
         print(f"{ev:9.4f} ms by events, {dt:9.4f} ms of device time  {name}")
     print(finding(ms))
-    out = vk.cuvol_forward(*grid, *vk.ray_inputs(cfg, o, d), cfg)
+    out = vk.cuvol_forward(*grid.tensors, *vk.ray_inputs(cfg, o, d), cfg)
     grad_out = torch.zeros_like(out)
     grad_out[:, :3] = 2.0 * (out[:, :3] - 0.5) / (3 * out.shape[0])
     grad_out[:, 4] = 0.1

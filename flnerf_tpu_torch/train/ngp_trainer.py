@@ -25,6 +25,12 @@ The trainer takes an ``NGPConfig`` or any field module (``density``,
 field mid-run: the port of the reference's generic field protocol, which
 the TensoRF, CP and CCNeRF CLIs drive.
 
+A field with the background env-map (``NGPField.has_background``, an
+``NGPConfig`` with ``bg_radius > 0``) renders with it in place of
+``bg_color``, its parameters train with the field's (Adam and the EMA), and
+RGBA data is composited on white for its ground truth, not on a random
+background (utils.py:469-471); eval renders with it too.
+
 With ``time_dependent`` (D-NeRF) the field's density takes a time,
 ``density(x, t)``: the sampler gives each ray its frame's time, the step
 renders at those times, each occupancy refresh draws one t ~ U(0, 1) (before
@@ -253,6 +259,9 @@ class NGPTrainer:
         'reset optimizer since params changed', :127): the step, and so the
         lr decay over cfg.max_steps, and the occupancy grid carry over."""
         self.field = field.to(self.device)
+        # the learned background replaces bg_color (network.py:66-93)
+        self.bg_fn = (self.field.background if getattr(self.field, "has_background", False)
+                      else None)
         self.params = list(self.field.parameters())
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
@@ -278,7 +287,7 @@ class NGPTrainer:
         rows = mesh.step_rows(n, self.world, self.rank) if self.shard_grads else None
         if rows is not None:
             # this rank's rows of the whole batch's draws
-            if rgb.shape[-1] == 4 and bg_noise is None:
+            if rgb.shape[-1] == 4 and bg_noise is None and self.bg_fn is None:
                 bg_noise = torch.rand((n, 3), generator=self.gen, device=rgb.device)[rows]
             if noise is None:
                 noise = torch.rand((n, self.rcfg.n_candidates), generator=self.gen,
@@ -286,16 +295,19 @@ class NGPTrainer:
             origins, dirs, rgb = origins[rows], dirs[rows], rgb[rows]
             times = None if times is None else times[rows]
         with torch.enable_grad():
-            if rgb.shape[-1] == 4:
+            if rgb.shape[-1] == 4 and self.bg_fn is None:
                 # pixel-wise random background (utils.py:474-479)
                 bg = (torch.rand(rgb[..., :3].shape, generator=self.gen, device=rgb.device)
                       if bg_noise is None else bg_noise)
                 gt = rgb[..., :3] * rgb[..., 3:] + bg * (1.0 - rgb[..., 3:])
+            elif rgb.shape[-1] == 4:
+                # the background model: gt on white (utils.py:469-471)
+                bg, gt = None, rgb[..., :3] * rgb[..., 3:] + 1.0 - rgb[..., 3:]
             else:
                 bg, gt = cfg.bg_color, rgb
             out = ngp_render_rays(self.field, self.occ, origins, dirs, self.rcfg,
                                   perturb=True, bg_color=bg, noise=noise,
-                                  generator=self.gen, times=times)
+                                  generator=self.gen, times=times, bg_fn=self.bg_fn)
             if cfg.loss_type == "huber":
                 per_ray = torch.mean(huber_loss(out["rgb"], gt, cfg.huber_delta,
                                                 reduce=False), -1)
@@ -431,8 +443,10 @@ class NGPTrainer:
         from flnerf_tpu_torch.models.dnerf import DNeRFBase
 
         if isinstance(self.field, NGPField):
-            return convert.ngp_params_to_numpy(tensors, self.field.cfg.num_layers,
-                                               engine_kind(self.field.spec))
+            cfg = self.field.cfg
+            return convert.ngp_params_to_numpy(
+                tensors, cfg.num_layers, engine_kind(self.field.spec),
+                cfg.num_layers_bg if self.field.has_background else 0)
         if isinstance(self.field, DNeRFBase):
             return convert.dnerf_params_to_numpy(self.field, tensors)
         return convert.tensorf_params_to_numpy(self.field, tensors)
@@ -532,7 +546,8 @@ class NGPTrainer:
             for i in range(poses.shape[0]):
                 rgb, _ = ngp_render_image(self.field, self.occ, self.rcfg, H, W, K,
                                           poses[i][:3, :4], chunk=chunk,
-                                          time=None if times is None else float(times[i]))
+                                          time=None if times is None else float(times[i]),
+                                          bg_fn=self.bg_fn)
                 gt = np.asarray(images[i], np.float32)
                 if gt.shape[-1] == 4:
                     # RGBA gt on the eval bg color (utils.py:471)

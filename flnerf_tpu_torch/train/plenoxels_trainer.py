@@ -2,7 +2,7 @@
 
 Port of ``flnerf_tpu/train/plenoxels_trainer.py`` for one device.  Per
 epoch the quadtree budgeter's rays cross to the device once; per batch the
-step renders through ``ops/voxel_kernel.render_rays_fused`` (the CUDA
+step renders through ``ops/voxel_kernel.voxel_render_rays_fast`` (the CUDA
 kernels on the card, the plain version on the CPU), takes the masked MSE
 with ``denom = max(sum(mask), 1) * 3`` plus dense TV (or the random-slab
 estimator when ``tv_sparsity < 1``), and applies RMSProp to density and SH
@@ -11,37 +11,54 @@ statistic accumulates on the device with ``index_add_`` and crosses to the
 host once per epoch, together with the epoch MSE.  Steps that hold only
 padding are skipped on the host: they would be no-ops.
 
-The device takes the place of the reference's ``use_kernel``.  On CUDA the
-trainer takes the kernel path as the reference's ``use_kernel=True`` does:
-the kernels, and the epoch's rays in morton order by (image, pixel) with
-their 64-ray blocks shuffled by ``default_rng(seed)``, so that the rays of
-one block march through neighbouring cells and share the L2 cache (on one
-H100 this order cut K1 and K2 by 10-13% at 48x48 views and by about half
-at 800x800: ``chip_smoke.py``).  On the CPU it takes the reference's
-``use_kernel=False`` path: the plain render, rays in the budgeter's order.
-The reference's re-forming and dropping of blocks that overflow the TPU
-kernel's box is not ported: every ray reaches the loss.
+The path.  On CUDA the trainer takes the kernel path, as the reference's
+``use_kernel=True`` does: the kernels, and the epoch's rays in morton order
+by (image, pixel) with their 64-ray blocks shuffled by ``default_rng(seed)``,
+so that the rays of one block march through neighbouring cells and share the
+L2 cache (on one H100 this order cut K1 and K2 by 10-13% at 48x48 views and
+by about half at 800x800: ``chip_smoke.py``).  It takes the plain path, the
+reference's ``use_kernel=False`` (``voxel_render_rays``, rays in the
+budgeter's order), on the CPU, and on CUDA for the configurations no
+kernel computes: a learned basis (``basis_type != 'sh'``) and a backend
+other than cuvol.  The lumisphere TV stays on the kernel path: it reads
+``grid.sh`` and the closed-form SH basis, not the render, and is added to
+the regularizers after it.  (The reference also refuses its kernel for the
+lumisphere TV, plenoxels_trainer.py:146-158, because its TPU kernel's table
+packs the closed-form SH; K1/K2 read ``grid.sh`` directly.)
+``kernel_path`` makes the choice from the configuration alone, and the
+trainer keeps it in ``self.use_kernel`` and writes it in each history
+entry.  The
+reference's re-forming and dropping of blocks that overflow the TPU kernel's
+box is not ported: every ray reaches the loss.
+
+The MSI background (``background_nlayers > 0``) trains on both paths, with
+its own RMSProp state, lr schedules (``lr_sigma_bg``, ``lr_color_bg``) and
+TV, and with the cells ``sparsify_bg`` empties pinned.  On the kernel path
+the background is composed on K1's output from its final log-T (channel 4),
+as the reference composes it (plenoxels_trainer.py:209-224); the gradient
+into the log-T reaches density and SH through K2.  A learned basis trains
+with its RMSProp state and ``lr_basis`` schedule.  The lumisphere TV draws
+its direction and slabs from a numpy generator seeded with [seed, 2], or
+from ``lumisphere_draws(step)`` when set (a test feeds the reference's key
+chain through it).
 
 Data parallelism (the reference's ``shard_map`` kernel branch,
 plenoxels_trainer.py:184-262): with ``group`` of W > 1 ranks and
 ``batch_size % (RB * W) == 0`` each rank renders its contiguous slice of the
-(coherence-ordered) batch, the squared-error sum and the data term's density
-and SH gradients (already divided by the whole batch's ray count, which every
-rank knows) are summed by one all-reduce, and TV and RMSProp are applied
-after it, once, identically on every rank; the per-ray errors are
-gathered for the budgeter.  Otherwise every rank runs the whole batch.  The
-grids stay replicated, so W ranks all-reduce the whole SH gradient every step
-(1.8 GB at 256^3), as the reference's ``psum`` does.
-
-Not ported yet (each raises ``NotImplementedError``): the MSI background,
-learned bases, the lumisphere TV and the non-cuvol backends.
+(coherence-ordered) batch, the squared-error sum and the data term's
+gradients (already divided by the whole batch's ray count, which every rank
+knows) are summed by one all-reduce, and TV and RMSProp are applied after
+it, once, identically on every rank; the per-ray errors are gathered for the
+budgeter.  Otherwise every rank runs the whole batch.  The grids stay
+replicated, so W ranks all-reduce the whole SH gradient every step (1.8 GB
+at 256^3), as the reference's ``psum`` does.
 """
 
 from __future__ import annotations
 
 import math
 import time
-from typing import NamedTuple, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,17 +66,23 @@ import torch
 from flnerf_tpu_torch.core.device import resolve_device
 from flnerf_tpu_torch.core.metrics import compute_ssim, mse2psnr
 from flnerf_tpu_torch.models.voxel_sh import (
-    LATER_SLICE,
+    LumisphereDraws,
     VoxelGrid,
     VoxelGridConfig,
-    check_supported,
+    basis_from_leaves,
+    basis_leaves,
+    draw_lumisphere,
     init_voxel_grid,
     prune_grid,
+    sparsify_background,
     tv_loss,
+    tv_loss_background,
+    tv_loss_lumisphere,
     tv_loss_slab,
     upsample_grid,
+    voxel_render_rays,
 )
-from flnerf_tpu_torch.ops.voxel_kernel import morton_order, render_rays_fused
+from flnerf_tpu_torch.ops.voxel_kernel import morton_order, voxel_render_rays_fast
 from flnerf_tpu_torch.parallel import mesh
 from flnerf_tpu_torch.rays.camera import get_rays
 from flnerf_tpu_torch.rays.quadtree import RayBudgeter, RayEpoch
@@ -99,19 +122,22 @@ class PlenoxelsTrainConfig(NamedTuple):
     lambda_tv_sh: float = 1e-3
     # fraction of z-planes whose TV is sampled per step (1.0 = dense)
     tv_sparsity: float = 1.0
-    # lumisphere TV: not ported (must stay 0)
+    # lumisphere TV (loss_kernel.cu:336): spatial TV of the view-dependent
+    # radiance at a random per-step direction; plain path only
     lambda_tv_lumisphere: float = 0.0
     tv_lumisphere_dir_factor: float = 0.0
-    # MSI background optimization: not ported (the grid config raises
-    # for background_nlayers > 0); kept so configs carry across
+    # MSI background optimization (opt.py:499-500 optim_background_step,
+    # argument_parser.py:95-109 lr schedule, 208-211 TV weights); active
+    # whenever the grid carries a background (background_nlayers > 0)
     lr_sigma_bg: float = 3e0
     lr_sigma_bg_final: float = 3e-3
     lr_color_bg: float = 1e-1
     lr_color_bg_final: float = 5e-6
     lambda_tv_background_sigma: float = 1e-2
     lambda_tv_background_color: float = 1e-2
-    background_density_thresh: float = 1.0
-    # learned-basis optimization: not ported (basis_type must be 'sh')
+    background_density_thresh: float = 1.0  # sparsify_background threshold
+    # learned-basis optimization (svox2.py:2091 optim_basis_step,
+    # argument_parser.py:113-124 --lr_basis); active with a learned basis
     lr_basis: float = 1e-6
     lr_basis_final: float = 1e-6
     subdivide_every: int = 1
@@ -122,8 +148,8 @@ class PlenoxelsTrainConfig(NamedTuple):
     upsample_epochs: Tuple[int, ...] = ()
     prune_sigma_thresh: float = 5.0
     seed: int = 0
-    # kept so configs carry across; the port takes the kernel path, and its
-    # ray order, from the device (see module docstring)
+    # kept so configs carry across; the port takes its path, and its ray
+    # order, from the device and the configuration (see kernel_path)
     use_kernel: bool = False
 
 
@@ -132,6 +158,39 @@ class PlenoxelsState(NamedTuple):
     rms_density: torch.Tensor
     rms_sh: torch.Tensor
     step: int
+    # MSI background optimizer state (svox2.py:2048 background_rms) and the
+    # [2R, R] mask of cells sparsify_bg kept (background_links >= 0)
+    rms_bg: Optional[torch.Tensor] = None
+    bg_alive: Optional[torch.Tensor] = None
+    rms_basis: Optional[Any] = None   # svox2.py:2091 basis_rms, like the basis
+
+
+def kernel_path(grid_cfg: VoxelGridConfig, device) -> bool:
+    """Whether a grid on ``device`` renders on the kernel path: on CUDA,
+    unless no kernel computes the configuration's render (a learned basis,
+    a non-cuvol backend).  No training option enters the rule: every
+    regularizer, the lumisphere TV included, runs beside the kernels."""
+    return (torch.device(device).type == "cuda" and grid_cfg.basis_type == "sh"
+            and grid_cfg.backend == "cuvol")
+
+
+def render_grid_image(grid: VoxelGrid, grid_cfg: VoxelGridConfig, H, W, K, c2w,
+                      chunk: int = 4096) -> np.ndarray:
+    """Render one [H, W, 3] image (numpy) of ``grid`` on its device through
+    the path ``kernel_path`` picks (K1 on the card for SH cuvol, with the
+    MSI background composed on its final log-T), ``chunk`` rays at a time in
+    raster order (on one H100 a morton order changed K1 by 1% on a 48x48
+    view: ``chip_smoke.py``).  It needs no trainer, so a loaded grid renders
+    without optimizer state."""
+    device = grid.density.device
+    render = voxel_render_rays_fast if kernel_path(grid_cfg, device) else voxel_render_rays
+    rays_o, rays_d = get_rays(H, W, K, c2w, device)
+    ro = rays_o.reshape(-1, 3)
+    rd = rays_d.reshape(-1, 3)
+    with torch.no_grad():
+        rgb = torch.cat([render(grid, ro[i:i + chunk], rd[i:i + chunk], grid_cfg)["rgb"]
+                         for i in range(0, ro.shape[0], chunk)], 0)
+    return rgb.cpu().numpy().reshape(H, W, 3)
 
 
 def coherence_order(px: np.ndarray, py: np.ndarray, img: np.ndarray,
@@ -155,16 +214,15 @@ def _leaf_buf_size(n: int) -> int:
 
 class PlenoxelsTrainer:
     """``group``: the process group the batch is sharded over (None: the
-    default group when one is initialised, else one rank)."""
+    default group when one is initialised, else one rank).
+    ``lumisphere_draws``: None, or a callable step -> ``LumisphereDraws``
+    that replaces the trainer's own draws of the lumisphere TV."""
 
     def __init__(self, grid_cfg: VoxelGridConfig,
                  train_cfg: PlenoxelsTrainConfig, device="cuda", group=None):
-        check_supported(grid_cfg)
-        if train_cfg.lambda_tv_lumisphere > 0:
-            raise NotImplementedError(f"the lumisphere TV {LATER_SLICE}")
         self.device = resolve_device(device)
-        # the kernel path (CUDA) marches rays in coherence order
-        self.coherent = self.device.type == "cuda"
+        # the kernel path also marches rays in coherence order
+        self.use_kernel = kernel_path(grid_cfg, self.device)
         self.gcfg = grid_cfg
         self.cfg = train_cfg
         self.group = group
@@ -172,10 +230,18 @@ class PlenoxelsTrainer:
         self.shard_kernel = (self.world > 1
                              and train_cfg.batch_size % (RB * self.world) == 0)
         grid = init_voxel_grid(grid_cfg, self.device)
+        bg = grid.background
         self.state = PlenoxelsState(
-            grid, torch.zeros_like(grid.density), torch.zeros_like(grid.sh), 0)
+            grid, torch.zeros_like(grid.density), torch.zeros_like(grid.sh), 0,
+            rms_bg=None if bg is None else torch.zeros_like(bg),
+            bg_alive=(None if bg is None else
+                      torch.ones(bg.shape[:2], dtype=torch.bool, device=self.device)),
+            rms_basis=basis_from_leaves(
+                grid.basis, [torch.zeros_like(t) for t in basis_leaves(grid.basis)]))
         self._tv_rng = np.random.default_rng([train_cfg.seed, 1])
+        self._lumi_rng = np.random.default_rng([train_cfg.seed, 2])
         self._order_rng = np.random.default_rng(train_cfg.seed)
+        self.lumisphere_draws: Optional[Callable[[int], LumisphereDraws]] = None
         self.history = []
 
     # ------------------------------------------------------------------
@@ -190,21 +256,62 @@ class PlenoxelsTrainer:
         z0 = int(self._tv_rng.integers(0, z - slab + 1))
         return tv_loss_slab(field, z0, slab, alive)
 
+    def _lumisphere_tv(self, grid: VoxelGrid) -> torch.Tensor:
+        """The lumisphere TV term on a slab of min(tv_sparsity, 1/4) of the
+        z planes (at least 4), as the reference sizes it."""
+        z = grid.sh.shape[2]
+        slab = max(4, int(round(z * min(self.cfg.tv_sparsity, 0.25))))
+        draws = (self.lumisphere_draws(self.state.step) if self.lumisphere_draws
+                 else draw_lumisphere(self._lumi_rng, z, slab, self.device))
+        return tv_loss_lumisphere(grid, self.gcfg, draws, slab,
+                                  self.cfg.tv_lumisphere_dir_factor)
+
+    def render_rgb(self, grid: VoxelGrid, rays_o: torch.Tensor,
+                   rays_d: torch.Tensor) -> torch.Tensor:
+        """[N, 3] colour of the trainer's path: K1 (its rgb with the MSI
+        background composed on its final log-T) on the kernel path, the
+        plain ``voxel_render_rays`` otherwise."""
+        render = voxel_render_rays_fast if self.use_kernel else voxel_render_rays
+        return render(grid, rays_o, rays_d, self.gcfg)["rgb"]
+
+    def _rmsprop(self, param, rms, g, lr) -> None:
+        """Fused RMSProp (optim_kernel.cu:28 rmsprop_step), in place; ``lr``
+        a float or a tensor that broadcasts against ``param``."""
+        b = self.cfg.rms_beta
+        rms.mul_(b).addcmul_(g, g, value=1 - b)
+        if isinstance(lr, float):
+            param.addcdiv_(g, rms.sqrt().add_(1e-8), value=-lr)
+        else:
+            param.sub_(lr * g / (rms.sqrt() + 1e-8))
+
     def _step(self, origins, dirs, rgb, leaf, mask, err_sum, err_cnt):
         """One RMSProp step on a batch; returns (mse, ray count) tensors."""
-        g_density, g_sh, mse, count, per_ray_err = self._grads(origins, dirs, rgb, mask)
+        grads, mse, count, per_ray_err = self._grads(origins, dirs, rgb, mask)
         cfg, st = self.cfg, self.state
-        lr_sigma = float(expon_lr(st.step, cfg.lr_sigma, cfg.lr_sigma_final,
-                                  cfg.lr_sigma_delay_steps,
-                                  cfg.lr_sigma_delay_mult, cfg.lr_decay_steps))
-        lr_sh = float(expon_lr(st.step, cfg.lr_sh, cfg.lr_sh_final, 0, 1.0,
-                               cfg.lr_decay_steps))
-        # fused RMSProp (optim_kernel.cu:28 rmsprop_step), in place
-        b = cfg.rms_beta
-        for param, rms, g, lr in ((st.grid.density, st.rms_density, g_density, lr_sigma),
-                                  (st.grid.sh, st.rms_sh, g_sh, lr_sh)):
-            rms.mul_(b).addcmul_(g, g, value=1 - b)
-            param.addcdiv_(g, rms.sqrt().add_(1e-8), value=-lr)
+        step = st.step
+
+        def lr_of(init, final, delay=0, mult=1.0):
+            return float(expon_lr(step, init, final, delay, mult, cfg.lr_decay_steps))
+
+        g_density, g_sh = grads[0], grads[1]
+        self._rmsprop(st.grid.density, st.rms_density, g_density,
+                      lr_of(cfg.lr_sigma, cfg.lr_sigma_final, cfg.lr_sigma_delay_steps,
+                            cfg.lr_sigma_delay_mult))
+        self._rmsprop(st.grid.sh, st.rms_sh, g_sh, lr_of(cfg.lr_sh, cfg.lr_sh_final))
+        i = 2
+        if st.grid.background is not None:
+            # optim_background_step (svox2.py:2048): lr_color_bg on the rgb
+            # channels and lr_sigma_bg on sigma; pinned cells never move
+            g_bg = torch.where(st.bg_alive[:, :, None, None], grads[i], 0.0)
+            i += 1
+            c = lr_of(cfg.lr_color_bg, cfg.lr_color_bg_final)
+            lr_bg = torch.tensor([c, c, c, lr_of(cfg.lr_sigma_bg, cfg.lr_sigma_bg_final)],
+                                 device=self.device)
+            self._rmsprop(st.grid.background, st.rms_bg, g_bg, lr_bg)
+        # optim_basis_step (svox2.py:2091): RMSProp over the learned basis
+        lr_b = lr_of(cfg.lr_basis, cfg.lr_basis_final)
+        for p, r, g in zip(basis_leaves(st.grid.basis), basis_leaves(st.rms_basis), grads[i:]):
+            self._rmsprop(p, r, g, lr_b)
 
         live = mask > 0
         safe_leaf = torch.where(live, leaf, err_sum.shape[0] - 1)
@@ -214,42 +321,58 @@ class PlenoxelsTrainer:
         return mse, count
 
     def _grads(self, origins, dirs, rgb, mask):
-        """(density grad, SH grad, mse, ray count, per-ray |error|) of the
-        masked MSE plus TV on the batch.  Sharded, this rank renders its
-        slice; the squared-error sum and the data term's gradients are
-        summed over the ranks and the TV gradient is added after the sum,
-        once (plenoxels_trainer.py:184-262).  Every rank holds the whole
-        mask, so the ray count needs no reduce."""
+        """(gradients of density, SH[, background][, basis leaves], mse, ray
+        count, per-ray |error|) of the masked MSE plus the regularizers on
+        the batch.  Sharded, this rank renders its slice; the squared-error
+        sum and the data term's gradients are summed over the ranks and the
+        regularizers' gradients are added after the sum, once
+        (plenoxels_trainer.py:184-262).  Every rank holds the whole mask, so
+        the ray count needs no reduce."""
         cfg, st = self.cfg, self.state
         rows = (mesh.step_rows(origins.shape[0], self.world, self.rank)
                 if self.shard_kernel else None)
         m = mask
         if rows is not None:
             origins, dirs, rgb, m = origins[rows], dirs[rows], rgb[rows], mask[rows]
-        density = st.grid.density.detach().requires_grad_(True)
-        sh = st.grid.sh.detach().requires_grad_(True)
-        out = render_rays_fused(VoxelGrid(density, sh, st.grid.alive),
-                                origins, dirs, self.gcfg)
-        rgb_out = out[:, 0:3]
+        g0 = st.grid
+        leaves = [t.detach().requires_grad_(True)
+                  for t in [g0.density, g0.sh]
+                  + ([] if g0.background is None else [g0.background])
+                  + basis_leaves(g0.basis)]
+        density, sh = leaves[0], leaves[1]
+        bgv = leaves[2] if g0.background is not None else None
+        grid = VoxelGrid(density, sh, g0.alive,
+                         None if bgv is None else torch.where(
+                             st.bg_alive[:, :, None, None], bgv, 0.0),
+                         basis_from_leaves(g0.basis, leaves[2 + (bgv is not None):]))
+        rgb_out = self.render_rgb(grid, origins, dirs)
         count = torch.sum(mask)
         denom = torch.clamp(count, min=1.0) * 3.0
         sq = torch.sum(m[:, None] * (rgb_out - rgb) ** 2)
         reg = (cfg.lambda_tv * self._grid_tv(density)
                + cfg.lambda_tv_sh * self._grid_tv(sh))
-        g_density, g_sh = torch.autograd.grad(sq / denom, [density, sh])
+        if cfg.lambda_tv_lumisphere > 0.0:
+            reg = reg + cfg.lambda_tv_lumisphere * self._lumisphere_tv(grid)
+        if bgv is not None:
+            reg = reg + tv_loss_background(bgv, cfg.lambda_tv_background_color,
+                                           cfg.lambda_tv_background_sigma)
+        grads = [torch.zeros_like(t) if g is None else g
+                 for g, t in zip(torch.autograd.grad(sq / denom, leaves, allow_unused=True),
+                                 leaves)]
         sq = sq.detach().reshape(1)
         per_ray_err = torch.amax(torch.abs(rgb_out.detach() - rgb), -1)
         if rows is not None:
-            mesh.all_reduce_([sq, g_density, g_sh], group=self.group)
+            mesh.all_reduce_([sq] + grads, group=self.group)
             per_ray_err = mesh.gather_rows(per_ray_err, self.rank, self.world, self.group)
-        r_density, r_sh = torch.autograd.grad(reg, [density, sh])
-        return g_density.add_(r_density), g_sh.add_(r_sh), sq[0] / denom, count, per_ray_err
+        reg_grads = torch.autograd.grad(reg, leaves, allow_unused=True)
+        grads = [g if r is None else g.add_(r) for g, r in zip(grads, reg_grads)]
+        return grads, sq[0] / denom, count, per_ray_err
 
     def run_epoch_rays(self, epoch: RayEpoch):
         """Train on one epoch's rays; returns (per-leaf mean |error| [M],
         ray-weighted MSE over the last chunk)."""
         cfg = self.cfg
-        if self.coherent and epoch.px is not None:
+        if self.use_kernel and epoch.px is not None:
             # the rng persists, so the block order differs across epochs
             order = coherence_order(epoch.px, epoch.py, epoch.img, self._order_rng)
             epoch = epoch._replace(
@@ -327,6 +450,13 @@ class PlenoxelsTrainer:
                     print(f"  subdivided {n_split} -> {budgeter.forest.n_leaves} leaves")
 
             if epoch_id in cfg.upsample_epochs:
+                # sparsify the MSI background before resampling, like
+                # opt.py:593-594 (early upsample boundaries only)
+                if (self.state.grid.background is not None
+                        and epoch_id <= min(cfg.upsample_epochs)):
+                    n_dead = self.sparsify_bg()
+                    if verbose:
+                        print(f"  sparsified background: {n_dead} cells off")
                 new_reso = tuple(r * 2 for r in self.gcfg.reso)
                 self.resample(new_reso)
                 if verbose:
@@ -334,11 +464,13 @@ class PlenoxelsTrainer:
 
             psnr = float(mse2psnr(mse))
             # epoch_s: this epoch's ray generation, steps, subdivision and
-            # resampling, ended by the epoch's one host sync; no callback
+            # resampling, ended by the epoch's one host sync; no callback.
+            # path: "kernel" or "plain" (kernel_path)
             self.history.append(
                 {"epoch": epoch_id, "wall_s": time.time() - t0, "train_psnr": psnr,
                  "rays": int(epoch.origins.shape[0]), "steps": self.state.step,
-                 "epoch_s": time.time() - te}
+                 "epoch_s": time.time() - te,
+                 "path": "kernel" if self.use_kernel else "plain"}
             )
             if verbose:
                 print(
@@ -351,26 +483,32 @@ class PlenoxelsTrainer:
 
     # ------------------------------------------------------------------
     def resample(self, new_reso: Tuple[int, int, int], prune: bool = True):
-        """Upsample + prune between epochs; RMSProp state restarts."""
+        """Upsample + prune between epochs; the density and SH RMSProp state
+        restarts, the background's and the basis' carry over."""
         grid = upsample_grid(self.state.grid, new_reso)
         if prune:
             grid = prune_grid(grid, self.cfg.prune_sigma_thresh)
         self.gcfg = self.gcfg._replace(reso=new_reso)
-        self.state = PlenoxelsState(grid, torch.zeros_like(grid.density),
-                                    torch.zeros_like(grid.sh), self.state.step)
+        self.state = self.state._replace(grid=grid, rms_density=torch.zeros_like(grid.density),
+                                         rms_sh=torch.zeros_like(grid.sh))
+
+    def sparsify_bg(self) -> int:
+        """svox2.py:1431 sparsify_background at the trainer level: empties
+        the background cells below ``background_density_thresh`` in every
+        layer (after dilation) and pins them through ``bg_alive``.  Returns
+        the number of [2R, R] cells off."""
+        st = self.state
+        if st.grid.background is None:
+            return 0
+        bg, keep = sparsify_background(st.grid.background, self.cfg.background_density_thresh)
+        keep = keep & st.bg_alive
+        bg = torch.where(keep[:, :, None, None], bg, 0.0)
+        self.state = st._replace(grid=st.grid._replace(background=bg), bg_alive=keep)
+        return int((~keep).sum())
 
     def render_image(self, H, W, K, c2w, chunk: int = 4096) -> np.ndarray:
-        """Render one [H, W, 3] image (numpy), ``chunk`` rays per launch in
-        raster order (on one H100 a morton order changed K1 by 1% on a
-        48x48 view: ``chip_smoke.py``)."""
-        rays_o, rays_d = get_rays(H, W, K, c2w, self.device)
-        ro = rays_o.reshape(-1, 3)
-        rd = rays_d.reshape(-1, 3)
-        with torch.no_grad():
-            rgb = torch.cat([render_rays_fused(self.state.grid, ro[i:i + chunk],
-                                               rd[i:i + chunk], self.gcfg)[:, 0:3]
-                             for i in range(0, ro.shape[0], chunk)], 0)
-        return rgb.cpu().numpy().reshape(H, W, 3)
+        """``render_grid_image`` of the trainer's grid."""
+        return render_grid_image(self.state.grid, self.gcfg, H, W, K, c2w, chunk)
 
     def eval_images(self, poses, images, H, W, K, chunk: int = 4096):
         """Mean PSNR and SSIM over the given views (metrics on the host)."""

@@ -70,7 +70,10 @@ def test_unported_flags_raise(flags, tmp_path):
     its cases: --gui (flags0) was one of them and now runs, so that case
     checks that it runs; --clip_text and --rand_pose (flags1, flags2) now
     gate as the reference's do (cli/main_nerf.py:178-193), so those cases
-    check the reference's two exits (no CLIP encoder is installed)."""
+    check the reference's two exits (no CLIP encoder is installed);
+    --bg_radius (flags3) now runs too: that case checks that it trains the
+    background env-map (tests/test_torch_ngp_background.py holds it against
+    the reference)."""
     if flags == ["--gui"]:
         # ported: the session runs headless (no dearpygui), 4 preview frames
         res = main_nerf.main(["synthetic", "-O", "--test", "--W", "32", "--H", "24",
@@ -83,8 +86,11 @@ def test_unported_flags_raise(flags, tmp_path):
             main_nerf.main(["synthetic", "--workspace", str(tmp_path)] + TINY + flags)
         assert not os.listdir(tmp_path)
         return
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        main_nerf.main(["synthetic", "--workspace", str(tmp_path)] + TINY + flags)
+    res = main_nerf.main(["synthetic", "--iters", "8", "--workspace", str(tmp_path)]
+                         + TINY + flags)
+    trainer = main_nerf.build(main_nerf.parse_args(["synthetic"] + TINY + flags))[0]
+    assert trainer.field.has_background and trainer.bg_fn is not None
+    assert res["steps"] == 8 and math.isfinite(res["psnr"])
 
 
 def test_gui_trains_headless_to_iters_and_saves(tmp_path, capsys):

@@ -166,10 +166,14 @@ def test_dynamic_downscale_reacts_to_budget():
 def test_a_preview_between_train_frames_leaves_training_unchanged():
     """Frames train, render, train give the weights, Adam state and EMA of
     train, train, bit for bit: the preview's EMA swap restores the live
-    weights exactly and draws nothing from the trainer's generator."""
+    weights exactly and draws nothing from the trainer's generator.  Both
+    budgets are pinned: the step rule follows the wall clock of the last
+    frame (interactive.py:150-154), so an unpinned budget lets a loaded
+    machine give the two sessions different second frames."""
     a, b = _session(), _session()
     for s in (a, b):
         s.training = True
+        s.train_budget_ms = 1e9
     a.train_frame()
     a.render_frame()
     a.train_frame()

@@ -215,9 +215,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     rays = voxel_kernel.ray_inputs(cfg, torch.zeros((4, 3)), torch.ones((4, 3)))
     before = voxel_kernel.FWD_LAUNCHES
     with pytest.raises(ValueError, match="CUDA tensors"):
-        voxel_kernel.cuvol_forward(*g, *rays, cfg)
+        voxel_kernel.cuvol_forward(*g.tensors, *rays, cfg)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        voxel_kernel.cuvol_backward(*g, *rays, torch.zeros((4, 8)), torch.zeros((4, 8)), cfg)
+        voxel_kernel.cuvol_backward(*g.tensors, *rays, torch.zeros((4, 8)), torch.zeros((4, 8)), cfg)
     assert voxel_kernel.FWD_LAUNCHES == before
     spec = hash_kernel.make_packed_spec(num_levels=2, log2_hashmap_size=8)
     x, table = torch.rand((4, 3)), torch.zeros((2, spec.t_cap, 2))

@@ -126,8 +126,11 @@ def test_engine_choice_and_unported_options_raise():
         m.make_ngp_spec(m.NGPConfig(hash_engine="sorted"))
     with pytest.raises(ValueError, match="needs log2_hashmap_size"):
         m.make_ngp_spec(m.NGPConfig(hash_engine="lattice"))
-    with pytest.raises(NotImplementedError, match="NGP backlog"):
-        m.NGPField(m.NGPConfig(bg_radius=1.0))
+    # the background env-map is ported (tests/test_torch_ngp_background.py):
+    # bg_radius > 0 builds its 2-D table and net
+    f = m.NGPField(m.NGPConfig(bg_radius=1.0, **FIELD_KW))
+    assert f.has_background and f.bg_table.shape == (m.make_bg_spec(f.cfg).table_size, 2)
+    assert not m.NGPField(m.NGPConfig(**FIELD_KW)).has_background
     # the time-dependent (D-NeRF) path is ported: a trainer of a static
     # field with it set refuses a sampler without times
     t = t_ngp.NGPTrainer(m.NGPConfig(**FIELD_KW), r.NGPRenderConfig(grid_size=8),

@@ -120,7 +120,7 @@ def test_coherence_order_shuffles_morton_blocks():
     np.testing.assert_array_equal(order[len(perm) * 64:], morton[len(perm) * 64:])
     # the trainer orders rays only on the kernel path (CUDA)
     cfg = VoxelGridConfig(reso=(16, 16, 16), radius=(1.2, 1.2, 1.2), max_steps=112)
-    assert not pt.PlenoxelsTrainer(cfg, pt.PlenoxelsTrainConfig(), device="cpu").coherent
+    assert not pt.PlenoxelsTrainer(cfg, pt.PlenoxelsTrainConfig(), device="cpu").use_kernel
 
 
 def test_render_image_orders_rays_back():

@@ -83,11 +83,11 @@ def test_kernels_match_plain_version_on_card(cuda, sigma_thresh):
 def test_backward_adds_into_given_gradients(cuda):
     grid, o, d, cfg = _scene(cuda, n=64)
     rays = voxel_kernel.ray_inputs(cfg, o, d)
-    out = voxel_kernel.cuvol_forward(*grid, *rays, cfg)
+    out = voxel_kernel.cuvol_forward(*grid.tensors, *rays, cfg)
     grad_out = torch.rand_like(out)
-    gd, gs = voxel_kernel.cuvol_backward(*grid, *rays, out, grad_out, cfg)
+    gd, gs = voxel_kernel.cuvol_backward(*grid.tensors, *rays, out, grad_out, cfg)
     grads = (torch.ones_like(gd), torch.ones_like(gs))
-    added = voxel_kernel.cuvol_backward(*grid, *rays, out, grad_out, cfg, grads=grads)
+    added = voxel_kernel.cuvol_backward(*grid.tensors, *rays, out, grad_out, cfg, grads=grads)
     assert added[0] is grads[0] and added[1] is grads[1]
     # atomics reorder the sums: within 1e-6 of the largest entry
     for a, b in ((grads[0], gd + 1.0), (grads[1], gs + 1.0)):
@@ -95,14 +95,14 @@ def test_backward_adds_into_given_gradients(cuda):
     # the forward's occupancy passed in, as RenderFused passes it
     occ = voxel_kernel.skip_occupancy(grid.density, grid.alive, cfg)
     grads = (torch.ones_like(gd), torch.ones_like(gs))
-    voxel_kernel.cuvol_backward(*grid, *rays, out, grad_out, cfg, grads=grads, occ=occ)
+    voxel_kernel.cuvol_backward(*grid.tensors, *rays, out, grad_out, cfg, grads=grads, occ=occ)
     for a, b in ((grads[0], gd + 1.0), (grads[1], gs + 1.0)):
         assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
     with pytest.raises(ValueError, match="sigma_thresh"):
-        voxel_kernel.cuvol_backward(*grid, *rays, out, grad_out, cfg._replace(sigma_thresh=0.0),
+        voxel_kernel.cuvol_backward(*grid.tensors, *rays, out, grad_out, cfg._replace(sigma_thresh=0.0),
                                     occ=occ)
     with pytest.raises(ValueError, match="grad_sh"):
-        voxel_kernel.cuvol_backward(*grid, *rays, out, grad_out, cfg,
+        voxel_kernel.cuvol_backward(*grid.tensors, *rays, out, grad_out, cfg,
                                     grads=(grads[0], grads[1][..., :9].contiguous()))
 
 
@@ -119,7 +119,7 @@ def test_kernel_wrappers_check_their_inputs(cuda):
         voxel_kernel.cuvol_forward(grid.density.transpose(0, 1), grid.sh, grid.alive,
                                    *rays, cfg)
     empty = voxel_kernel.ray_inputs(cfg, o[:0], d[:0])
-    assert voxel_kernel.cuvol_forward(*grid, *empty, cfg).shape == (0, 8)
+    assert voxel_kernel.cuvol_forward(*grid.tensors, *empty, cfg).shape == (0, 8)
 
 
 def _shaped_grid(kind, device, reso=64, seed=0):
@@ -174,7 +174,7 @@ def test_skip_is_bitwise_the_replaced_kernel(cuda, kind, sigma_thresh, n):
                              sigma_thresh=sigma_thresh)
     ray_in = voxel_kernel.ray_inputs(cfg, o, d)
     before = voxel_kernel.FWD_LAUNCHES
-    got = voxel_kernel.cuvol_forward(*grid, *ray_in, cfg)
+    got = voxel_kernel.cuvol_forward(*grid.tensors, *ray_in, cfg)
     assert voxel_kernel.FWD_LAUNCHES == before + 1
     occ = voxel_kernel.skip_occupancy(grid.density, grid.alive, cfg)
     assert (occ is None) == (sigma_thresh <= 0)
@@ -213,7 +213,7 @@ def test_forward_builds_its_occupancy_and_takes_no_rays(cuda):
     assert torch.equal(occ.cpu(), cpu)
     before = voxel_kernel.FWD_LAUNCHES
     empty = voxel_kernel.ray_inputs(cfg, o[:0], d[:0])
-    assert voxel_kernel.cuvol_forward(*grid, *empty, cfg).shape == (0, 8)
+    assert voxel_kernel.cuvol_forward(*grid.tensors, *empty, cfg).shape == (0, 8)
     assert voxel_kernel.FWD_LAUNCHES == before
 
 
@@ -244,13 +244,13 @@ def test_backward_is_the_replaced_kernel(cuda, kind, sigma_thresh, n):
                              sigma_thresh=sigma_thresh)
     ray_in = voxel_kernel.ray_inputs(cfg, o, d)
     occ = voxel_kernel.skip_occupancy(grid.density, grid.alive, cfg)
-    out = voxel_kernel.cuvol_forward(*grid, *ray_in, cfg, occ=occ)
+    out = voxel_kernel.cuvol_forward(*grid.tensors, *ray_in, cfg, occ=occ)
     g = torch.Generator(device=cuda).manual_seed(n)
     grad_out = torch.randn((n, 8), generator=g, device=cuda)
     grad_out[:, 3] = 0.0          # K2 reads channels 0:3 and 4 (rgb and log-T) only
     grad_out[:, 5:] = 0.0
     before = voxel_kernel.BWD_LAUNCHES
-    got = voxel_kernel.cuvol_backward(*grid, *ray_in, out, grad_out, cfg, occ=occ)
+    got = voxel_kernel.cuvol_backward(*grid.tensors, *ray_in, out, grad_out, cfg, occ=occ)
     assert voxel_kernel.BWD_LAUNCHES == before + 1
     zeros = lambda: (torch.zeros_like(grid.density), torch.zeros_like(grid.sh))
     want = zeros()
@@ -285,13 +285,13 @@ def test_backward_of_a_zero_upstream_gradient_is_exactly_zero(cuda, sigma_thresh
     cfg = vs.VoxelGridConfig(reso=(64,) * 3, max_steps=448, step_size=0.5,
                              sigma_thresh=sigma_thresh)
     ray_in = voxel_kernel.ray_inputs(cfg, o, d)
-    out = voxel_kernel.cuvol_forward(*grid, *ray_in, cfg)
-    gd, gs = voxel_kernel.cuvol_backward(*grid, *ray_in, out, torch.zeros_like(out), cfg)
+    out = voxel_kernel.cuvol_forward(*grid.tensors, *ray_in, cfg)
+    gd, gs = voxel_kernel.cuvol_backward(*grid.tensors, *ray_in, out, torch.zeros_like(out), cfg)
     torch.cuda.synchronize()
     assert float(gd.abs().max()) == 0.0 and float(gs.abs().max()) == 0.0
     empty = voxel_kernel.ray_inputs(cfg, o[:0], d[:0])
     before = voxel_kernel.BWD_LAUNCHES
-    gd, _ = voxel_kernel.cuvol_backward(*grid, *empty, out[:0], out[:0], cfg)
+    gd, _ = voxel_kernel.cuvol_backward(*grid.tensors, *empty, out[:0], out[:0], cfg)
     assert voxel_kernel.BWD_LAUNCHES == before and float(gd.abs().max()) == 0.0
 
 
