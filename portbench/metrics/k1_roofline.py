@@ -1,0 +1,7 @@
+"""K1's share of its roofline (device trace; moves train_rays_per_s)."""
+
+from portbench.kernel_share import roofline_pct
+
+
+def read(ctx):
+    return roofline_pct(ctx, "k1", ("cuvol_fwd_kernel",))

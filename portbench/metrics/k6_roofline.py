@@ -1,0 +1,7 @@
+"""K6's share of its roofline (device trace; moves train_rays_per_s.ngp)."""
+
+from portbench.kernel_share import roofline_pct
+
+
+def read(ctx):
+    return roofline_pct(ctx, "k6", ("lattice_fwd_kernel",))
