@@ -3934,7 +3934,7 @@ def slice11_phases(dev, plx, batch, phase9, lattice_psnr):
     print(f"[phase 28] save_debug_images: {len(paths)} PNGs of phase 3's last quadtree "
           f"({forest.n_leaves} leaves) and sharpness heat maps, overlay {overlay.shape}; "
           f"BenchRecorder over phase 25's epochs: time to {target:.3f} dB "
-          f"{rec2.time_to_psnr(target):.3f} s, rays/s {rec2.rays_per_sec():.1f}, "
+          f"{rec2.time_to_psnr(target):.3f} s, "
           f"{len(rec2.samples)} samples read back; view_data: {kind}, {len(cams)} cameras; "
           f"inspect_cameras' epipolar lines {lines.shape}, finite "
           f"{bool(np.isfinite(lines).all())}; their matplotlib plots not drawn", flush=True)

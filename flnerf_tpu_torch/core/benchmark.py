@@ -45,12 +45,6 @@ class BenchRecorder:
             prev = s
         return None
 
-    def rays_per_sec(self) -> Optional[float]:
-        total = sum(s.get("rays", 0) for s in self.samples)
-        if not total or not self.samples:
-            return None
-        return total / self.samples[-1]["wall_s"]
-
     def save(self, path: str) -> None:
         with open(path, "w") as f:
             json.dump({"meta": self.meta, "samples": self.samples}, f, indent=2)

@@ -27,6 +27,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 
+from flnerf_tpu_torch.core.logging_utils import RECORDER
 from flnerf_tpu_torch.rays.sharpness import SharpnessSampler
 
 
@@ -188,6 +189,7 @@ class RayBudgeter:
     """QuadTreeManager equivalent: owns the forest + per-pixel ray caches and
     produces each epoch's ray set (tree.py:159-428)."""
 
+    @RECORDER.spanned("flnerf.budget.budgeter_init")
     def __init__(
         self,
         images: np.ndarray,    # [n, H, W, 3] float32
@@ -292,6 +294,7 @@ class RayBudgeter:
         deepest = areas <= f.min_area[f.img] + 0.01
         return np.where(deepest, (areas * ray_num_per_pixel).astype(np.int64), 10)
 
+    @RECORDER.spanned("flnerf.budget.gen_rays")
     def gen_rays(
         self,
         down_scale: int = 1,
@@ -386,6 +389,7 @@ class RayBudgeter:
             img_of_ray.astype(np.int32),
         )
 
+    @RECORDER.spanned("flnerf.budget.adjust")
     def adjust(self, leaf_stat: np.ndarray, thres: float,
                min_area_floor: float = 0.0) -> int:
         """Subdivide based on the on-device per-leaf loss statistic."""

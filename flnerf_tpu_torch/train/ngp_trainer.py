@@ -62,6 +62,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from flnerf_tpu_torch.core.logging_utils import RECORDER
 from flnerf_tpu_torch.core.losses import huber_loss
 from flnerf_tpu_torch.core.metrics import compute_ssim, mse2psnr
 from flnerf_tpu_torch.models.hash_ngp import NGPConfig, NGPField, engine_kind
@@ -71,8 +72,9 @@ from flnerf_tpu_torch.rays.sharpness import sharp_image
 from flnerf_tpu_torch.render.ngp import (
     NGPRenderConfig,
     init_occupancy,
+    march,
     ngp_render_image,
-    ngp_render_rays,
+    render_marched,
     update_occupancy,
 )
 from flnerf_tpu_torch.core.device import resolve_device
@@ -105,6 +107,7 @@ class NGPSampler:
     """Per-image probability-map pixel sampler (provider.py:236-366).
     ``times`` [n_images] gives each view its D-NeRF time."""
 
+    @RECORDER.spanned("flnerf.budget.sampler_init")
     def __init__(self, images, poses, K, cfg: NGPTrainConfig, seed: int = 0, times=None):
         self.cfg = cfg
         self.times = None if times is None else np.asarray(times, np.float32)
@@ -173,6 +176,7 @@ class NGPSampler:
         py = np.minimum((iy * sy + self.rng.random(batch) * sy).astype(np.int64), self.W - 1)
         return px * self.W + py, inds_coarse
 
+    @RECORDER.spanned("flnerf.budget.update_error_map")
     def update_error_map(self, img_ids, inds_coarse, per_ray_err):
         """EMA update at the sampled coarse cells (utils.py:521-527):
         new = 0.1 * old + 0.9 * err."""
@@ -182,6 +186,7 @@ class NGPSampler:
             em = self.error_map[img_ids[s]]
             em[inds_coarse[s]] = 0.1 * em[inds_coarse[s]] + 0.9 * per_ray_err[s]
 
+    @RECORDER.spanned("flnerf.budget.sample_chunk")
     def sample_chunk(self, n_steps: int, batch: int):
         """[n_steps] training batches, each of ``batch`` rays from one image
         (provider.py:289).  Returns (origins, dirs, rgb [n_steps, batch, 3|4
@@ -275,6 +280,7 @@ class NGPTrainer:
         e = np.minimum(np.float32(step) / np.float32(self.cfg.max_steps), np.float32(1.0))
         return float(np.float32(self.cfg.lr) * np.float32(0.1) ** e)
 
+    @RECORDER.spanned("flnerf.train.step")
     def train_step(self, origins, dirs, rgb, noise=None, bg_noise=None, times=None):
         """One Adam step on a batch; returns (loss, per-ray loss) as device
         tensors.  ``noise`` [B, S] and ``bg_noise`` [B, 3] (RGBA data only)
@@ -284,6 +290,8 @@ class NGPTrainer:
         [B / W] rows."""
         cfg = self.cfg
         n = origins.shape[0]
+        RECORDER.count("flnerf.train.steps")
+        RECORDER.count("flnerf.train.rays", n)
         rows = mesh.step_rows(n, self.world, self.rank) if self.shard_grads else None
         if rows is not None:
             # this rank's rows of the whole batch's draws
@@ -294,7 +302,7 @@ class NGPTrainer:
                                    device=origins.device)[rows]
             origins, dirs, rgb = origins[rows], dirs[rows], rgb[rows]
             times = None if times is None else times[rows]
-        with torch.enable_grad():
+        with torch.enable_grad(), RECORDER.span("flnerf.train.forward"):
             if rgb.shape[-1] == 4 and self.bg_fn is None:
                 # pixel-wise random background (utils.py:474-479)
                 bg = (torch.rand(rgb[..., :3].shape, generator=self.gen, device=rgb.device)
@@ -305,15 +313,19 @@ class NGPTrainer:
                 bg, gt = None, rgb[..., :3] * rgb[..., 3:] + 1.0 - rgb[..., 3:]
             else:
                 bg, gt = cfg.bg_color, rgb
-            out = ngp_render_rays(self.field, self.occ, origins, dirs, self.rcfg,
-                                  perturb=True, bg_color=bg, noise=noise,
-                                  generator=self.gen, times=times, bg_fn=self.bg_fn)
+            # ngp_render_rays, with the march's kept samples counted
+            marched = march(self.occ, origins, dirs, self.rcfg, True, noise, self.gen)
+            RECORDER.count_device("flnerf.ngp.kept_samples", marched[1])
+            if self.bg_fn is not None:
+                bg = self.bg_fn(origins, dirs)
+            out = render_marched(self.field, marched, dirs, self.rcfg, bg, times)
             if cfg.loss_type == "huber":
                 per_ray = torch.mean(huber_loss(out["rgb"], gt, cfg.huber_delta,
                                                 reduce=False), -1)
             else:
                 per_ray = torch.mean((out["rgb"] - gt) ** 2, -1)
             loss = torch.mean(per_ray)
+        with torch.enable_grad(), RECORDER.span("flnerf.train.backward"):
             # a parameter the loss does not reach takes a zero gradient, as
             # in the reference: the D-NeRF deform net on the card, where
             # K3/K4 give the encoded points no gradient (ROADMAP.md R7)
@@ -331,6 +343,7 @@ class NGPTrainer:
         self._adam(grads)
         return loss, per_ray
 
+    @RECORDER.spanned("flnerf.train.optimizer")
     @torch.no_grad()
     def _adam(self, grads):
         """optax.scale_by_adam(0.9, 0.99, 1e-15), then -lr * update, then the
@@ -350,6 +363,7 @@ class NGPTrainer:
         self.count = count
         self.step += 1
 
+    @RECORDER.spanned("flnerf.train.refresh")
     def refresh_occupancy(self, partial: bool, time=None):
         """One occupancy refresh.  A time-dependent trainer refreshes at one
         time for the whole grid: ``time``, or t ~ U(0, 1) drawn first."""
@@ -376,6 +390,14 @@ class NGPTrainer:
         spc = cfg.steps_per_chunk
         n_chunks = -((n_steps or cfg.max_steps) // -spc)
         t0 = time.time()
+        # "wall_s": seconds from the fit's start to the end of a chunk's last
+        # step, on the device's clock: on CUDA from events resolved at the
+        # fit's one stacked transfer, on the CPU (which runs each op as it
+        # is issued) from the host's
+        cuda = self.device.type == "cuda"
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
         base_step = self.step
         hist_start = len(self.history)
         # the previous chunk's results, absorbed after the next chunk is
@@ -384,12 +406,14 @@ class NGPTrainer:
         pending = None
 
         def absorb(p):
-            img_ids, inds_coarse, per_ray, losses, step_after = p
+            img_ids, inds_coarse, per_ray, losses, step_after, done = p
             if inds_coarse is not None:
-                sampler.update_error_map(img_ids, inds_coarse, per_ray.cpu().numpy())
+                with RECORDER.span("flnerf.io.drain"):
+                    err = per_ray.cpu().numpy()
+                sampler.update_error_map(img_ids, inds_coarse, err)
             # "loss" is the chunk's last step (the reference's entry);
             # "chunk_loss" the mean over its steps
-            self.history.append({"step": step_after, "wall_s": time.time() - t0,
+            self.history.append({"step": step_after, "wall_s": done,
                                  "loss": losses[-1], "chunk_loss": losses.mean()})
 
         allpixel_step = int(cfg.max_steps * cfg.all_pixel_at)
@@ -405,16 +429,22 @@ class NGPTrainer:
 
             drawn = sampler.sample_chunk(spc, cfg.batch_rays)
             img_ids, inds_coarse = drawn[3:5]
-            origins, dirs, rgb = (self._to_device(a) for a in drawn[:3])
-            times = self._to_device(drawn[5]) if cfg.time_dependent else None
+            with RECORDER.span("flnerf.io.upload"):
+                origins, dirs, rgb = (self._to_device(a) for a in drawn[:3])
+                times = self._to_device(drawn[5]) if cfg.time_dependent else None
             outs = [self.train_step(origins[k], dirs[k], rgb[k],
                                     times=None if times is None else times[k])
                     for k in range(spc)]
+            if cuda:
+                done = torch.cuda.Event(enable_timing=True)
+                done.record()
+            else:
+                done = time.time() - t0
             losses = torch.stack([o[0] for o in outs])
             per_ray = torch.stack([o[1] for o in outs])
             if pending is not None:
                 absorb(pending)
-            pending = (img_ids, inds_coarse, per_ray, losses, base_step + (ci + 1) * spc)
+            pending = (img_ids, inds_coarse, per_ray, losses, base_step + (ci + 1) * spc, done)
 
             if verbose and (ci % max(1, n_chunks // 20) == 0 or ci == n_chunks - 1):
                 if self.history:
@@ -426,11 +456,23 @@ class NGPTrainer:
             absorb(pending)
         ent = self.history[hist_start:]
         if ent:
-            # one stacked transfer for the whole fit
-            vals = torch.stack([torch.stack([h["loss"], h["chunk_loss"]])
-                                for h in ent]).cpu().numpy()
+            # one stacked transfer for the whole fit, which also reads the
+            # recorder's device counters when there are any
+            vals = torch.stack([torch.stack([h["loss"], h["chunk_loss"]]) for h in ent])
+            dev = RECORDER.take_device()
+            with RECORDER.span("flnerf.io.drain"):
+                if dev:
+                    n = vals.numel()
+                    flat = torch.cat([vals.reshape(-1).double(),
+                                      torch.stack(list(dev.values()))]).cpu().numpy()
+                    RECORDER.add_counts(dict(zip(dev, flat[n:].tolist())))
+                    vals = flat[:n].reshape(len(ent), 2)
+                else:
+                    vals = vals.cpu().numpy()
             for h, (last, mean) in zip(ent, vals):
                 h["loss"], h["chunk_loss"] = float(last), float(mean)
+                if cuda:
+                    h["wall_s"] = start.elapsed_time(h["wall_s"]) / 1e3
         return self
 
     # ------------------------------------------------------------------

@@ -64,6 +64,7 @@ import numpy as np
 import torch
 
 from flnerf_tpu_torch.core.device import resolve_device
+from flnerf_tpu_torch.core.logging_utils import RECORDER
 from flnerf_tpu_torch.core.metrics import compute_ssim, mse2psnr
 from flnerf_tpu_torch.models.voxel_sh import (
     LumisphereDraws,
@@ -193,6 +194,7 @@ def render_grid_image(grid: VoxelGrid, grid_cfg: VoxelGridConfig, H, W, K, c2w,
     return rgb.cpu().numpy().reshape(H, W, 3)
 
 
+@RECORDER.spanned("flnerf.budget.coherence_order")
 def coherence_order(px: np.ndarray, py: np.ndarray, img: np.ndarray,
                     rng: np.random.Generator) -> np.ndarray:
     """The kernel path's ray order: morton order by (image, pixel) cut into
@@ -284,6 +286,7 @@ class PlenoxelsTrainer:
         else:
             param.sub_(lr * g / (rms.sqrt() + 1e-8))
 
+    @RECORDER.spanned("flnerf.train.step")
     def _step(self, origins, dirs, rgb, leaf, mask, err_sum, err_cnt):
         """One RMSProp step on a batch; returns (mse, ray count) tensors."""
         grads, mse, count, per_ray_err = self._grads(origins, dirs, rgb, mask)
@@ -293,25 +296,27 @@ class PlenoxelsTrainer:
         def lr_of(init, final, delay=0, mult=1.0):
             return float(expon_lr(step, init, final, delay, mult, cfg.lr_decay_steps))
 
-        g_density, g_sh = grads[0], grads[1]
-        self._rmsprop(st.grid.density, st.rms_density, g_density,
-                      lr_of(cfg.lr_sigma, cfg.lr_sigma_final, cfg.lr_sigma_delay_steps,
-                            cfg.lr_sigma_delay_mult))
-        self._rmsprop(st.grid.sh, st.rms_sh, g_sh, lr_of(cfg.lr_sh, cfg.lr_sh_final))
-        i = 2
-        if st.grid.background is not None:
-            # optim_background_step (svox2.py:2048): lr_color_bg on the rgb
-            # channels and lr_sigma_bg on sigma; pinned cells never move
-            g_bg = torch.where(st.bg_alive[:, :, None, None], grads[i], 0.0)
-            i += 1
-            c = lr_of(cfg.lr_color_bg, cfg.lr_color_bg_final)
-            lr_bg = torch.tensor([c, c, c, lr_of(cfg.lr_sigma_bg, cfg.lr_sigma_bg_final)],
-                                 device=self.device)
-            self._rmsprop(st.grid.background, st.rms_bg, g_bg, lr_bg)
-        # optim_basis_step (svox2.py:2091): RMSProp over the learned basis
-        lr_b = lr_of(cfg.lr_basis, cfg.lr_basis_final)
-        for p, r, g in zip(basis_leaves(st.grid.basis), basis_leaves(st.rms_basis), grads[i:]):
-            self._rmsprop(p, r, g, lr_b)
+        with RECORDER.span("flnerf.train.optimizer"):
+            g_density, g_sh = grads[0], grads[1]
+            self._rmsprop(st.grid.density, st.rms_density, g_density,
+                          lr_of(cfg.lr_sigma, cfg.lr_sigma_final, cfg.lr_sigma_delay_steps,
+                                cfg.lr_sigma_delay_mult))
+            self._rmsprop(st.grid.sh, st.rms_sh, g_sh, lr_of(cfg.lr_sh, cfg.lr_sh_final))
+            i = 2
+            if st.grid.background is not None:
+                # optim_background_step (svox2.py:2048): lr_color_bg on the rgb
+                # channels and lr_sigma_bg on sigma; pinned cells never move
+                g_bg = torch.where(st.bg_alive[:, :, None, None], grads[i], 0.0)
+                i += 1
+                c = lr_of(cfg.lr_color_bg, cfg.lr_color_bg_final)
+                lr_bg = torch.tensor([c, c, c, lr_of(cfg.lr_sigma_bg, cfg.lr_sigma_bg_final)],
+                                     device=self.device)
+                self._rmsprop(st.grid.background, st.rms_bg, g_bg, lr_bg)
+            # optim_basis_step (svox2.py:2091): RMSProp over the learned basis
+            lr_b = lr_of(cfg.lr_basis, cfg.lr_basis_final)
+            for p, r, g in zip(basis_leaves(st.grid.basis), basis_leaves(st.rms_basis),
+                               grads[i:]):
+                self._rmsprop(p, r, g, lr_b)
 
         live = mask > 0
         safe_leaf = torch.where(live, leaf, err_sum.shape[0] - 1)
@@ -335,69 +340,69 @@ class PlenoxelsTrainer:
         if rows is not None:
             origins, dirs, rgb, m = origins[rows], dirs[rows], rgb[rows], mask[rows]
         g0 = st.grid
-        leaves = [t.detach().requires_grad_(True)
-                  for t in [g0.density, g0.sh]
-                  + ([] if g0.background is None else [g0.background])
-                  + basis_leaves(g0.basis)]
-        density, sh = leaves[0], leaves[1]
-        bgv = leaves[2] if g0.background is not None else None
-        grid = VoxelGrid(density, sh, g0.alive,
-                         None if bgv is None else torch.where(
-                             st.bg_alive[:, :, None, None], bgv, 0.0),
-                         basis_from_leaves(g0.basis, leaves[2 + (bgv is not None):]))
-        rgb_out = self.render_rgb(grid, origins, dirs)
-        count = torch.sum(mask)
-        denom = torch.clamp(count, min=1.0) * 3.0
-        sq = torch.sum(m[:, None] * (rgb_out - rgb) ** 2)
-        reg = (cfg.lambda_tv * self._grid_tv(density)
-               + cfg.lambda_tv_sh * self._grid_tv(sh))
-        if cfg.lambda_tv_lumisphere > 0.0:
-            reg = reg + cfg.lambda_tv_lumisphere * self._lumisphere_tv(grid)
-        if bgv is not None:
-            reg = reg + tv_loss_background(bgv, cfg.lambda_tv_background_color,
-                                           cfg.lambda_tv_background_sigma)
-        grads = [torch.zeros_like(t) if g is None else g
-                 for g, t in zip(torch.autograd.grad(sq / denom, leaves, allow_unused=True),
-                                 leaves)]
-        sq = sq.detach().reshape(1)
-        per_ray_err = torch.amax(torch.abs(rgb_out.detach() - rgb), -1)
-        if rows is not None:
-            mesh.all_reduce_([sq] + grads, group=self.group)
-            per_ray_err = mesh.gather_rows(per_ray_err, self.rank, self.world, self.group)
-        reg_grads = torch.autograd.grad(reg, leaves, allow_unused=True)
-        grads = [g if r is None else g.add_(r) for g, r in zip(grads, reg_grads)]
+        with RECORDER.span("flnerf.train.forward"):
+            leaves = [t.detach().requires_grad_(True)
+                      for t in [g0.density, g0.sh]
+                      + ([] if g0.background is None else [g0.background])
+                      + basis_leaves(g0.basis)]
+            density, sh = leaves[0], leaves[1]
+            bgv = leaves[2] if g0.background is not None else None
+            grid = VoxelGrid(density, sh, g0.alive,
+                             None if bgv is None else torch.where(
+                                 st.bg_alive[:, :, None, None], bgv, 0.0),
+                             basis_from_leaves(g0.basis, leaves[2 + (bgv is not None):]))
+            rgb_out = self.render_rgb(grid, origins, dirs)
+            count = torch.sum(mask)
+            denom = torch.clamp(count, min=1.0) * 3.0
+            sq = torch.sum(m[:, None] * (rgb_out - rgb) ** 2)
+            reg = (cfg.lambda_tv * self._grid_tv(density)
+                   + cfg.lambda_tv_sh * self._grid_tv(sh))
+            if cfg.lambda_tv_lumisphere > 0.0:
+                reg = reg + cfg.lambda_tv_lumisphere * self._lumisphere_tv(grid)
+            if bgv is not None:
+                reg = reg + tv_loss_background(bgv, cfg.lambda_tv_background_color,
+                                               cfg.lambda_tv_background_sigma)
+        # the backward pass, the sharded data term's all-reduce included
+        with RECORDER.span("flnerf.train.backward"):
+            grads = [torch.zeros_like(t) if g is None else g
+                     for g, t in zip(torch.autograd.grad(sq / denom, leaves, allow_unused=True),
+                                     leaves)]
+            sq = sq.detach().reshape(1)
+            per_ray_err = torch.amax(torch.abs(rgb_out.detach() - rgb), -1)
+            if rows is not None:
+                mesh.all_reduce_([sq] + grads, group=self.group)
+                per_ray_err = mesh.gather_rows(per_ray_err, self.rank, self.world, self.group)
+            reg_grads = torch.autograd.grad(reg, leaves, allow_unused=True)
+            grads = [g if r is None else g.add_(r) for g, r in zip(grads, reg_grads)]
         return grads, sq[0] / denom, count, per_ray_err
 
     def run_epoch_rays(self, epoch: RayEpoch):
         """Train on one epoch's rays; returns (per-leaf mean |error| [M],
         ray-weighted MSE over the last chunk)."""
         cfg = self.cfg
-        if self.use_kernel and epoch.px is not None:
-            # the rng persists, so the block order differs across epochs
-            order = coherence_order(epoch.px, epoch.py, epoch.img, self._order_rng)
-            epoch = epoch._replace(
-                origins=epoch.origins[order], dirs=epoch.dirs[order],
-                rgb=epoch.rgb[order], leaf_id=epoch.leaf_id[order],
-            )
+        # the rng persists, so the block order differs across epochs
+        order = (coherence_order(epoch.px, epoch.py, epoch.img, self._order_rng)
+                 if self.use_kernel and epoch.px is not None else None)
         B, K = cfg.batch_size, cfg.steps_per_chunk
         n = epoch.origins.shape[0]
         n_pad = mesh.pad_to_multiple(max(n, 1), B * K)
 
         def pad(a, fill=0.0):
             out = np.full((n_pad,) + a.shape[1:], fill, a.dtype)
-            out[:n] = a
+            out[:n] = a if order is None else a[order]
             return out
 
-        dirs = pad(epoch.dirs)
-        dirs[n:] = np.array([0, 0, -1.0], np.float32)
-        mask = np.zeros(n_pad, np.float32)
-        mask[:n] = 1.0
-        # the epoch crosses to the device once
         dev = self.device
-        origins_d, dirs_d, rgb_d, leaf_d, mask_d = (
-            torch.from_numpy(a).to(dev) for a in (
-                pad(epoch.origins), dirs, pad(epoch.rgb),
-                pad(epoch.leaf_id.astype(np.int64)), mask))
+        with RECORDER.span("flnerf.io.upload"):
+            dirs = pad(epoch.dirs)
+            dirs[n:] = np.array([0, 0, -1.0], np.float32)
+            mask = np.zeros(n_pad, np.float32)
+            mask[:n] = 1.0
+            # the epoch crosses to the device once
+            origins_d, dirs_d, rgb_d, leaf_d, mask_d = (
+                torch.from_numpy(a).to(dev) for a in (
+                    pad(epoch.origins), dirs, pad(epoch.rgb),
+                    pad(epoch.leaf_id.astype(np.int64)), mask))
 
         leaf_buf = _leaf_buf_size(epoch.n_leaves)
         err_sum = torch.zeros(leaf_buf, device=dev)
@@ -405,6 +410,7 @@ class PlenoxelsTrainer:
         zero = torch.zeros((), device=dev)
         n_chunks = n_pad // (B * K)
         last = []
+        steps = 0
         for ci in range(n_chunks):
             last = []
             for k in range(K):
@@ -413,12 +419,16 @@ class PlenoxelsTrainer:
                     last.append(self._step(origins_d[sl], dirs_d[sl], rgb_d[sl],
                                            leaf_d[sl], mask_d[sl], err_sum,
                                            err_cnt))
+                    steps += 1
                 else:
                     last.append((zero, zero))
+        RECORDER.count("flnerf.train.steps", steps)
+        RECORDER.count("flnerf.train.rays", n)
         # one device -> host transfer per epoch
         m = epoch.n_leaves
-        host = torch.cat([err_sum[:m], err_cnt[:m],
-                          torch.stack([t for pair in last for t in pair])]).cpu().numpy()
+        with RECORDER.span("flnerf.io.drain"):
+            host = torch.cat([err_sum[:m], err_cnt[:m],
+                              torch.stack([t for pair in last for t in pair])]).cpu().numpy()
         s, c = host[:m], host[m:2 * m]
         stat = s / np.maximum(c, 1.0)
         stat[c == 0] = -np.inf

@@ -285,8 +285,6 @@ def test_bench_recorder_matches_reference(tmp_path):
     assert abs(recs[0].time_to_psnr(15.0) - 2.0) < 1e-6
     assert recs[0].time_to_psnr(30.0) is None
     recs[0].samples[-1]["wall_s"] = recs[1].samples[-1]["wall_s"] = 6.0
-    assert recs[0].rays_per_sec() == recs[1].rays_per_sec() == 50.0
-    assert benchmark.BenchRecorder().rays_per_sec() is None
     recs[0].save(str(tmp_path / "p.json"))
     recs[1].save(str(tmp_path / "r.json"))
     assert (tmp_path / "p.json").read_text() == (tmp_path / "r.json").read_text()
