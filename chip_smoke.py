@@ -24,7 +24,9 @@ Phases (any failure raises, and the script exits non-zero):
   3. the main path: cli/opt.py main on the synthetic scene at 256^3 for 3
      epochs on the card (syn.json's first-stage width: SH degree 3, batch
      5000, 1792 steps), with the launch counters set to 0 just before and
-     read just after; train PSNR must rise and the test PSNR be finite;
+     read just after (K2 once a step, the dense TV + RMSProp sweep S1 twice
+     a step, for density and SH, and its live pairs once); train PSNR must
+     rise and the test PSNR be finite;
      3b. a profiled rerun (2 epochs, no checkpoints): where the device time
      goes;
      3c. train rays/s over epochs 2-10 of a 10-epoch run (no checkpoints);
@@ -52,6 +54,11 @@ Phases (any failure raises, and the script exits non-zero):
      order against the trainer's coherence order (morton, 64-ray blocks) at
      48x48 and 800x800 train views, and on one eval chunk of a test view in
      raster against morton order;
+  4b. S1 (ops/csrc/tv_rmsprop.cu, port only) and its live pairs through
+     tools/tv_rmsprop_probe.py at 256^3, density and 27-channel SH, all
+     alive and 90% alive: bit for bit their plain versions, at the TV
+     weight and at 0, with their times by CUDA events beside their bounds,
+     the plain versions' and the replaced autograd passes';
   5. the hash-encoding kernels K3 (forward) and K4 (table gradient) against
      their plain version, ops/hash_kernel.hash_encode_plain with autograd,
      at the NGP main path's shapes and on a trained table: the trainer
@@ -548,19 +555,31 @@ def ptxas_kernels(log):
 def reset_counts():
     """Every kernel wrapper's launch counter to 0."""
     from flnerf_tpu_torch.ops import hash_kernel, hash_lattice, hash_sorted, sort_kernel
-    from flnerf_tpu_torch.ops import voxel_kernel
-    for mod in (hash_kernel, hash_lattice, hash_sorted, sort_kernel, voxel_kernel):
+    from flnerf_tpu_torch.ops import tv_rmsprop, voxel_kernel
+    for mod in (hash_kernel, hash_lattice, hash_sorted, sort_kernel, tv_rmsprop, voxel_kernel):
         mod.reset_launch_counts()
 
 
 def launch_counts():
-    """{K1..K9: launches since the last reset_counts}."""
+    """{K1..K9, S1 (the dense TV + RMSProp sweep), S1 pairs (live_pairs):
+    launches since the last reset_counts}."""
     from flnerf_tpu_torch.ops import hash_kernel as hk, hash_lattice as hl, hash_sorted as hs
-    from flnerf_tpu_torch.ops import sort_kernel as sk, voxel_kernel as vk
+    from flnerf_tpu_torch.ops import sort_kernel as sk, tv_rmsprop as tr, voxel_kernel as vk
     return {"K1": vk.FWD_LAUNCHES, "K2": vk.BWD_LAUNCHES, "K3": hk.HASH_FWD_LAUNCHES,
             "K4": hk.HASH_BWD_LAUNCHES, "K5": sk.SORT_LAUNCHES,
             "K6": hl.LATTICE_FWD_LAUNCHES, "K7": hl.LATTICE_BWD_LAUNCHES,
-            "K8": hs.SORTED_FWD_LAUNCHES, "K9": hs.SORTED_BWD_LAUNCHES}
+            "K8": hs.SORTED_FWD_LAUNCHES, "K9": hs.SORTED_BWD_LAUNCHES,
+            "S1": tr.SWEEP_LAUNCHES, "S1 pairs": tr.PAIRS_LAUNCHES}
+
+
+def plx_fit_counts(steps, **kernels):
+    """The launches of a Plenoxels fit of ``steps`` steps on the card from
+    one grid (no resample): ``kernels`` (K1, K2), and a dense TV + RMSProp
+    sweep for density and one for SH a step with the grid's live pairs
+    computed once; 0 for every other kernel."""
+    want = dict({k: 0 for k in launch_counts()}, **kernels)
+    want.update({"S1": 2 * steps, "S1 pairs": 1 if steps else 0})
+    return want
 
 
 def cuda_ms(fn, iters):
@@ -3222,7 +3241,9 @@ def ddp_phases(dev):
             check(s > 0 and e <= 1e-4 * s, f"phase 21b: rank {r} Plenoxels {k} {e} > 1e-4 * {s}")
         a, b = res["plx_mse"]
         check(abs(a - b) <= 1e-5 * abs(b), f"phase 21b: rank {r} Plenoxels mse {a} != {b}")
-        check(res["plx_grad_counts"] == want_g and res["plx_step_counts"] == want_g,
+        # the step sweeps after the all-reduce, on every rank
+        check(res["plx_grad_counts"] == want_g
+              and res["plx_step_counts"] == plx_fit_counts(1, K1=1, K2=1),
               f"phase 21b: rank {r} Plenoxels launches")
         a, b = res["ngp_loss"]
         check(abs(a - b) <= 1e-5 * abs(b) and res["ngp_per_ray"] <= 1e-5,
@@ -3325,8 +3346,7 @@ def tools_phases(dev, plx, npz_128):
                     "--n_epochs", "3", "--device", str(dev)])
     wall = time.time() - t0
     counts = counts_by_run["22a nsvf"] = launch_counts()
-    want = {k: 0 for k in counts}
-    want.update({"K1": plx["k1"], "K2": plx["k2"]})
+    want = plx_fit_counts(plx["k2"], K1=plx["k1"], K2=plx["k2"])
     train = [h["train_psnr"] for h in res["history"]]
     gaps = [a - b for a, b in zip(train, plx["train"])]
     print(f"[phase 22a] opt.main on the synthetic scene as NSVF (48x48, 8 + 2 views, {RESO}^3, "
@@ -3667,7 +3687,7 @@ def slice11_phases(dev, plx, batch, phase9, lattice_psnr):
           f"test PSNR {res['psnr']:.4f}; step {step_ms(hist):.2f} ms over epochs 2-3 (phase "
           f"3's {step_ms(plx['hist']):.2f}); epoch s {[round(h['epoch_s'], 3) for h in hist]}; "
           f"peak memory {peak_gb:.2f} GB (phase 3's {plx['peak_gb']:.2f})", flush=True)
-    want = dict(zero, K1=steps + 2, K2=steps)
+    want = plx_fit_counts(steps, K1=steps + 2, K2=steps)
     check(counts == want, f"phase 25: launches {counts} != {want}")
     check(hist[-1]["path"] == "kernel", "phase 25: the MSI fit left the kernel path")
     check(all(math.isfinite(p) for p in train) and train[-1] > train[0],
@@ -3874,7 +3894,10 @@ def slice11_phases(dev, plx, batch, phase9, lattice_psnr):
         h = hist[-1]
         on_kernel = name == "lumisphere TV"
         n_eval = len(i_test) * -(-H * W // 4096)      # eval_images' chunks
-        want = dict(zero, K1=h["steps"] + n_eval, K2=h["steps"]) if on_kernel else zero
+        # every option sweeps density and SH on the card; only the
+        # lumisphere TV renders through K1/K2
+        want = (plx_fit_counts(h["steps"], K1=h["steps"] + n_eval, K2=h["steps"]) if on_kernel
+                else plx_fit_counts(h["steps"]))
         h3 = plx["hist"][0]
         print(f"[phase 27] {name}: path {h['path']}; launches {counts}; {h['steps']} steps of "
               f"{BATCH} rays in {h['epoch_s']:.3f} s ({1e3 * h['epoch_s'] / h['steps']:.1f} ms a "
@@ -4039,14 +4062,15 @@ def main():
 
     # ---- phase 3: the main path, through the CLI on the card ----
     reso_arg = f"[[{RESO},{RESO},{RESO}]]"
-    vk.reset_launch_counts()
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.time()
         res = opt.main(["synthetic", "-t", tmp, "--reso", reso_arg, "--n_epochs", "3"])
         torch.cuda.synchronize()
         wall = time.time() - t0
-        fwd_launches, bwd_launches = vk.FWD_LAUNCHES, vk.BWD_LAUNCHES
+        plx_counts = launch_counts()
+        fwd_launches, bwd_launches = plx_counts["K1"], plx_counts["K2"]
         ckpts = sorted(f for f in os.listdir(tmp) if f.endswith(".npz"))
         trees = sorted(f for f in os.listdir(tmp) if f.startswith("treeDivide_"))
         keep = tempfile.TemporaryDirectory()      # phase 22b renders the last one
@@ -4056,7 +4080,8 @@ def main():
     hist = res["history"]
     psnrs = [h["train_psnr"] for h in hist]
     steps = hist[-1]["steps"]
-    print(f"[phase 3] launches K1 {fwd_launches} K2 {bwd_launches}; steps {steps}; "
+    print(f"[phase 3] launches K1 {fwd_launches} K2 {bwd_launches} S1 {plx_counts['S1']} "
+          f"(S1 pairs {plx_counts['S1 pairs']}); steps {steps}; "
           f"train PSNR {psnrs}; test PSNR {res['psnr']:.3f} SSIM {res['ssim']:.4f}; "
           f"rays per epoch {[h['rays'] for h in hist]}, epoch s "
           f"{[round(h['epoch_s'], 4) for h in hist]}; fit with checkpoints "
@@ -4064,12 +4089,15 @@ def main():
           f"checkpoints {ckpts}", flush=True)
     check(fwd_launches > 0 and bwd_launches > 0, "the main path launched no kernel")
     check(bwd_launches == steps, f"K2 launches {bwd_launches} != steps {steps}")
+    check(plx_counts == plx_fit_counts(steps, K1=fwd_launches, K2=steps),
+          f"phase 3: launches {plx_counts}: not 2 sweeps a step and the live pairs once")
     check(all(math.isfinite(p) for p in psnrs), f"train PSNR not finite: {psnrs}")
     check(psnrs[-1] > psnrs[0], f"train PSNR did not rise: {psnrs}")
     check(math.isfinite(res["psnr"]), f"test PSNR not finite: {res['psnr']}")
     check(len(ckpts) == 3, f"expected 3 checkpoints, got {ckpts}")
     plx = {"ckpt": os.path.join(keep.name, ckpts[-1]), "psnr": res["psnr"], "train": psnrs,
-           "k1": fwd_launches, "k2": bwd_launches, "hist": hist, "peak_gb": peak_gb,
+           "k1": fwd_launches, "k2": bwd_launches, "counts": plx_counts, "hist": hist,
+           "peak_gb": peak_gb,
            "tree": os.path.join(keep.name, trees[-1])}
 
     # ---- phase 3b: where the main path's device time goes (a profiled
@@ -4088,7 +4116,8 @@ def main():
     dev_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
     print(f"[phase 3b] profiled main path: device busy {dev_ms:.1f} ms of "
           f"{prof_wall_ms:.1f} ms wall; top kernels by device time:")
-    for e in dev_events[:10] + [e for e in dev_events[10:] if "cuvol" in e.key]:
+    for e in dev_events[:10] + [e for e in dev_events[10:]
+                                if "cuvol" in e.key or "tv_" in e.key]:
         print(f"[phase 3b]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
               f"{e.key[:90]}")
     k2_prof = [e for e in dev_events if "cuvol_bwd_kernel" in e.key]
@@ -4228,6 +4257,26 @@ def main():
         ns, nc, _ = work_counts(grid, cfg, bo, bd)
         print(f"[phase 4] order {name}: K1 {ms1:.4f} ms, K2 body {ms2:.4f} ms "
               f"({ns} samples, {nc} distinct cells)", flush=True)
+
+    # ---- phase 4b: S1, the dense TV + RMSProp sweep, and its live pairs
+    # against their plain versions at the main path's 256^3, beside their
+    # bounds and the autograd passes the sweep replaced ----
+    from flnerf_tpu_torch.tools import tv_rmsprop_probe
+    s1 = {(f, frac): tv_rmsprop_probe.probe_field(f, RESO, frac, 20)
+          for f in tv_rmsprop_probe.FIELDS for frac in (1.0, 0.9)}
+    for (f, frac), r in s1.items():
+        print(f"[phase 4b] S1 on {f} {r['shape']}, {100 * frac:.0f}% alive: bit for bit its "
+              f"plain version at its TV weight {r['exact']}, at weight 0 {r['exact_weight0']} "
+              f"(max abs err {r['max_abs_err']:.3e}); {r['kernel_ms']:.4f} ms (bound "
+              f"{r['bound_ms']:.4f} ms by its {r['bytes']} bytes, {r['roofline_pct']:.1f}%), "
+              f"weight 0 {r['rmsprop_only_ms']:.4f} ms; plain {r['plain_ms']:.3f} ms; the "
+              f"replaced autograd tv_loss + _rmsprop {r['replaced_ms']:.3f} ms; live_pairs "
+              f"{r['pairs_ms']:.4f} ms (bound {r['pairs_bound_ms']:.4f}, plain "
+              f"{r['pairs_plain_ms']:.3f}), equal to the plain pairs {r['pairs_exact']}",
+              flush=True)
+        check(r["exact"] and r["exact_weight0"],
+              f"S1 differs from its plain version on {f}, {frac} alive: {r['max_abs_err']}")
+        check(r["pairs_exact"], f"live_pairs differs from its plain version, {frac} alive")
 
 
     # ---- phase 5: K3 and K4 against the plain version, NGP main-path shapes ----
@@ -4400,6 +4449,8 @@ def main():
 
     src = "flnerf_tpu_torch/ops/csrc/voxel_cuvol.cu"
     hsrc = "flnerf_tpu_torch/ops/csrc/hash_encode.cu"
+    tsrc = "flnerf_tpu_torch/ops/csrc/tv_rmsprop.cu"
+    s1_sh, s1_density = s1[("sh", 1.0)], s1[("density", 1.0)]
     kernels = [
         {"name": "cuvol_forward (K1)", "route": "cuda", "source": src,
          "replaces": "flnerf_tpu/ops/voxel_pallas.py:430", "launches": fwd_launches,
@@ -4418,6 +4469,19 @@ def main():
          "replaces": "flnerf_tpu/ops/hash_pallas.py:185", "launches": h_bwd,
          "max_abs_err": k4_err, "ms": k4_dense_ms, "plain_ms": k4_dense_plain_ms,
          "bound_ms": bounds["K4"][0], "bound_by": bounds["K4"][1], "library_ms": None},
+        # port only: the JAX package leaves the TV and RMSProp to XLA
+        {"name": "tv_rmsprop (S1)", "route": "cuda", "source": tsrc, "replaces": None,
+         "launches": plx["counts"]["S1"],
+         "max_abs_err": max(r["max_abs_err"] for r in s1.values()),
+         "ms": s1_sh["kernel_ms"], "plain_ms": s1_sh["plain_ms"],
+         "bound_ms": s1_sh["bound_ms"], "bound_by": "bytes", "library_ms": None,
+         "replaced_ms": s1_sh["replaced_ms"], "density_ms": s1_density["kernel_ms"],
+         "density_bound_ms": s1_density["bound_ms"]},
+        {"name": "live_pairs (S1 pairs)", "route": "cuda", "source": tsrc, "replaces": None,
+         "launches": plx["counts"]["S1 pairs"],
+         "max_abs_err": 0.0,                  # held equal in phase 4b
+         "ms": s1_sh["pairs_ms"], "plain_ms": s1_sh["pairs_plain_ms"],
+         "bound_ms": s1_sh["pairs_bound_ms"], "bound_by": "bytes", "library_ms": None},
     ]
     del trainer, sampler, x_batch, x_refresh, g_train, g_dense, table, grad_buf
     lattice_psnr, lattice_k5_err, phase9, lattice_rows = lattice_phases(dev, t)
@@ -4446,7 +4510,7 @@ def main():
     runs = {**dnerf_counts, **sdf_counts, **gui_counts, **ddp_counts, **tools_counts,
             **clip_counts, **loader_counts, **slice11_counts}
     for row in kernels:
-        k = "K" + re.search(r"\(K(\d)", row["name"]).group(1)
+        k = re.search(r"\((K\d|S1 pairs|S1)", row["name"]).group(1)
         row["launches_by_path"] = {run: c[k] for run, c in runs.items()}
         if k in ("K3", "K4"):
             i = 0 if k == "K3" else 1

@@ -6,7 +6,17 @@ step renders through ``ops/voxel_kernel.voxel_render_rays_fast`` (the CUDA
 kernels on the card, the plain version on the CPU), takes the masked MSE
 with ``denom = max(sum(mask), 1) * 3`` plus dense TV (or the random-slab
 estimator when ``tv_sparsity < 1``), and applies RMSProp to density and SH
-as in-place tensor math (optim_kernel.cu:28 analog).  The per-leaf error
+as in-place tensor math (optim_kernel.cu:28 analog).  On CUDA the dense TV
+of density and SH and their RMSProp run instead as one hand-written pass
+each (``ops/tv_rmsprop.py``): the TV gradient as a stencil, added to the data
+gradient, and RMSProp in the same sweep, which writes the new parameters into
+a second buffer that the state then swaps to (``fused_sweep``; the buffer it
+replaces is the next step's).  The rule is the trainer's device alone; on
+the CPU the autograd ``tv_loss`` and ``_rmsprop`` stay.  The random-slab TV
+(``tv_sparsity < 1``) and the lumisphere TV stay in autograd and join the
+gradient before the sweep, which runs with the dense TV's weight 0 where the
+slab estimator replaces it; the MSI background and a learned basis keep
+their own ``_rmsprop``.  The per-leaf error
 statistic accumulates on the device with ``index_add_`` and crosses to the
 host once per epoch, together with the epoch MSE.  Steps that hold only
 padding are skipped on the host: they would be no-ops.
@@ -83,6 +93,7 @@ from flnerf_tpu_torch.models.voxel_sh import (
     upsample_grid,
     voxel_render_rays,
 )
+from flnerf_tpu_torch.ops.tv_rmsprop import EPS, live_pairs, tv_rmsprop
 from flnerf_tpu_torch.ops.voxel_kernel import morton_order, voxel_render_rays_fast
 from flnerf_tpu_torch.parallel import mesh
 from flnerf_tpu_torch.rays.camera import get_rays
@@ -225,6 +236,14 @@ class PlenoxelsTrainer:
         self.device = resolve_device(device)
         # the kernel path also marches rays in coherence order
         self.use_kernel = kernel_path(grid_cfg, self.device)
+        # density's and SH's dense TV and RMSProp through ops/tv_rmsprop;
+        # _sweep_tv: the sweep, not autograd, takes the dense TV
+        self.fused_sweep = self.device.type == "cuda"
+        self._sweep_tv = self.fused_sweep and train_cfg.tv_sparsity >= 1.0
+        # the sweep's second buffer of each field, and the live_pairs of the
+        # alive mask they were computed from (a new mask recomputes them)
+        self._spare = {}
+        self._pairs = (None, None)
         self.gcfg = grid_cfg
         self.cfg = train_cfg
         self.group = group
@@ -282,9 +301,26 @@ class PlenoxelsTrainer:
         b = self.cfg.rms_beta
         rms.mul_(b).addcmul_(g, g, value=1 - b)
         if isinstance(lr, float):
-            param.addcdiv_(g, rms.sqrt().add_(1e-8), value=-lr)
+            param.addcdiv_(g, rms.sqrt().add_(EPS), value=-lr)
         else:
-            param.sub_(lr * g / (rms.sqrt() + 1e-8))
+            param.sub_(lr * g / (rms.sqrt() + EPS))
+
+    def _swept(self, name: str, param, rms, grad, pairs, lam: float, lr: float):
+        """``param`` after one ``tv_rmsprop`` sweep (TV weight ``lam``),
+        written into the spare buffer of ``name``; ``param`` becomes that
+        buffer for the next step."""
+        out = self._spare.get(name)
+        if out is None or out.shape != param.shape:
+            out = torch.empty_like(param)
+        tv_rmsprop(param, grad.contiguous(), rms, pairs, lam, lr, self.cfg.rms_beta, out=out)
+        self._spare[name] = param
+        return out
+
+    def _live_pairs(self, alive):
+        """``live_pairs(alive)``, computed once for each alive mask."""
+        if self._pairs[0] is not alive:
+            self._pairs = (alive, live_pairs(alive))
+        return self._pairs[1]
 
     @RECORDER.spanned("flnerf.train.step")
     def _step(self, origins, dirs, rgb, leaf, mask, err_sum, err_cnt):
@@ -292,16 +328,29 @@ class PlenoxelsTrainer:
         grads, mse, count, per_ray_err = self._grads(origins, dirs, rgb, mask)
         cfg, st = self.cfg, self.state
         step = st.step
+        grid = st.grid
 
         def lr_of(init, final, delay=0, mult=1.0):
             return float(expon_lr(step, init, final, delay, mult, cfg.lr_decay_steps))
 
         with RECORDER.span("flnerf.train.optimizer"):
             g_density, g_sh = grads[0], grads[1]
-            self._rmsprop(st.grid.density, st.rms_density, g_density,
-                          lr_of(cfg.lr_sigma, cfg.lr_sigma_final, cfg.lr_sigma_delay_steps,
-                                cfg.lr_sigma_delay_mult))
-            self._rmsprop(st.grid.sh, st.rms_sh, g_sh, lr_of(cfg.lr_sh, cfg.lr_sh_final))
+            lr_density = lr_of(cfg.lr_sigma, cfg.lr_sigma_final, cfg.lr_sigma_delay_steps,
+                               cfg.lr_sigma_delay_mult)
+            lr_sh = lr_of(cfg.lr_sh, cfg.lr_sh_final)
+            if self.fused_sweep:
+                # the dense TV joins here; the slab estimator's is in grads
+                dense = self._sweep_tv
+                pairs = self._live_pairs(grid.alive) if dense else None
+                grid = grid._replace(
+                    density=self._swept("density", grid.density, st.rms_density, g_density,
+                                        pairs, cfg.lambda_tv if dense else 0.0, lr_density),
+                    sh=self._swept("sh", grid.sh, st.rms_sh, g_sh, pairs,
+                                   cfg.lambda_tv_sh if dense else 0.0, lr_sh))
+                RECORDER.count("flnerf.train.fused_sweeps", 2)
+            else:
+                self._rmsprop(grid.density, st.rms_density, g_density, lr_density)
+                self._rmsprop(grid.sh, st.rms_sh, g_sh, lr_sh)
             i = 2
             if st.grid.background is not None:
                 # optim_background_step (svox2.py:2048): lr_color_bg on the rgb
@@ -322,7 +371,7 @@ class PlenoxelsTrainer:
         safe_leaf = torch.where(live, leaf, err_sum.shape[0] - 1)
         err_sum.index_add_(0, safe_leaf, torch.where(live, per_ray_err, 0.0))
         err_cnt.index_add_(0, safe_leaf, mask)
-        self.state = st._replace(step=st.step + 1)
+        self.state = st._replace(grid=grid, step=st.step + 1)
         return mse, count
 
     def _grads(self, origins, dirs, rgb, mask):
@@ -355,13 +404,15 @@ class PlenoxelsTrainer:
             count = torch.sum(mask)
             denom = torch.clamp(count, min=1.0) * 3.0
             sq = torch.sum(m[:, None] * (rgb_out - rgb) ** 2)
-            reg = (cfg.lambda_tv * self._grid_tv(density)
-                   + cfg.lambda_tv_sh * self._grid_tv(sh))
+            # the sweep (_sweep_tv) computes the dense TV's gradient itself
+            terms = ([] if self._sweep_tv else
+                     [cfg.lambda_tv * self._grid_tv(density),
+                      cfg.lambda_tv_sh * self._grid_tv(sh)])
             if cfg.lambda_tv_lumisphere > 0.0:
-                reg = reg + cfg.lambda_tv_lumisphere * self._lumisphere_tv(grid)
+                terms.append(cfg.lambda_tv_lumisphere * self._lumisphere_tv(grid))
             if bgv is not None:
-                reg = reg + tv_loss_background(bgv, cfg.lambda_tv_background_color,
-                                               cfg.lambda_tv_background_sigma)
+                terms.append(tv_loss_background(bgv, cfg.lambda_tv_background_color,
+                                                cfg.lambda_tv_background_sigma))
         # the backward pass, the sharded data term's all-reduce included
         with RECORDER.span("flnerf.train.backward"):
             grads = [torch.zeros_like(t) if g is None else g
@@ -372,8 +423,10 @@ class PlenoxelsTrainer:
             if rows is not None:
                 mesh.all_reduce_([sq] + grads, group=self.group)
                 per_ray_err = mesh.gather_rows(per_ray_err, self.rank, self.world, self.group)
-            reg_grads = torch.autograd.grad(reg, leaves, allow_unused=True)
-            grads = [g if r is None else g.add_(r) for g, r in zip(grads, reg_grads)]
+            if terms:
+                reg_grads = torch.autograd.grad(sum(terms[1:], terms[0]), leaves,
+                                                allow_unused=True)
+                grads = [g if r is None else g.add_(r) for g, r in zip(grads, reg_grads)]
         return grads, sq[0] / denom, count, per_ray_err
 
     def run_epoch_rays(self, epoch: RayEpoch):
@@ -499,6 +552,8 @@ class PlenoxelsTrainer:
         if prune:
             grid = prune_grid(grid, self.cfg.prune_sigma_thresh)
         self.gcfg = self.gcfg._replace(reso=new_reso)
+        self._spare.clear()
+        self._pairs = (None, None)
         self.state = self.state._replace(grid=grid, rms_density=torch.zeros_like(grid.density),
                                          rms_sh=torch.zeros_like(grid.sh))
 

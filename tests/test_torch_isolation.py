@@ -265,7 +265,7 @@ def test_failed_build_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all()
     assert _build.sources() == ["hash_encode", "hash_lattice", "hash_sorted", "radix_sort",
-                               "voxel_cuvol"]
+                               "tv_rmsprop", "voxel_cuvol"]
     assert _build.headers() == ["hash_corners"]
     assert np.all([not f.endswith(".so") for f in os.listdir(tmp_path)])
 
