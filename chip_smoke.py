@@ -25,11 +25,18 @@ Phases (any failure raises, and the script exits non-zero):
      epochs on the card (syn.json's first-stage width: SH degree 3, batch
      5000, 1792 steps), with the launch counters set to 0 just before and
      read just after (K2 once a step, the dense TV + RMSProp sweep S1 twice
-     a step, for density and SH, and its live pairs once); train PSNR must
-     rise and the test PSNR be finite;
+     a step, for density and SH, and its live pairs once), at 4 steps a
+     chunk, so that each epoch is one whole chunk and the later epochs
+     replay its CUDA graph (the program's recorder counts the graphed
+     steps); train PSNR must rise and the test PSNR be finite;
      3b. a profiled rerun (2 epochs, no checkpoints): where the device time
      goes;
      3c. train rays/s over epochs 2-10 of a 10-epoch run (no checkpoints);
+     3d. one chunk at the benchmark cell's shapes (256^3, 8 steps of 5000
+     rays, syn.json's rates) by the trainer's CUDA graph replay and three
+     times step by step from one seeded start: the grid, both RMSProp
+     states, the per-leaf statistic and the chunk MSE within 10x the
+     step-by-step runs' largest distance (K2's atomic order);
   4. K1 (the occupancy build included, as the main path calls it), K2's
      kernel body (the forward's occupancy passed in, as the main path
      passes it; its gradients zero-filled outside the timed loop; the
@@ -57,8 +64,10 @@ Phases (any failure raises, and the script exits non-zero):
   4b. S1 (ops/csrc/tv_rmsprop.cu, port only) and its live pairs through
      tools/tv_rmsprop_probe.py at 256^3, density and 27-channel SH, all
      alive and 90% alive: bit for bit their plain versions, at the TV
-     weight and at 0, with their times by CUDA events beside their bounds,
-     the plain versions' and the replaced autograd passes';
+     weight and at 0, S1 with the rate by value and read from a device
+     table (the form the trainer's graph replays launch), with their times
+     by CUDA events beside their bounds, the plain versions' and the
+     replaced autograd passes';
   5. the hash-encoding kernels K3 (forward) and K4 (table gradient) against
      their plain version, ops/hash_kernel.hash_encode_plain with autograd,
      at the NGP main path's shapes and on a trained table: the trainer
@@ -580,6 +589,21 @@ def plx_fit_counts(steps, **kernels):
     want = dict({k: 0 for k in launch_counts()}, **kernels)
     want.update({"S1": 2 * steps, "S1 pairs": 1 if steps else 0})
     return want
+
+
+def recorded(fn):
+    """``fn()`` with the program's recorder on: (its result, the recorder's
+    counters), the recorder off and empty again after."""
+    from flnerf_tpu_torch.core.logging_utils import RECORDER
+    RECORDER.reset()
+    RECORDER.enable()
+    try:
+        out = fn()
+    finally:
+        RECORDER.disable()
+    counters = dict(RECORDER.counters)
+    RECORDER.reset()
+    return out, counters
 
 
 def cuda_ms(fn, iters):
@@ -3104,9 +3128,10 @@ def _ddp_rank(rank, world, out_dir):
     out["allreduce_gb"] = buf.numel() * 4 / 1e9
     del buf, grads1, grads2
     reset_counts()
-    two.run_epoch_rays(batch)                  # the trainer's own step
+    _, rec = recorded(lambda: two.run_epoch_rays(batch))     # the trainer's own step
     torch.cuda.synchronize()
     out["plx_step_counts"] = launch_counts()
+    out["plx_graph_steps"] = rec.get("flnerf.train.graph_steps", 0)
     del two
     torch.cuda.empty_cache()
 
@@ -3245,6 +3270,9 @@ def ddp_phases(dev):
         check(res["plx_grad_counts"] == want_g
               and res["plx_step_counts"] == plx_fit_counts(1, K1=1, K2=1),
               f"phase 21b: rank {r} Plenoxels launches")
+        # the sharded step reduces across ranks: never a graph
+        check(res["plx_graph_steps"] == 0,
+              f"phase 21b: rank {r} graphed {res['plx_graph_steps']} sharded steps")
         a, b = res["ngp_loss"]
         check(abs(a - b) <= 1e-5 * abs(b) and res["ngp_per_ray"] <= 1e-5,
               f"phase 21b: rank {r} NGP loss {a} != {b}")
@@ -3670,7 +3698,8 @@ def slice11_phases(dev, plx, batch, phase9, lattice_psnr):
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
     with timers.phase("25 MSI fit (opt.py)"):
-        res = opt.main(["synthetic", "-t", run, *tnt_flags, "--n_epochs", "3", *msi_flags])
+        res, rec = recorded(lambda: opt.main(["synthetic", "-t", run, *tnt_flags, "--n_epochs",
+                                              "3", *msi_flags]))
         torch.cuda.synchronize()
     counts = counts_by_run["25 MSI fit"] = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -3690,6 +3719,8 @@ def slice11_phases(dev, plx, batch, phase9, lattice_psnr):
     want = plx_fit_counts(steps, K1=steps + 2, K2=steps)
     check(counts == want, f"phase 25: launches {counts} != {want}")
     check(hist[-1]["path"] == "kernel", "phase 25: the MSI fit left the kernel path")
+    check(rec.get("flnerf.train.graph_steps", 0) == 0,
+          f"phase 25: the MSI fit graphed {rec.get('flnerf.train.graph_steps')} steps")
     check(all(math.isfinite(p) for p in train) and train[-1] > train[0],
           f"phase 25: train PSNR {train}")
     check(math.isfinite(res["psnr"]), f"phase 25: test PSNR {res['psnr']}")
@@ -3877,16 +3908,17 @@ def slice11_phases(dev, plx, batch, phase9, lattice_psnr):
         reset_counts()
         with timers.phase(f"27 {name}"):
             if spec is None:
-                res = opt.main(["synthetic", "-t", os.path.join(tmp.name, name), "--reso",
-                                reso_arg, "--n_epochs", "1", "--renderer_backend", name,
-                                "--tune_nosave", "--device", str(dev)])
+                res, rec = recorded(lambda: opt.main(
+                    ["synthetic", "-t", os.path.join(tmp.name, name), "--reso", reso_arg,
+                     "--n_epochs", "1", "--renderer_backend", name, "--tune_nosave",
+                     "--device", str(dev)]))
                 hist, psnr = res["history"], res["psnr"]
             else:
                 tr = PlenoxelsTrainer(spec[0], PlenoxelsTrainConfig(n_epoch=1, **spec[1]),
                                       device=dev)
                 budgeter = RayBudgeter(images[i_train], np.stack([r[0] for r in rays]),
                                        np.stack([r[1] for r in rays]), init_level=2, seed=0)
-                tr.fit(budgeter, verbose=False)
+                _, rec = recorded(lambda: tr.fit(budgeter, verbose=False))
                 hist = tr.history
                 psnr = tr.eval_images(poses[i_test], images[i_test], H, W, K)[0]
             torch.cuda.synchronize()
@@ -3906,6 +3938,9 @@ def slice11_phases(dev, plx, batch, phase9, lattice_psnr):
               f"{step_ms(plx['hist']):.1f}); train PSNR "
               f"{h['train_psnr']:.4f}; test PSNR {psnr:.4f}", flush=True)
         check(counts == want, f"phase 27: {name} launched {counts}, not {want}")
+        # a learned basis, a plain render or the lumisphere TV: never a graph
+        check(rec.get("flnerf.train.graph_steps", 0) == 0,
+              f"phase 27: {name} graphed {rec.get('flnerf.train.graph_steps')} steps")
         check(h["path"] == ("kernel" if on_kernel else "plain"),
               f"phase 27: {name} took the {h['path']} path")
         check(math.isfinite(h["train_psnr"]) and math.isfinite(psnr),
@@ -3972,6 +4007,118 @@ def slice11_phases(dev, plx, batch, phase9, lattice_psnr):
         f"[phase 28]   {line}" for line in timers.summary().splitlines()), flush=True)
     tmp.cleanup()
     return counts_by_run, k2_err
+
+
+def graph_chunk_phase(dev, seed=0):
+    """Phase 3d: one chunk at the benchmark cell's shapes (256^3, 8 steps of
+    5000 rays, syn.json's rates, from step 0) trained by the trainer's CUDA
+    graph replay and three times step by step, each from the same seeded
+    start (10% of the cells dead).  The graph is captured on another chunk
+    first, and the start is then written back into the same buffers.  The
+    replay's gaps from the first step-by-step run (density and SH over the
+    change that run made, both RMSProp states over their norm, the
+    per-leaf statistic and the chunk MSE over that run's largest) must lie
+    within 10x the largest gap between two step-by-step runs, as
+    tests/test_torch_plenoxels_graph_cuda.py holds them: K2's atomics add
+    in another order each run.  Returns (gaps, noise), 6 numbers each."""
+    import numpy as np
+    import torch
+    from flnerf_tpu_torch.core.logging_utils import RECORDER
+    from flnerf_tpu_torch.models.voxel_sh import VoxelGrid, VoxelGridConfig
+    from flnerf_tpu_torch.rays.quadtree import RayEpoch
+    from flnerf_tpu_torch.train import plenoxels_trainer as pt
+
+    K, leaves = 8, 4096
+    gcfg = VoxelGridConfig(reso=(RESO,) * 3, radius=(SCENE_RADIUS,) * 3, max_steps=MAX_STEPS,
+                           step_size=STEP)
+    tcfg = pt.PlenoxelsTrainConfig(batch_size=BATCH, steps_per_chunk=K)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shape = (RESO,) * 3
+    start = VoxelGrid(2.0 * torch.rand(shape, device=dev, generator=gen),
+                      0.3 * torch.randn(shape + (27,), device=dev, generator=gen),
+                      torch.rand(shape, device=dev, generator=gen) > 0.1)
+    rng = np.random.default_rng(seed)
+
+    def epoch():
+        """A chunk of rays from a sphere around the grid toward it."""
+        n = K * BATCH
+        u = rng.standard_normal((n, 3))
+        u /= np.linalg.norm(u, axis=-1, keepdims=True)
+        d = -u + 0.3 * rng.standard_normal((n, 3))
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        f32 = lambda a: a.astype(np.float32)
+        return RayEpoch(f32(2.5 * SCENE_RADIUS * u), f32(d), f32(rng.random((n, 3))),
+                        rng.integers(0, leaves, n).astype(np.int32), leaves)
+
+    def trainer():
+        t = pt.PlenoxelsTrainer(gcfg, tcfg, device=dev)
+        t.state = pt.PlenoxelsState(
+            VoxelGrid(start.density.clone(), start.sh.clone(), start.alive),
+            torch.zeros_like(start.density), torch.zeros_like(start.sh), 0)
+        return t
+
+    def kept(t, out):
+        st = t.state
+        return ([x.clone() for x in (st.grid.density, st.grid.sh, st.rms_density, st.rms_sh)],
+                out)
+
+    capture_on, chunk = epoch(), epoch()
+    t = trainer()
+    t.run_epoch_rays(capture_on)     # warm-up and capture, in the start's buffer order
+    check(len(t._graphs) == 1, f"phase 3d: {len(t._graphs)} graphs after the warm-up")
+    st = t.state
+    st.grid.density.copy_(start.density)
+    st.grid.sh.copy_(start.sh)
+    st.rms_density.zero_()
+    st.rms_sh.zero_()
+    t.state = st._replace(step=0)
+    RECORDER.reset()
+    RECORDER.enable()
+    try:
+        out = t.run_epoch_rays(chunk)
+    finally:
+        RECORDER.disable()
+    graphed = RECORDER.counters.get("flnerf.train.graph_steps", 0)
+    RECORDER.reset()
+    check(graphed == K, f"phase 3d: {graphed} graphed steps, not {K}")
+    runs = [kept(t, out)]
+    del t, st
+    rule = pt.graph_rule
+    pt.graph_rule = lambda *a: False
+    try:
+        for _ in range(3):
+            t = trainer()
+            runs.append(kept(t, t.run_epoch_rays(chunk)))
+            del t
+    finally:
+        pt.graph_rule = rule
+    torch.cuda.synchronize()
+
+    def gaps(a, b):
+        (xa, (sa, ma)), (xb, (sb, mb)) = a, b
+        row = [float(torch.linalg.vector_norm(x - y))
+               / float(torch.linalg.vector_norm(y - (start.density, start.sh)[k] if k < 2 else y))
+               for k, (x, y) in enumerate(zip(xa, xb))]
+        fa, fb = np.isfinite(sa), np.isfinite(sb)
+        check(np.array_equal(fa, fb), "phase 3d: the leaves with a statistic differ")
+        row.append(float(np.abs(sa[fa] - sb[fb]).max() / np.abs(sb[fb]).max()))
+        row.append(abs(ma - mb) / mb)
+        return row
+
+    gap = gaps(runs[0], runs[1])
+    noise = [max(col) for col in zip(gaps(runs[2], runs[1]), gaps(runs[3], runs[1]),
+                                     gaps(runs[3], runs[2]))]
+    names = ("density", "SH", "density RMSProp", "SH RMSProp", "per-leaf statistic",
+             "chunk MSE")
+    print("[phase 3d] one 8-step chunk of 5000 rays at 256^3 by graph replay against step "
+          "by step, relative gaps (the largest between step-by-step runs in brackets): "
+          + "; ".join(f"{n} {g:.3e} ({z:.3e})" for n, g, z in zip(names, gap, noise)),
+          flush=True)
+    check(all(g <= 10 * z + 1e-6 for g, z in zip(gap, noise)),
+          f"phase 3d: the replayed chunk is off step by step's: {gap} against noise {noise}")
+    del runs, start
+    torch.cuda.empty_cache()
+    return gap, noise
 
 
 def main():
@@ -4066,7 +4213,11 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.time()
-        res = opt.main(["synthetic", "-t", tmp, "--reso", reso_arg, "--n_epochs", "3"])
+        # an epoch of 18,432 rays is 4 steps of 5000: at 4 steps a chunk each
+        # epoch is one whole chunk, and the epochs after the first replay
+        # its CUDA graph (at cli/opt.py's 8 every chunk holds dead steps)
+        res, rec = recorded(lambda: opt.main(["synthetic", "-t", tmp, "--reso", reso_arg,
+                                              "--n_epochs", "3", "--steps_per_chunk", "4"]))
         torch.cuda.synchronize()
         wall = time.time() - t0
         plx_counts = launch_counts()
@@ -4080,8 +4231,10 @@ def main():
     hist = res["history"]
     psnrs = [h["train_psnr"] for h in hist]
     steps = hist[-1]["steps"]
+    graphed = rec.get("flnerf.train.graph_steps", 0)
     print(f"[phase 3] launches K1 {fwd_launches} K2 {bwd_launches} S1 {plx_counts['S1']} "
-          f"(S1 pairs {plx_counts['S1 pairs']}); steps {steps}; "
+          f"(S1 pairs {plx_counts['S1 pairs']}); steps {steps}, {graphed} of them by "
+          f"CUDA graph replays; "
           f"train PSNR {psnrs}; test PSNR {res['psnr']:.3f} SSIM {res['ssim']:.4f}; "
           f"rays per epoch {[h['rays'] for h in hist]}, epoch s "
           f"{[round(h['epoch_s'], 4) for h in hist]}; fit with checkpoints "
@@ -4091,6 +4244,10 @@ def main():
     check(bwd_launches == steps, f"K2 launches {bwd_launches} != steps {steps}")
     check(plx_counts == plx_fit_counts(steps, K1=fwd_launches, K2=steps),
           f"phase 3: launches {plx_counts}: not 2 sweeps a step and the live pairs once")
+    # whole chunks replay one CUDA graph each, once a warm-up chunk has run
+    # (here epoch 1's; a new error-buffer size warms up again)
+    check(0 < graphed < steps and rec["flnerf.train.steps"] == steps,
+          f"phase 3: {graphed} graphed steps of {rec.get('flnerf.train.steps')} ({steps})")
     check(all(math.isfinite(p) for p in psnrs), f"train PSNR not finite: {psnrs}")
     check(psnrs[-1] > psnrs[0], f"train PSNR did not rise: {psnrs}")
     check(math.isfinite(res["psnr"]), f"test PSNR not finite: {res['psnr']}")
@@ -4139,6 +4296,9 @@ def main():
           f"({win_rays} rays, {hist[-1]['steps'] - hist[0]['steps']} steps in {win_s:.4f} s "
           f"of epochs); per epoch min {min(rates):.1f} max {max(rates):.1f}; "
           f"train PSNR {hist[0]['train_psnr']:.2f} -> {hist[-1]['train_psnr']:.2f}", flush=True)
+
+    # ---- phase 3d: a replayed chunk against step by step at 256^3 ----
+    graph_chunk_phase(dev)
 
     # ---- phase 4: times on phase 2's training batch ----
     k1_ms, k2_ms = kernel_ms(grid, cfg, o, d, gt)
@@ -4266,15 +4426,19 @@ def main():
           for f in tv_rmsprop_probe.FIELDS for frac in (1.0, 0.9)}
     for (f, frac), r in s1.items():
         print(f"[phase 4b] S1 on {f} {r['shape']}, {100 * frac:.0f}% alive: bit for bit its "
-              f"plain version at its TV weight {r['exact']}, at weight 0 {r['exact_weight0']} "
-              f"(max abs err {r['max_abs_err']:.3e}); {r['kernel_ms']:.4f} ms (bound "
+              f"plain version at its TV weight {r['exact']}, at weight 0 {r['exact_weight0']}, "
+              f"with the rate read from a device table (the graph replays' form) "
+              f"{r['exact_lr_table']}, at weight 0 {r['exact_lr_table_weight0']} "
+              f"(max abs err {r['max_abs_err']:.3e}); {r['kernel_ms']:.4f} ms, the table's "
+              f"rate {r['kernel_lr_table_ms']:.4f} ms (bound "
               f"{r['bound_ms']:.4f} ms by its {r['bytes']} bytes, {r['roofline_pct']:.1f}%), "
               f"weight 0 {r['rmsprop_only_ms']:.4f} ms; plain {r['plain_ms']:.3f} ms; the "
               f"replaced autograd tv_loss + _rmsprop {r['replaced_ms']:.3f} ms; live_pairs "
               f"{r['pairs_ms']:.4f} ms (bound {r['pairs_bound_ms']:.4f}, plain "
               f"{r['pairs_plain_ms']:.3f}), equal to the plain pairs {r['pairs_exact']}",
               flush=True)
-        check(r["exact"] and r["exact_weight0"],
+        check(r["exact"] and r["exact_weight0"] and r["exact_lr_table"]
+              and r["exact_lr_table_weight0"],
               f"S1 differs from its plain version on {f}, {frac} alive: {r['max_abs_err']}")
         check(r["pairs_exact"], f"live_pairs differs from its plain version, {frac} alive")
 
@@ -4476,7 +4640,11 @@ def main():
          "ms": s1_sh["kernel_ms"], "plain_ms": s1_sh["plain_ms"],
          "bound_ms": s1_sh["bound_ms"], "bound_by": "bytes", "library_ms": None,
          "replaced_ms": s1_sh["replaced_ms"], "density_ms": s1_density["kernel_ms"],
-         "density_bound_ms": s1_density["bound_ms"]},
+         "density_bound_ms": s1_density["bound_ms"],
+         # the form the graph replays launch: bit for bit the plain version too
+         "lr_table_exact": all(r["exact_lr_table"] and r["exact_lr_table_weight0"]
+                               for r in s1.values()),
+         "lr_table_ms": s1_sh["kernel_lr_table_ms"]},
         {"name": "live_pairs (S1 pairs)", "route": "cuda", "source": tsrc, "replaces": None,
          "launches": plx["counts"]["S1 pairs"],
          "max_abs_err": 0.0,                  # held equal in phase 4b

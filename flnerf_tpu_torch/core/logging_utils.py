@@ -176,6 +176,27 @@ class PhaseTimers:
             self._dev = {}
         return dev
 
+    @contextmanager
+    def detached(self):
+        """Record the block into a fresh recorder that is on, then put back
+        the state from before, on or off, with nothing of the block in it.
+        Yields a dict that holds, after the block, its host counters: what
+        code run for its launches alone records (a CUDA graph's capture,
+        which runs nothing on the device) without its spans, so that each
+        replay can add them."""
+        saved = (self.on, self.totals, self.counts, self.self_s, self.spans,
+                 self.counters, self._dev, self._open)
+        self.totals, self.counts, self._open = {}, {}, []
+        self.reset()
+        self.on = True
+        got: Dict[str, float] = {}
+        try:
+            yield got
+        finally:
+            got.update(self.counters)
+            (self.on, self.totals, self.counts, self.self_s, self.spans,
+             self.counters, self._dev, self._open) = saved
+
     def add_counts(self, counts: dict) -> None:
         """Add values read from the device (``take_device``) to the host
         counters, whether or not the recorder is still on."""

@@ -191,20 +191,54 @@ def init_voxel_grid(cfg: VoxelGridConfig, device="cpu") -> VoxelGrid:
     )
 
 
+class GridConstants(NamedTuple):
+    """A grid configuration's constants as tensors on one device."""
+
+    reso: torch.Tensor       # [3] f32
+    scaling: torch.Tensor    # [3] f32: 0.5 * reso / radius
+    offset: torch.Tensor     # [3] f32: 0.5 * reso - center * scaling
+    hi: torch.Tensor         # [3] f32: reso - 1, the last voxel centre
+    reso_long: torch.Tensor  # [3] int64
+
+
+_CONSTANTS: dict = {}
+
+
+def grid_constants(cfg: VoxelGridConfig, device="cpu") -> GridConstants:
+    """``cfg``'s reso, scaling and offset on ``device``, made once per
+    (reso, radius, center, device) by the same torch ops as each call made
+    them before, so the values are the same bit for bit.  On the card a
+    ``torch.tensor(list, device=)`` is a blocking copy: made once, it leaves
+    the step with no sync, which a CUDA graph's capture requires.  The
+    tensors are shared: never write to them."""
+    device = torch.device(device)
+    key = (tuple(cfg.reso), tuple(cfg.radius), tuple(cfg.center), device)
+    c = _CONSTANTS.get(key)
+    if c is None:
+        f32 = torch.float32
+        # normal tensors even when first asked for under inference_mode
+        with torch.inference_mode(False):
+            reso = torch.tensor(cfg.reso, dtype=f32, device=device)
+            radius = torch.tensor(cfg.radius, dtype=f32, device=device)
+            center = torch.tensor(cfg.center, dtype=f32, device=device)
+            scaling = 0.5 * reso / radius
+            c = GridConstants(
+                reso, scaling, 0.5 * reso - center * scaling,
+                torch.tensor([r - 1.0 for r in cfg.reso], device=device),
+                torch.tensor(cfg.reso, dtype=torch.long, device=device))
+        _CONSTANTS[key] = c
+    return c
+
+
 def grid_scaling(cfg: VoxelGridConfig, device="cpu") -> torch.Tensor:
-    reso = torch.tensor(cfg.reso, dtype=torch.float32, device=device)
-    radius = torch.tensor(cfg.radius, dtype=torch.float32, device=device)
-    return 0.5 * reso / radius
+    return grid_constants(cfg, device).scaling
 
 
 def world2grid(cfg: VoxelGridConfig, pts: torch.Tensor) -> torch.Tensor:
     """World -> grid coords (svox2.py:1501-1529 semantics: the grid spans
     center +- radius; voxel centers at integer coords 0..reso-1)."""
-    reso = torch.tensor(cfg.reso, dtype=torch.float32, device=pts.device)
-    center = torch.tensor(cfg.center, dtype=torch.float32, device=pts.device)
-    scaling = grid_scaling(cfg, pts.device)
-    offset = 0.5 * reso - center * scaling
-    return pts * scaling + offset - 0.5
+    c = grid_constants(cfg, pts.device)
+    return pts * c.scaling + c.offset - 0.5
 
 
 def trilinear_sample(grid: VoxelGrid, pos: torch.Tensor, cfg: VoxelGridConfig):
@@ -212,7 +246,7 @@ def trilinear_sample(grid: VoxelGrid, pos: torch.Tensor, cfg: VoxelGridConfig):
 
     Position is clipped to [0, reso-1] and the floor to [0, reso-2].  Pruned
     (alive=False) cells read as zero and receive zero gradient."""
-    hi = torch.tensor([r - 1.0 for r in cfg.reso], device=pos.device)
+    hi = grid_constants(cfg, pos.device).hi
     pos = torch.minimum(torch.clamp(pos, min=0.0), hi)
     l = torch.floor(pos).long()
     l = torch.minimum(torch.clamp(l, min=0), (hi - 1.0).long())
@@ -251,7 +285,7 @@ def grid_ray_setup(cfg: VoxelGridConfig, rays_o: torch.Tensor,
     delta_scale = 1.0 / torch.linalg.norm(dirs, dim=-1)
     dirs = dirs * delta_scale[..., None]   # unit-length in grid space
 
-    gsz = torch.tensor(cfg.reso, dtype=torch.float32, device=rays_o.device)
+    gsz = grid_constants(cfg, rays_o.device).reso
     parallel = torch.abs(dirs) < 1e-9
     safe_dirs = torch.where(parallel, 1e-9, dirs)
     invdirs = 1.0 / safe_dirs
@@ -357,7 +391,7 @@ def _svox1_render(grid: VoxelGrid, rays_o, rays_d, cfg: VoxelGridConfig):
     dirs = viewdirs * grid_scaling(cfg, dev)
     delta_scale = 1.0 / torch.linalg.norm(dirs, dim=-1)
     dirs = dirs * delta_scale[..., None]
-    gsz = torch.tensor(cfg.reso, dtype=torch.float32, device=dev)
+    gsz = grid_constants(cfg, dev).reso
 
     zero_dir = dirs == 0.0
     invdir = torch.where(zero_dir, 1e9, 1.0 / torch.where(zero_dir, 1.0, dirs))
@@ -369,7 +403,7 @@ def _svox1_render(grid: VoxelGrid, rays_o, rays_d, cfg: VoxelGridConfig):
 
     density = torch.where(grid.alive, grid.density, 0.0)
     sh = torch.where(grid.alive[..., None], grid.sh, 0.0)
-    reso_i = torch.tensor(cfg.reso, dtype=torch.long, device=dev)
+    reso_i = grid_constants(cfg, dev).reso_long
 
     t, logT = t0, torch.zeros(n, device=dev)
     rgb_acc = torch.zeros((n, 3), device=dev)
@@ -711,7 +745,7 @@ def max_weight_grid(grid: VoxelGrid, cfg: VoxelGridConfig, poses, H, W, K,
             "positions — use sigma-threshold prune_grid instead")
     dev = grid.density.device
     maxw = torch.zeros(int(np.prod(cfg.reso)), dtype=torch.float32, device=dev)
-    gsz = torch.tensor(cfg.reso, dtype=torch.float32, device=dev)
+    gsz = grid_constants(cfg, dev).reso
     steps = torch.arange(cfg.max_steps, device=dev)
     for c2w in poses:
         ro, rd = get_rays(H, W, K, np.asarray(c2w)[:3, :4], dev)

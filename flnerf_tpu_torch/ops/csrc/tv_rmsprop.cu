@@ -73,6 +73,7 @@ struct SweepArgs {
   float* out;
   int X, Y, Z, C;
   float coef, beta, omb, neg_lr, eps;
+  const float* lr;  // kLrPtr: the learning rate in device memory, in place of neg_lr
 };
 
 // bits[c] = bit d set when cell c and its neighbour d (x-1, x+1, y-1, y+1,
@@ -99,9 +100,12 @@ __global__ void __launch_bounds__(kPairThreads) tv_pairs_kernel(const uint8_t* a
 }
 
 // kC: the channels, fixed at compile time for 1 and 27 (0: s.C at run time).
-template <int kC>
+// kLrPtr: -lr is read from s.lr in device memory (a CUDA graph's replay
+// gives each step its own rate there) rather than passed by value.
+template <int kC, bool kLrPtr>
 __global__ void __launch_bounds__(kThreads) tv_rmsprop_kernel(const SweepArgs s) {
   const int C = kC > 0 ? kC : s.C;
+  const float neg_lr = kLrPtr ? -__ldg(s.lr) : s.neg_lr;
   const int x = blockIdx.y;
   const int ZC = s.Z * C;
   const int YZC = s.Y * ZC;
@@ -144,8 +148,23 @@ __global__ void __launch_bounds__(kThreads) tv_rmsprop_kernel(const SweepArgs s)
     const float den = __fadd_rn(__fsqrt_rn(r), s.eps);
     const long long o = plane + j;
     __stcs(s.rms + o, r);
-    __stcs(s.out + o, __fadd_rn(pc[m], __fmul_rn(s.neg_lr, __fdiv_rn(gg, den))));
+    __stcs(s.out + o, __fadd_rn(pc[m], __fmul_rn(neg_lr, __fdiv_rn(gg, den))));
   }
+}
+
+template <bool kLrPtr>
+int launch_sweep(const SweepArgs& s, void* stream) {
+  const long long plane = (long long)s.Y * s.Z * s.C;
+  const dim3 grid((unsigned)((plane + kThreads * kPerThread - 1) / (kThreads * kPerThread)),
+                  (unsigned)s.X);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (s.C == 1)
+    tv_rmsprop_kernel<1, kLrPtr><<<grid, kThreads, 0, st>>>(s);
+  else if (s.C == 27)
+    tv_rmsprop_kernel<27, kLrPtr><<<grid, kThreads, 0, st>>>(s);
+  else
+    tv_rmsprop_kernel<0, kLrPtr><<<grid, kThreads, 0, st>>>(s);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -170,18 +189,19 @@ int tv_pairs(const uint8_t* alive, uint8_t* bits, int X, int Y, int Z, void* str
 int tv_rmsprop(const float* p, const float* g, float* rms, const uint8_t* pairs, float* out,
                int X, int Y, int Z, int C, float coef, float beta, float omb, float neg_lr,
                float eps, void* stream) {
-  const SweepArgs s{p, g, rms, pairs, out, X, Y, Z, C, coef, beta, omb, neg_lr, eps};
-  const long long plane = (long long)Y * Z * C;
-  const dim3 grid((unsigned)((plane + kThreads * kPerThread - 1) / (kThreads * kPerThread)),
-                  (unsigned)X);
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (C == 1)
-    tv_rmsprop_kernel<1><<<grid, kThreads, 0, st>>>(s);
-  else if (C == 27)
-    tv_rmsprop_kernel<27><<<grid, kThreads, 0, st>>>(s);
-  else
-    tv_rmsprop_kernel<0><<<grid, kThreads, 0, st>>>(s);
-  return (int)cudaGetLastError();
+  return launch_sweep<false>(
+      SweepArgs{p, g, rms, pairs, out, X, Y, Z, C, coef, beta, omb, neg_lr, eps, nullptr},
+      stream);
+}
+
+// The same sweep with the learning rate read on the device from lr (one f32
+// of device memory) when the kernel runs, so a captured launch takes the
+// rate written there before each replay.
+int tv_rmsprop_lrp(const float* p, const float* g, float* rms, const uint8_t* pairs, float* out,
+                   int X, int Y, int Z, int C, float coef, float beta, float omb,
+                   const float* lr, float eps, void* stream) {
+  return launch_sweep<true>(
+      SweepArgs{p, g, rms, pairs, out, X, Y, Z, C, coef, beta, omb, 0.f, eps, lr}, stream);
 }
 
 }  // extern "C"

@@ -53,6 +53,9 @@ def _lib() -> ctypes.CDLL:
         lib.tv_rmsprop.restype = ctypes.c_int
         lib.tv_rmsprop.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                    _F, _F, _F, _F, _F, _P]
+        lib.tv_rmsprop_lrp.restype = ctypes.c_int
+        lib.tv_rmsprop_lrp.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                       _F, _F, _F, _P, _F, _P]
     return lib
 
 
@@ -72,11 +75,11 @@ def _f32(v: float) -> float:
     return float(np.float32(v))
 
 
-def _scalars(shape, lam: float, lr: float, beta: float):
-    """(coef, beta, 1 - beta, -lr, eps), each rounded to float32:
+def _scalars(shape, lam: float, beta: float):
+    """(coef, beta, 1 - beta, eps), each rounded to float32:
     coef = 2 * lam / (X * Y * Z) is tv_loss's gradient factor."""
     n = shape[0] * shape[1] * shape[2]
-    return tuple(_f32(v) for v in (2.0 * lam / n, beta, 1.0 - beta, -lr, EPS))
+    return tuple(_f32(v) for v in (2.0 * lam / n, beta, 1.0 - beta, EPS))
 
 
 def _neighbour(t: torch.Tensor, dim: int, step: int) -> torch.Tensor:
@@ -130,7 +133,7 @@ def live_pairs(alive: torch.Tensor) -> torch.Tensor:
     return bits
 
 
-def tv_rmsprop_plain(param, grad, rms, pairs, lam: float, lr: float, beta: float,
+def tv_rmsprop_plain(param, grad, rms, pairs, lam: float, lr, beta: float,
                      out: torch.Tensor) -> torch.Tensor:
     """The kernel's function in plain torch ops, in its order of operations
     (each rounded on its own), so the two agree bit for bit on the card
@@ -140,7 +143,10 @@ def tv_rmsprop_plain(param, grad, rms, pairs, lam: float, lr: float, beta: float
     ``live_pairs``, has its bit), added to ``grad``, then RMSProp.  Updates
     ``rms`` in place and writes the new parameters into ``out``; returns
     ``out``."""
-    coef, b, omb, neg_lr, eps = _scalars(param.shape, lam, lr, beta)
+    coef, b, omb, eps = _scalars(param.shape, lam, beta)
+    # a tensor lr (a float32 scalar) as a 0-d tensor, which the same
+    # float32 operations take as they take the float
+    neg_lr = -lr.reshape(()) if isinstance(lr, torch.Tensor) else _f32(-lr)
     chan = (lambda m: m) if param.dim() == 3 else (lambda m: m[..., None])
     acc = torch.zeros_like(param)
     if coef != 0.0:
@@ -152,7 +158,7 @@ def tv_rmsprop_plain(param, grad, rms, pairs, lam: float, lr: float, beta: float
     return torch.add(param, neg_lr * (gg / (rms.sqrt() + eps)), out=out)
 
 
-def _check(param, grad, rms, pairs, lam, out) -> None:
+def _check(param, grad, rms, pairs, lam, lr, out) -> None:
     dev = param.device
     if param.dim() not in (3, 4):
         raise ValueError(f"param must be [X, Y, Z] or [X, Y, Z, C], got {tuple(param.shape)}")
@@ -164,27 +170,36 @@ def _check(param, grad, rms, pairs, lam, out) -> None:
         raise ValueError("a TV weight needs the grid's live_pairs")
     if pairs is not None:
         _build.check_tensor(pairs, "pairs", param.shape[:3], torch.uint8, dev)
+    if isinstance(lr, torch.Tensor) and (lr.numel() != 1 or lr.dtype != f32
+                                         or lr.device != dev):
+        raise ValueError(f"a tensor lr must be one float32 on {dev}, got "
+                         f"{lr.dtype} {tuple(lr.shape)} on {lr.device}")
     ptrs = [t.data_ptr() for t in (param, grad, rms, out)]
     if len(set(ptrs)) != 4:
         raise ValueError("param, grad, rms and out must be four separate buffers")
 
 
-def tv_rmsprop(param, grad, rms, pairs, lam: float, lr: float, beta: float,
+def tv_rmsprop(param, grad, rms, pairs, lam: float, lr, beta: float,
                out: torch.Tensor = None) -> torch.Tensor:
     """One step of the dense TV-regularised RMSProp on ``param`` ([X, Y, Z]
     density or [X, Y, Z, C] SH, f32, contiguous) with its data gradient
     ``grad`` and state ``rms`` (same shape; updated in place) and the
     grid's ``live_pairs`` (None only where ``lam`` is 0): TV weight ``lam``
-    (0: RMSProp alone), float ``lr``, decay ``beta``.  The new parameters go
-    to ``out`` (a fourth buffer of param's shape; allocated when None),
-    which is returned; ``param`` is left as it was.
+    (0: RMSProp alone), learning rate ``lr``, decay ``beta``.  The new
+    parameters go to ``out`` (a fourth buffer of param's shape; allocated
+    when None), which is returned; ``param`` is left as it was.
+
+    ``lr`` is a float, or a one-element float32 tensor on param's device
+    that the kernel reads when it runs (so a CUDA graph that captured the
+    launch takes whatever rate is written there before each replay); both
+    give the same result for the same value.
 
     CUDA tensors launch the kernel (on the current stream, no sync); CPU
     tensors take ``tv_rmsprop_plain``; any other device raises."""
     global SWEEP_LAUNCHES
     if out is None:
         out = torch.empty_like(param)
-    _check(param, grad, rms, pairs, lam, out)
+    _check(param, grad, rms, pairs, lam, lr, out)
     dev = param.device
     if dev.type == "cpu":
         return tv_rmsprop_plain(param, grad, rms, pairs, lam, lr, beta, out)
@@ -195,9 +210,14 @@ def tv_rmsprop(param, grad, rms, pairs, lam: float, lr: float, beta: float,
         return out
     x, y, z = param.shape[:3]
     c = 1 if param.dim() == 3 else param.shape[3]
-    rc = _lib().tv_rmsprop(param.data_ptr(), grad.data_ptr(), rms.data_ptr(),
-                           None if pairs is None else pairs.data_ptr(), out.data_ptr(),
-                           x, y, z, c, *_scalars(param.shape, lam, lr, beta), _stream(dev))
+    coef, b, omb, eps = _scalars(param.shape, lam, beta)
+    ptrs = (param.data_ptr(), grad.data_ptr(), rms.data_ptr(),
+            None if pairs is None else pairs.data_ptr(), out.data_ptr(), x, y, z, c,
+            coef, b, omb)
+    if isinstance(lr, torch.Tensor):
+        rc = _lib().tv_rmsprop_lrp(*ptrs, lr.data_ptr(), eps, _stream(dev))
+    else:
+        rc = _lib().tv_rmsprop(*ptrs, _f32(-lr), eps, _stream(dev))
     SWEEP_LAUNCHES += 1
     if rc != 0:
         raise RuntimeError(f"tv_rmsprop launch failed: cudaError {rc}")

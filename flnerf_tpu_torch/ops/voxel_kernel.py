@@ -40,6 +40,7 @@ from flnerf_tpu_torch.models.voxel_sh import (
     VoxelGrid,
     VoxelGridConfig,
     compose_msi_background,
+    grid_constants,
     grid_ray_setup,
     voxel_render_rays,
 )
@@ -176,7 +177,7 @@ def _floor_cells(origins, dirs, ts, cfg: VoxelGridConfig) -> torch.Tensor:
     o = origins[(slice(None),) + extra]
     d = dirs[(slice(None),) + extra]
     pos = o + ts[..., None] * d
-    hi = torch.tensor([r - 1.0 for r in cfg.reso], device=ts.device)
+    hi = grid_constants(cfg, ts.device).hi
     pos = torch.minimum(torch.clamp(pos, min=0.0), hi)
     return torch.minimum(torch.clamp(torch.floor(pos), min=0.0), hi - 1.0).long()
 
@@ -211,7 +212,7 @@ def leave_block(blk, j, cfg: VoxelGridConfig, origins, dirs, tmin, tmax) -> torc
     later step whose floor cell lies in another block or that is past the
     march.  The same f32 estimate from the block's planes, then the same
     steps back and forth to the exact step."""
-    reso = torch.tensor(cfg.reso, device=j.device)
+    reso = grid_constants(cfg, j.device).reso_long
     t_out = tmax.clone()
     for a in range(3):
         d, o, b = dirs[:, a], origins[:, a], blk[:, a]

@@ -11,12 +11,15 @@ events over ``reps`` launches that swap their output and parameter buffers as
 the trainer does, the same with a TV weight of 0 (RMSProp alone: no
 neighbour read), ``tv_rmsprop_plain`` on the card, and the replaced path
 (autograd of ``lambda * tv_loss``, the gradients' sum, ``_rmsprop``); and
-``live_pairs``, which the step runs once for both fields.  The bound is the
-sweep's bytes (p, g and rms read, rms and the new p written, the pairs read
-once) over 3.35 TB/s; the pairs' bound, the alive mask read and the pairs
-written.  Checks the kernel against its plain version bit for bit on the
-same inputs, at the field's TV weight and at 0, and ``live_pairs`` against
-``live_pairs_plain``.  Prints one JSON line.  Needs a CUDA device and nvcc.
+``live_pairs``, which the step runs once for both fields.  The kernel runs
+with the rate by value and with the rate read from a device table, as the
+trainer's CUDA graph replays give it (``tv_rmsprop_kernel<C, true>``).  The
+bound is the sweep's bytes (p, g and rms read, rms and the new p written, the
+pairs read once) over 3.35 TB/s; the pairs' bound, the alive mask read and
+the pairs written.  Checks the kernel, in both forms, against its plain
+version bit for bit on the same inputs, at the field's TV weight and at 0,
+and ``live_pairs`` against ``live_pairs_plain``.  Prints one JSON line.
+Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -65,30 +68,41 @@ def probe_field(name: str, reso: int, alive_frac: float, reps: int, seed: int = 
     out = torch.empty_like(p)
     bufs = [p.clone(), out]
 
+    # the rate as the trainer's graph replays give it: one float32 of a
+    # [K, 2] device table of (density, SH) rates, the rest NaN
+    lr_table = torch.full((8, 2), float("nan"), device=dev)
+    lr_table[5, int(c > 0)] = lr
+    lr_t = lr_table[5, int(c > 0)]
+
     # the bit-for-bit checks first, on one step from the same inputs, at
-    # the field's TV weight and at 0 (RMSProp alone)
+    # the field's TV weight and at 0 (RMSProp alone), with the rate by
+    # value and read from the table
     pairs = tr.live_pairs(alive)
     pairs_plain = tr.live_pairs_plain(alive)
     pairs_exact = bool(torch.equal(pairs, pairs_plain))
     exact, max_abs_err = {}, 0.0
     p_out = torch.empty_like(p)
     for weight in (0.0, lam):
-        r_k, r_p = rms.clone(), rms.clone()
-        k_out = tr.tv_rmsprop(p, g, r_k, pairs, weight, lr, BETA, out=out)
+        r_p = rms.clone()
         tr.tv_rmsprop_plain(p, g, r_p, pairs_plain, weight, lr, BETA, p_out)
-        torch.cuda.synchronize()
-        exact[weight] = bool(torch.equal(k_out, p_out) and torch.equal(r_k, r_p))
-        max_abs_err = max(max_abs_err, float((k_out - p_out).abs().max()),
-                          float((r_k - r_p).abs().max()))
+        for rate in (lr, lr_t):
+            r_k = rms.clone()
+            k_out = tr.tv_rmsprop(p, g, r_k, pairs, weight, rate, BETA, out=out)
+            torch.cuda.synchronize()
+            exact[weight, rate is lr_t] = bool(torch.equal(k_out, p_out)
+                                               and torch.equal(r_k, r_p))
+            max_abs_err = max(max_abs_err, float((k_out - p_out).abs().max()),
+                              float((r_k - r_p).abs().max()))
     del p_out, r_p, pairs_plain
 
-    def sweep(weight):
+    def sweep(weight, rate=lr):
         def run():
-            tr.tv_rmsprop(bufs[0], g, r_k, pairs, weight, lr, BETA, out=bufs[1])
+            tr.tv_rmsprop(bufs[0], g, r_k, pairs, weight, rate, BETA, out=bufs[1])
             bufs.reverse()
         return run
 
     kernel_ms = _events_ms(sweep(lam), reps)
+    kernel_lr_table_ms = _events_ms(sweep(lam, lr_t), reps)
     rmsprop_only_ms = _events_ms(sweep(0.0), reps)
     pairs_ms = _events_ms(lambda: tr.live_pairs(alive), reps)
     pairs_plain_ms = _events_ms(lambda: tr.live_pairs_plain(alive), max(2, reps // 4))
@@ -108,9 +122,10 @@ def probe_field(name: str, reso: int, alive_frac: float, reps: int, seed: int = 
     nbytes = 20 * n + alive.numel()
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return {"field": name, "shape": list(shape), "alive_frac": alive_frac,
-            "exact": exact[lam], "exact_weight0": exact[0.0], "max_abs_err": max_abs_err,
-            "pairs_exact": pairs_exact,
-            "kernel_ms": kernel_ms, "bound_ms": bound_ms, "bytes": nbytes,
+            "exact": exact[lam, False], "exact_weight0": exact[0.0, False],
+            "exact_lr_table": exact[lam, True], "exact_lr_table_weight0": exact[0.0, True],
+            "max_abs_err": max_abs_err, "pairs_exact": pairs_exact,
+            "kernel_ms": kernel_ms, "kernel_lr_table_ms": kernel_lr_table_ms, "bound_ms": bound_ms, "bytes": nbytes,
             "roofline_pct": 100.0 * bound_ms / kernel_ms,
             "achieved_tb_s": nbytes / (kernel_ms * 1e-3) / 1e12,
             "rmsprop_only_ms": rmsprop_only_ms, "plain_ms": plain_ms,
@@ -133,7 +148,8 @@ def main(argv=None) -> dict:
            "step_kernel_ms": sum(r["kernel_ms"] for r in rows if r["alive_frac"] == 1.0)
            + rows[0]["pairs_ms"],
            "step_replaced_ms": sum(r["replaced_ms"] for r in rows if r["alive_frac"] == 1.0),
-           "ok": all(r["exact"] and r["exact_weight0"] and r["pairs_exact"] for r in rows)}
+           "ok": all(r["exact"] and r["exact_weight0"] and r["exact_lr_table"]
+                     and r["exact_lr_table_weight0"] and r["pairs_exact"] for r in rows)}
     print(json.dumps(out), flush=True)
     return out
 

@@ -21,6 +21,21 @@ statistic accumulates on the device with ``index_add_`` and crosses to the
 host once per epoch, together with the epoch MSE.  Steps that hold only
 padding are skipped on the host: they would be no-ops.
 
+One CUDA graph a chunk.  On the card a chunk of ``steps_per_chunk`` live
+steps of the plain configuration (``graph_rule``: the kernel path with the
+dense TV in the sweep, no MSI background, no learned basis, no lumisphere
+TV, one rank) runs as the replay of a graph that captured the same steps:
+the host issues one launch where Python and autograd issued ~60 a step,
+and the step runs at the device's pace.  The first such chunk runs step by
+step as the warm-up, then the chunk is captured; capture runs nothing, so
+the host state is put back and each replay advances it.  The epoch's rays
+are padded in page-locked memory and each chunk crosses without a sync
+(into the graph's fixed input buffers when it replays), the per-leaf error
+sums stay in fixed buffers, and a replayed step reads its learning rates
+from a device table of ``expon_lr``'s float32 values (``lr_rows``), so a
+replay gives the step-by-step result up to K2's atomic-order noise.  Every
+other chunk runs step by step.
+
 The path.  On CUDA the trainer takes the kernel path, as the reference's
 ``use_kernel=True`` does: the kernels, and the epoch's rays in morton order
 by (image, pixel) with their 64-ray blocks shuffled by ``default_rng(seed)``,
@@ -66,9 +81,10 @@ at 256^3), as the reference's ``psum`` does.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import time
-from typing import Any, Callable, NamedTuple, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -93,6 +109,8 @@ from flnerf_tpu_torch.models.voxel_sh import (
     upsample_grid,
     voxel_render_rays,
 )
+from flnerf_tpu_torch.ops import tv_rmsprop as sweep_ops
+from flnerf_tpu_torch.ops import voxel_kernel
 from flnerf_tpu_torch.ops.tv_rmsprop import EPS, live_pairs, tv_rmsprop
 from flnerf_tpu_torch.ops.voxel_kernel import morton_order, voxel_render_rays_fast
 from flnerf_tpu_torch.parallel import mesh
@@ -101,6 +119,9 @@ from flnerf_tpu_torch.rays.quadtree import RayBudgeter, RayEpoch
 
 ORDER_BLOCK = 64   # rays per shuffled block of the kernel path's ray order
 RB = 64            # rays per block of the reference's kernel (ops/voxel_pallas.py RB)
+# the kernel launch counters a graph replay adds for the launches it captured
+LAUNCH_COUNTERS = ((voxel_kernel, "FWD_LAUNCHES"), (voxel_kernel, "BWD_LAUNCHES"),
+                   (sweep_ops, "SWEEP_LAUNCHES"), (sweep_ops, "PAIRS_LAUNCHES"))
 
 
 def expon_lr(step, lr_init, lr_final, lr_delay_steps, lr_delay_mult, max_steps):
@@ -117,6 +138,20 @@ def expon_lr(step, lr_init, lr_final, lr_delay_steps, lr_delay_mult, max_steps):
     else:
         delay_rate = 1.0
     return delay_rate * log_lerp
+
+
+def lr_rows(cfg: "PlenoxelsTrainConfig", extra: int) -> torch.Tensor:
+    """[T + extra, 2] float32 (CPU): ``expon_lr``'s density and SH rates
+    of steps 0 .. T + extra - 1, T = max(lr_decay_steps,
+    lr_sigma_delay_steps, 1); from step T on both rates are constant, so
+    row min(step, T) + k holds step + k's rates for k < extra.  One call
+    over all the steps, which gives each step's float32 value as the call
+    for that step alone gives it."""
+    steps = torch.arange(max(cfg.lr_decay_steps, cfg.lr_sigma_delay_steps, 1) + extra)
+    density = expon_lr(steps, cfg.lr_sigma, cfg.lr_sigma_final, cfg.lr_sigma_delay_steps,
+                       cfg.lr_sigma_delay_mult, cfg.lr_decay_steps)
+    sh = expon_lr(steps, cfg.lr_sh, cfg.lr_sh_final, 0, 1.0, cfg.lr_decay_steps)
+    return torch.stack([density, sh], 1)
 
 
 class PlenoxelsTrainConfig(NamedTuple):
@@ -186,6 +221,34 @@ def kernel_path(grid_cfg: VoxelGridConfig, device) -> bool:
             and grid_cfg.backend == "cuvol")
 
 
+def graph_rule(device, use_kernel: bool, sweep_tv: bool, background: bool,
+               learned_basis: bool, lambda_tv_lumisphere: float, world: int,
+               live: Sequence[bool]) -> bool:
+    """Whether a chunk of steps runs as one CUDA graph's replay: on CUDA, on
+    the kernel path, with the dense TV in the sweep (``sweep_tv``), no MSI
+    background, no learned basis, no lumisphere TV, one rank, and every
+    step of the chunk live (``live``: a bool a step).  The options left out
+    draw host randomness a step or reduce across ranks, and a dead step is
+    skipped on the host: such chunks run step by step."""
+    return (torch.device(device).type == "cuda" and use_kernel and sweep_tv
+            and not background and not learned_basis and lambda_tv_lumisphere == 0.0
+            and world == 1 and len(live) > 0 and all(live))
+
+
+class _ChunkGraph(NamedTuple):
+    """A captured chunk: its graph, the [K, 2] (mse, ray count) each step
+    writes, the (density, SH, spare density, spare SH) buffers the chunk
+    leaves the grid in, the counters a replay adds, and the tensors the
+    graph reads and writes, held so that their memory stays theirs."""
+
+    graph: Any
+    out: torch.Tensor
+    end: tuple
+    launches: tuple
+    counters: dict
+    holds: tuple
+
+
 def render_grid_image(grid: VoxelGrid, grid_cfg: VoxelGridConfig, H, W, K, c2w,
                       chunk: int = 4096) -> np.ndarray:
     """Render one [H, W, 3] image (numpy) of ``grid`` on its device through
@@ -244,6 +307,11 @@ class PlenoxelsTrainer:
         # alive mask they were computed from (a new mask recomputes them)
         self._spare = {}
         self._pairs = (None, None)
+        # the chunks graph_rule admits replay one CUDA graph each (_replay);
+        # the epoch's per-leaf error sums, kept for the graphs to write
+        self._graphs = {}
+        self._graph_io = None
+        self._err = None
         self.gcfg = grid_cfg
         self.cfg = train_cfg
         self.group = group
@@ -317,14 +385,19 @@ class PlenoxelsTrainer:
         return out
 
     def _live_pairs(self, alive):
-        """``live_pairs(alive)``, computed once for each alive mask."""
+        """``live_pairs(alive)``, computed once for each alive mask (a new
+        mask drops the chunk graphs, which read the old one's)."""
         if self._pairs[0] is not alive:
+            self._graphs.clear()
             self._pairs = (alive, live_pairs(alive))
         return self._pairs[1]
 
     @RECORDER.spanned("flnerf.train.step")
-    def _step(self, origins, dirs, rgb, leaf, mask, err_sum, err_cnt):
-        """One RMSProp step on a batch; returns (mse, ray count) tensors."""
+    def _step(self, origins, dirs, rgb, leaf, mask, err_sum, err_cnt, lrs=None):
+        """One RMSProp step on a batch; returns (mse, ray count) tensors.
+        ``lrs``: None (the rates from ``expon_lr`` on the host), or a [2]
+        float32 device tensor of the density and SH rates, which the sweep
+        reads when it runs (a captured step)."""
         grads, mse, count, per_ray_err = self._grads(origins, dirs, rgb, mask)
         cfg, st = self.cfg, self.state
         step = st.step
@@ -335,9 +408,12 @@ class PlenoxelsTrainer:
 
         with RECORDER.span("flnerf.train.optimizer"):
             g_density, g_sh = grads[0], grads[1]
-            lr_density = lr_of(cfg.lr_sigma, cfg.lr_sigma_final, cfg.lr_sigma_delay_steps,
-                               cfg.lr_sigma_delay_mult)
-            lr_sh = lr_of(cfg.lr_sh, cfg.lr_sh_final)
+            if lrs is None:
+                lr_density = lr_of(cfg.lr_sigma, cfg.lr_sigma_final, cfg.lr_sigma_delay_steps,
+                                   cfg.lr_sigma_delay_mult)
+                lr_sh = lr_of(cfg.lr_sh, cfg.lr_sh_final)
+            else:
+                lr_density, lr_sh = lrs[0], lrs[1]
             if self.fused_sweep:
                 # the dense TV joins here; the slab estimator's is in grads
                 dense = self._sweep_tv
@@ -362,10 +438,11 @@ class PlenoxelsTrainer:
                                      device=self.device)
                 self._rmsprop(st.grid.background, st.rms_bg, g_bg, lr_bg)
             # optim_basis_step (svox2.py:2091): RMSProp over the learned basis
-            lr_b = lr_of(cfg.lr_basis, cfg.lr_basis_final)
-            for p, r, g in zip(basis_leaves(st.grid.basis), basis_leaves(st.rms_basis),
-                               grads[i:]):
-                self._rmsprop(p, r, g, lr_b)
+            if st.grid.basis is not None:
+                lr_b = lr_of(cfg.lr_basis, cfg.lr_basis_final)
+                for p, r, g in zip(basis_leaves(st.grid.basis), basis_leaves(st.rms_basis),
+                                   grads[i:]):
+                    self._rmsprop(p, r, g, lr_b)
 
         live = mask > 0
         safe_leaf = torch.where(live, leaf, err_sum.shape[0] - 1)
@@ -439,55 +516,207 @@ class PlenoxelsTrainer:
         B, K = cfg.batch_size, cfg.steps_per_chunk
         n = epoch.origins.shape[0]
         n_pad = mesh.pad_to_multiple(max(n, 1), B * K)
+        dev = self.device
+        # on the card the epoch is padded in page-locked memory, and each
+        # chunk crosses without holding the host
+        pinned = dev.type == "cuda"
 
         def pad(a, fill=0.0):
-            out = np.full((n_pad,) + a.shape[1:], fill, a.dtype)
-            out[:n] = a if order is None else a[order]
-            return out
+            t = torch.empty((n_pad,) + a.shape[1:], pin_memory=pinned,
+                            dtype=torch.from_numpy(np.empty(0, a.dtype)).dtype)
+            out = t.numpy()
+            out[n:] = fill
+            if order is None:
+                out[:n] = a
+            else:   # a gather straight into the page-locked rows (a third of a[order]'s time)
+                np.take(a, order, axis=0, out=out[:n])
+            return t
 
-        dev = self.device
         with RECORDER.span("flnerf.io.upload"):
-            dirs = pad(epoch.dirs)
-            dirs[n:] = np.array([0, 0, -1.0], np.float32)
             mask = np.zeros(n_pad, np.float32)
             mask[:n] = 1.0
-            # the epoch crosses to the device once
-            origins_d, dirs_d, rgb_d, leaf_d, mask_d = (
-                torch.from_numpy(a).to(dev) for a in (
-                    pad(epoch.origins), dirs, pad(epoch.rgb),
-                    pad(epoch.leaf_id.astype(np.int64)), mask))
+            rays = (pad(epoch.origins), pad(epoch.dirs, np.array([0, 0, -1.0], np.float32)),
+                    pad(epoch.rgb), pad(epoch.leaf_id.astype(np.int64)),
+                    torch.from_numpy(mask).pin_memory() if pinned else torch.from_numpy(mask))
 
-        leaf_buf = _leaf_buf_size(epoch.n_leaves)
-        err_sum = torch.zeros(leaf_buf, device=dev)
-        err_cnt = torch.zeros(leaf_buf, device=dev)
-        zero = torch.zeros((), device=dev)
+        err_sum, err_cnt = self._err_bufs(_leaf_buf_size(epoch.n_leaves))
+        zero = None
         n_chunks = n_pad // (B * K)
         last = []
         steps = 0
         for ci in range(n_chunks):
+            live = [bool(mask[(ci * K + k) * B:(ci * K + k + 1) * B].any()) for k in range(K)]
+            rows = slice(ci * K * B, (ci + 1) * K * B)
+            graphed = self._graphs_chunk(live)
+            g = self._graphs.get(self._graph_key()) if graphed and self._graphs else None
+            if g is not None:
+                last = self._replay(g, [t[rows] for t in rays])
+                steps += K
+                continue
+            chunk = [t[rows].to(dev, non_blocking=pinned) for t in rays]
             last = []
-            for k in range(K):
-                sl = slice((ci * K + k) * B, (ci * K + k + 1) * B)
-                if mask[sl].any():
-                    last.append(self._step(origins_d[sl], dirs_d[sl], rgb_d[sl],
-                                           leaf_d[sl], mask_d[sl], err_sum,
-                                           err_cnt))
-                    steps += 1
-                else:
-                    last.append((zero, zero))
+            # the first chunk a graph would take runs here as its warm-up,
+            # on the stream its capture then uses
+            with self._warm_up() if graphed else contextlib.nullcontext():
+                for k in range(K):
+                    sl = slice(k * B, (k + 1) * B)
+                    if live[k]:
+                        last.append(self._step(*(t[sl] for t in chunk), err_sum, err_cnt))
+                        steps += 1
+                    else:
+                        zero = torch.zeros((), device=dev) if zero is None else zero
+                        last.append((zero, zero))
+            if graphed:
+                self._capture()
         RECORDER.count("flnerf.train.steps", steps)
         RECORDER.count("flnerf.train.rays", n)
         # one device -> host transfer per epoch
         m = epoch.n_leaves
         with RECORDER.span("flnerf.io.drain"):
-            host = torch.cat([err_sum[:m], err_cnt[:m],
-                              torch.stack([t for pair in last for t in pair])]).cpu().numpy()
+            pairs = (last.reshape(-1) if isinstance(last, torch.Tensor)
+                     else torch.stack([t for pair in last for t in pair]))
+            host = torch.cat([err_sum[:m], err_cnt[:m], pairs]).cpu().numpy()
         s, c = host[:m], host[m:2 * m]
         stat = s / np.maximum(c, 1.0)
         stat[c == 0] = -np.inf
         ms, cs = host[2 * m::2], host[2 * m + 1::2]
         epoch_mse = float((ms * cs).sum() / max(cs.sum(), 1.0))
         return stat, epoch_mse
+
+    def _err_bufs(self, size: int) -> torch.Tensor:
+        """[2, size]: the per-leaf error sum and count, zeroed; kept from
+        call to call while the size holds, as a captured chunk writes them."""
+        if self._err is None or self._err.shape[1] != size:
+            self._err = torch.zeros((2, size), device=self.device)
+        else:
+            self._err.zero_()
+        return self._err
+
+    # -- one CUDA graph a chunk ---------------------------------------------
+    # A chunk that graph_rule admits runs as the replay of a graph that
+    # captured the chunk's K steps: render, loss, K2 through autograd, the two
+    # sweeps, the error statistic.  What capture needs: no sync in the step
+    # (the grid's constants are cached on the device, models/voxel_sh.py
+    # grid_constants), the rates on the device (copied from lr_rows' table
+    # before each replay) and fixed buffers for the inputs and the error
+    # sums.  The sweep swaps each field's two buffers every step, so a graph
+    # holds for the buffers it started from: keyed on them and on everything
+    # else it reads and writes, at most two graphs (one per buffer order,
+    # sharing one memory pool) serve a grid.
+    def _graphs_chunk(self, live) -> bool:
+        st = self.state
+        return graph_rule(self.device, self.use_kernel, self.fused_sweep and self._sweep_tv,
+                          st.grid.background is not None, st.grid.basis is not None,
+                          self.cfg.lambda_tv_lumisphere, self.world, live)
+
+    def _graph_key(self):
+        """(what both graphs of a grid read and write and the configuration
+        they baked in, the grid's two buffer pairs in their order)."""
+        st, io = self.state, self._graph_io
+        ptrs = lambda ts: tuple(t.data_ptr() for t in ts)
+        return ((ptrs((st.rms_density, st.rms_sh, st.grid.alive, self._pairs[1], self._err,
+                       *io["ins"], io["lrs"])), self.gcfg, self.cfg),
+                ptrs((st.grid.density, st.grid.sh, self._spare["density"], self._spare["sh"])))
+
+    @contextlib.contextmanager
+    def _warm_up(self):
+        """The block on the capture's side stream, after the work queued so
+        far; the current stream then waits for it.  The live pairs and the
+        spare buffers are made first, on the current stream, so nothing the
+        grid keeps is allocated on the side stream."""
+        grid = self.state.grid
+        self._live_pairs(grid.alive)
+        for name, p in (("density", grid.density), ("sh", grid.sh)):
+            if name not in self._spare or self._spare[name].shape != p.shape:
+                self._spare[name] = torch.empty_like(p)
+        io = self._graph_buffers()
+        cur = torch.cuda.current_stream(self.device)
+        io["stream"].wait_stream(cur)
+        with torch.cuda.stream(io["stream"]):
+            yield
+        cur.wait_stream(io["stream"])
+
+    def _graph_buffers(self) -> dict:
+        """The graphs' fixed buffers, made once per trainer (again if the
+        configuration changes): the chunk's 5 inputs, the [K, 2] rates of
+        its steps and the [T + K, 2] table they are copied from, the side
+        stream and the memory pool."""
+        cfg, dev = self.cfg, self.device
+        B, K = cfg.batch_size, cfg.steps_per_chunk
+        io = self._graph_io
+        if io is None or io["cfg"] != cfg:
+            rows = lr_rows(cfg, K)
+            io = {"cfg": cfg, "rows": rows.to(dev), "last_row": rows.shape[0] - K,
+                  "lrs": torch.empty((K, 2), device=dev),
+                  "ins": (torch.empty((B * K, 3), device=dev), torch.empty((B * K, 3), device=dev),
+                          torch.empty((B * K, 3), device=dev),
+                          torch.empty(B * K, dtype=torch.int64, device=dev),
+                          torch.empty(B * K, device=dev)),
+                  "stream": torch.cuda.Stream(dev),
+                  "pool": torch.cuda.graph_pool_handle()}
+            self._graphs.clear()
+            self._graph_io = io
+        return io
+
+    def _capture(self) -> None:
+        """Capture the next chunk from the trainer's state as it stands (the
+        warm-up chunk has just run), unless a graph for it exists.  Capture
+        runs nothing on the device, so the host state (step, buffers, launch
+        counters, recorder) is put back as it was; a replay trains the chunk
+        and advances them."""
+        io = self._graph_buffers()
+        key = self._graph_key()
+        if key in self._graphs:
+            return
+        if len(self._graphs) >= 2 or any(k[0] != key[0] for k in self._graphs):
+            self._graphs.clear()
+        cfg, st, spare = self.cfg, self.state, dict(self._spare)
+        B, K = cfg.batch_size, cfg.steps_per_chunk
+        launches = tuple(getattr(mod, name) for mod, name in LAUNCH_COUNTERS)
+        holds = (st.grid.density, st.grid.sh, spare["density"], spare["sh"], st.rms_density,
+                 st.rms_sh, st.grid.alive, self._pairs[1], self._err)
+        out = torch.zeros((K, 2), device=self.device)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with RECORDER.detached() as counters:
+                with torch.cuda.graph(graph, pool=io["pool"], stream=io["stream"]):
+                    for k in range(K):
+                        sl = slice(k * B, (k + 1) * B)
+                        mse, count = self._step(*(t[sl] for t in io["ins"]), *self._err,
+                                                lrs=io["lrs"][k])
+                        out[k, 0].copy_(mse)
+                        out[k, 1].copy_(count)
+            end = (self.state.grid.density, self.state.grid.sh, self._spare["density"],
+                   self._spare["sh"])
+            ran = tuple(getattr(mod, name) - n for (mod, name), n in zip(LAUNCH_COUNTERS, launches))
+        finally:
+            self.state, self._spare = st, spare
+            for (mod, name), n in zip(LAUNCH_COUNTERS, launches):
+                setattr(mod, name, n)
+        self._graphs[key] = _ChunkGraph(graph, out, end, ran, counters, holds)
+
+    def _replay(self, g: _ChunkGraph, chunk):
+        """Train a chunk by graph ``g``: its rows (``chunk``, in page-locked
+        host memory) and the steps' rates into the graph's buffers (copies
+        that hold no one), one replay, then the host state the captured
+        steps left; returns the steps' [K, 2] (mse, ray count)."""
+        io, st = self._graph_io, self.state
+        K = self.cfg.steps_per_chunk
+        for dst, src in zip(io["ins"], chunk):
+            dst.copy_(src, non_blocking=True)
+        row = min(st.step, io["last_row"])
+        io["lrs"].copy_(io["rows"][row:row + K], non_blocking=True)
+        with RECORDER.span("flnerf.train.graph_replay"):
+            g.graph.replay()
+        for (mod, name), n in zip(LAUNCH_COUNTERS, g.launches):
+            setattr(mod, name, getattr(mod, name) + n)
+        for name, n in g.counters.items():
+            RECORDER.count(name, n)
+        RECORDER.count("flnerf.train.graph_steps", K)
+        density, sh, spare_density, spare_sh = g.end
+        self._spare = {"density": spare_density, "sh": spare_sh}
+        self.state = st._replace(grid=st.grid._replace(density=density, sh=sh), step=st.step + K)
+        return g.out
 
     def fit(self, budgeter: RayBudgeter, on_epoch_end=None, verbose=True):
         cfg = self.cfg
@@ -554,6 +783,7 @@ class PlenoxelsTrainer:
         self.gcfg = self.gcfg._replace(reso=new_reso)
         self._spare.clear()
         self._pairs = (None, None)
+        self._graphs.clear()
         self.state = self.state._replace(grid=grid, rms_density=torch.zeros_like(grid.density),
                                          rms_sh=torch.zeros_like(grid.sh))
 

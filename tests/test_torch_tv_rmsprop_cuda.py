@@ -56,19 +56,27 @@ CASES = [((37, 20, 19), 0), ((37, 20, 19), 27), ((16, 16, 16), 27), ((24, 20, 16
 @pytest.mark.parametrize("shape,c", CASES)
 @pytest.mark.parametrize("alive_frac", [1.0, 0.6])
 @pytest.mark.parametrize("with_tv", [True, False])
-def test_kernel_is_its_plain_version_bit_for_bit(cuda, shape, c, alive_frac, with_tv):
+@pytest.mark.parametrize("rate", ["float", "table"])
+def test_kernel_is_its_plain_version_bit_for_bit(cuda, shape, c, alive_frac, with_tv, rate):
     """Odd lines (not a multiple of any vector width), 1, 4 and 27 channels,
     random alive masks, faces and lam = 0: every operation is rounded on its
-    own in the same order on both sides."""
+    own in the same order on both sides.  The rate by value, or read by the
+    kernel from one float32 of a [K, 2] device table (the rest NaN), as the
+    trainer's CUDA graph replays give it."""
     p, g, rms, alive = _fields(shape, c, alive_frac, seed=len(shape) + c)
     lam = _lam(shape) if with_tv else 0.0
     pd, gd, rd, ad = (t.to(cuda) for t in (p, g, rms, alive))
+    lr = 0.01
+    if rate == "table":
+        table = torch.full((8, 2), float("nan"), device=cuda)
+        table[5, 1] = lr
+        lr = table[5, 1]
     before = tr.SWEEP_LAUNCHES, tr.PAIRS_LAUNCHES
     pairs = tr.live_pairs(ad)
     assert torch.equal(pairs.cpu(), tr.live_pairs_plain(alive))
     rms_plain = rd.clone()
     want = tr.tv_rmsprop_plain(pd, gd, rms_plain, pairs, lam, 0.01, BETA, torch.empty_like(pd))
-    got = tr.tv_rmsprop(pd, gd, rd, pairs, lam, 0.01, BETA)
+    got = tr.tv_rmsprop(pd, gd, rd, pairs, lam, lr, BETA)
     torch.cuda.synchronize()
     assert (tr.SWEEP_LAUNCHES, tr.PAIRS_LAUNCHES) == (before[0] + 1, before[1] + 1)
     assert torch.equal(pd.cpu(), p)             # param is left as it was
